@@ -133,7 +133,7 @@ def main(argv=None):
                                           test_data.vid_set, skip=tcfg.skip)
     loader = AVSDLoader(test_data, visual_stores=vis_stores,
                         audio_stores=aud_stores, batch_size=args.gen_batch_size,
-                        len_buckets=tcfg.len_buckets,
+                        shuffle=False, cut_a=False, len_buckets=tcfg.len_buckets,
                         time_buckets=tcfg.time_buckets)
     logging.info("#test sample = %d  #test batch = %d",
                  len(test_data.examples), len(loader))

@@ -48,7 +48,7 @@ class ModelConfig:
     # input feature dims: [visual_dim] or [visual_dim, audio_dim]; empty = text-only
     ft_sizes: Tuple[int, ...] = ()
     dtype: str = "float32"           # activation dtype; params stay float32
-    remat: bool = False              # training-only; kept for .conf parity
+    remat: bool = False              # training: recompute each decoder round
     max_pos: int = 5000              # sinusoidal PE table length (modules.py:127)
 
     def __post_init__(self):

@@ -41,6 +41,12 @@
 // visited, so a row whose columns are all masked gets uniform attention over
 // the true Lk (as the plain version does; the Pallas kernel also counted its
 // padding columns there).
+//
+// For training (`hop1_trainable`) it also writes the residuals the backward
+// kernel (hop1_bwd.cu) reads: concat, the normalised accumulator before Wo,
+// and per (row, head) lse = m + log(l).  The evaluation path passes null
+// pointers and skips those writes.  The row-block x weight product, the grid
+// loads and the width rule are shared with hop1_bwd.cu (hop1_tiles.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,99 +55,11 @@
 #include <algorithm>
 #include <initializer_list>
 
+#include "hop1_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRM = 8;                // rows per thread in row-block x W
-constexpr int kAlign = 8;             // qc and tk are multiples of this
-constexpr int kMaxD = 512;
-constexpr float kMaskedScore = -1e9f; // the reference's masked logit
-constexpr size_t kSmemLimit = 232448;        // shared memory a block may use
-constexpr size_t kSmemTarget = 113 * 1024;   // two blocks per SM
-
-// 4 consecutive grid elements as float32 (16-byte or 8-byte aligned)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  __nv_bfloat162 v[2];
-  *reinterpret_cast<uint2*>(v) = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(v[0]), b = __bfloat1622float2(v[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// weight rows per staged chunk: 2 weights x kc x D <= 2048 floats
-__host__ __device__ constexpr int chunk_rows(int D) {
-  return D <= 128 ? 8 : D <= 256 ? 4 : 2;
-}
-
-// Load chunk rows [d0, d0 + kc) of NW weights (float4s, <= 2 per thread).
-template <int NW>
-__device__ __forceinline__ void stage_load(float4 (&r)[2], const float* w0,
-                                           const float* w1, int D, int kc, int d0) {
-  const int n4 = kc * D / 4;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int i = threadIdx.x + s * kThreads;
-    if (i < NW * n4) {
-      const float* w = (i < n4 ? w0 : w1) + (size_t)d0 * D;
-      r[s] = __ldg(reinterpret_cast<const float4*>(w) + i % n4);
-    }
-  }
-}
-
-template <int NW>
-__device__ __forceinline__ void stage_store(const float4 (&r)[2], float* buf,
-                                            int D, int kc) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int i = threadIdx.x + s * kThreads;
-    if (i < NW * kc * D / 4) reinterpret_cast<float4*>(buf)[i] = r[s];
-  }
-}
-
-// acc[m][i][j] += sum_d a_t[d * lda + r0 + i] * W_m[d][c + j] over all d, for
-// W_0 = w0, W_1 = w1 (D x D, row-major).  Every thread of the block calls it
-// (it stages the weights through w_s, 2 x NW x kc x D floats); only `active`
-// threads accumulate.
-template <int NW>
-__device__ __forceinline__ void rows_times_w(const float* __restrict__ a_t, int lda,
-                                             int r0, bool active,
-                                             const float* __restrict__ w0,
-                                             const float* __restrict__ w1, int D,
-                                             float* __restrict__ w_s, int c,
-                                             float (&acc)[NW][kRM][2]) {
-  const int kc = chunk_rows(D);
-  const int nchunk = D / kc;
-  float4 st[2];
-  stage_load<NW>(st, w0, w1, D, kc, 0);
-  for (int ci = 0; ci < nchunk; ++ci) {
-    float* buf = w_s + (ci & 1) * (NW * kc * D);
-    stage_store<NW>(st, buf, D, kc);
-    __syncthreads();
-    if (ci + 1 < nchunk) stage_load<NW>(st, w0, w1, D, kc, (ci + 1) * kc);
-    if (active) {
-#pragma unroll 2
-      for (int dd = 0; dd < kc; ++dd) {
-        const float* ar = a_t + (ci * kc + dd) * lda + r0;
-        const float4 a0 = *reinterpret_cast<const float4*>(ar);
-        const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
-        const float av[kRM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int m = 0; m < NW; ++m) {
-          const float2 w2 = *reinterpret_cast<const float2*>(buf + (m * kc + dd) * D + c);
-#pragma unroll
-          for (int i = 0; i < kRM; ++i) {
-            acc[m][i][0] = fmaf(av[i], w2.x, acc[m][i][0]);
-            acc[m][i][1] = fmaf(av[i], w2.y, acc[m][i][1]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();   // w_s is free again
-}
+using namespace hop1;
 
 template <typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -151,7 +69,8 @@ hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
                 const float* __restrict__ wk, const float* __restrict__ bk,
                 const float* __restrict__ wv, const float* __restrict__ bv,
                 const float* __restrict__ wo, const float* __restrict__ bo,
-                float* __restrict__ out, int G, int Lq, int Lk, int D, int h,
+                float* __restrict__ out, float* __restrict__ concat_out,
+                float* __restrict__ lse_out, int G, int Lq, int Lk, int D, int h,
                 int qc, int tk, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -200,14 +119,7 @@ hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
   for (int t0 = 0; t0 < Lk; t0 += tk) {
     const int nt = min(tk, Lk - t0);
     __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < nt * nd4; i += kThreads) {
-      const int r = i % nt, d = i / nt * 4;
-      const float4 v = load4(kv_bg + (long long)(t0 + r) * kv_st + d);
-      kv_t[d * tk + r] = v.x;
-      kv_t[(d + 1) * tk + r] = v.y;
-      kv_t[(d + 2) * tk + r] = v.z;
-      kv_t[(d + 3) * tk + r] = v.w;
-    }
+    load_rows_t(kv_bg, kv_st, t0, nt, D, tk, kv_t);
     __syncthreads();
 
     // K and V projections of the tile's rows, in groups of 8 rows (rows >= nt
@@ -218,7 +130,7 @@ hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
       const bool active = item < n_proj;
       const int c = item % ncp * 2, r0 = item / ncp * kRM;
       float acc[2][kRM][2] = {};
-      rows_times_w<2>(kv_t, tk, r0, active, wk, wv, D, w_s, c, acc);
+      rows_times_w<2>(kv_t, tk, r0, active, wk, wv, D, D, w_s, c, acc);
       if (active) {
         const float2 bk2 = *reinterpret_cast<const float2*>(bk + c);
         const float2 bv2 = *reinterpret_cast<const float2*>(bv + c);
@@ -332,6 +244,24 @@ hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
   }
   __syncthreads();
 
+  // Training residuals: concat (the rows of acc_t) and per-head lse = m +
+  // log(l), the log-sum-exp of the scores as the softmax saw them (-1e9 on
+  // masked columns).  A thread writes 4 columns of one row.
+  if (concat_out != nullptr) {
+    const size_t row0 = ((size_t)b * G + g) * Lq + q0;
+    for (int item = tid; item < qc * nd4; item += kThreads) {
+      const int i = item % qc, c = item / qc * 4;
+      if (i < nq)
+        *reinterpret_cast<float4*>(concat_out + (row0 + i) * D + c) =
+            make_float4(acc_t[c * qc + i], acc_t[(c + 1) * qc + i],
+                        acc_t[(c + 2) * qc + i], acc_t[(c + 3) * qc + i]);
+    }
+    for (int ih = tid; ih < qh; ih += kThreads) {
+      const int i = ih % qc, hd = ih / qc;
+      if (i < nq) lse_out[(row0 + i) * h + hd] = m_s[ih] + logf(l_s[ih]);
+    }
+  }
+
   // out = x + (concat Wo + bo).
   const int n_out = qc / kRM * ncp;
   for (int base = 0; base < n_out; base += kThreads) {
@@ -339,7 +269,7 @@ hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
     const bool active = item < n_out;
     const int c = item % ncp * 2, r0 = item / ncp * kRM;
     float acc[1][kRM][2] = {};
-    rows_times_w<1>(acc_t, qc, r0, active, wo, wo, D, w_s, c, acc);
+    rows_times_w<1>(acc_t, qc, r0, active, wo, wo, D, D, w_s, c, acc);
     if (active) {
       const float2 bo2 = *reinterpret_cast<const float2*>(bo + c);
 #pragma unroll
@@ -366,8 +296,7 @@ size_t smem_bytes(int qc, int tk, int D, int h) {
 // then the largest kv tile (a multiple of 8, at most 64) that fit two blocks
 // per SM, else one.  False for widths the kernel does not take.
 bool hop1_plan(int Lq, int Lk, int D, int h, int* qc, int* tk, size_t* smem) {
-  if (h < 1 || D > kMaxD || D % kAlign != 0 || D % h != 0 || (D / h) % 4 != 0)
-    return false;
+  if (!widths_ok(D, h)) return false;
   const int tk_max = std::min(64, (Lk + kAlign - 1) / kAlign * kAlign);
   for (int c = std::min(32, (Lq + kAlign - 1) / kAlign * kAlign); c > 0; c -= kAlign)
     for (size_t limit : {kSmemTarget, kSmemLimit})
@@ -385,8 +314,8 @@ template <typename TKV>
 int launch(const float* x, const float* q, const TKV* kv, long long kv_sb,
            long long kv_sg, long long kv_st, const int* mask, const float* wk,
            const float* bk, const float* wv, const float* bv, const float* wo,
-           const float* bo, float* out, int B, int G, int Lq, int Lk, int D,
-           int h, float scale, cudaStream_t stream) {
+           const float* bo, float* out, float* concat, float* lse, int B, int G,
+           int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
   int qc, tk;
   size_t smem;
   if (!hop1_plan(Lq, Lk, D, h, &qc, &tk, &smem)) return (int)cudaErrorInvalidValue;
@@ -397,8 +326,8 @@ int launch(const float* x, const float* q, const TKV* kv, long long kv_sb,
   }
   const dim3 grid((unsigned)(B * G), (unsigned)((Lq + qc - 1) / qc));
   hop1_fwd_kernel<TKV><<<grid, kThreads, smem, stream>>>(
-      x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, G, Lq,
-      Lk, D, h, qc, tk, scale);
+      x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat,
+      lse, G, Lq, Lk, D, h, qc, tk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -409,22 +338,25 @@ extern "C" {
 // Launch on `stream`; returns the CUDA error code of the launch (0 = ok), or
 // cudaErrorInvalidValue for widths the kernel does not take (D > 512, D not
 // a multiple of 8, D / h not a multiple of 4).  kv is float32, or bfloat16
-// when kv_bf16 is set; its strides are in elements.
+// when kv_bf16 is set; its strides are in elements.  concat (B, G, Lq, D)
+// and lse (B, G, Lq, h) are the training residuals: both null, or both
+// written.
 int bist_hop1_fwd(const float* x, const float* q, const void* kv, int kv_bf16,
                   long long kv_sb, long long kv_sg, long long kv_st,
                   const int* mask, const float* wk, const float* bk,
                   const float* wv, const float* bv, const float* wo,
-                  const float* bo, float* out, int B, int G, int Lq, int Lk,
-                  int D, int h, float scale, void* stream) {
+                  const float* bo, float* out, float* concat, float* lse, int B,
+                  int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
   if (kv_sb % 4 != 0 || kv_sg % 4 != 0 || kv_st % 4 != 0 || B < 1 || G < 1 ||
-      Lq < 1 || Lk < 1)
+      Lq < 1 || Lk < 1 || (concat == nullptr) != (lse == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_bf16)
     return launch(x, q, static_cast<const __nv_bfloat16*>(kv), kv_sb, kv_sg, kv_st,
-                  mask, wk, bk, wv, bv, wo, bo, out, B, G, Lq, Lk, D, h, scale, s);
+                  mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h,
+                  scale, s);
   return launch(x, q, static_cast<const float*>(kv), kv_sb, kv_sg, kv_st, mask,
-                wk, bk, wv, bv, wo, bo, out, B, G, Lq, Lk, D, h, scale, s);
+                wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h, scale, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""AVSD JSON → flattened per-turn examples (a copy of `bist_tpu.data.avsd`,
-read path only).
+"""AVSD JSON → flattened per-turn examples, and the training-time random
+answer cut (a copy of `bist_tpu.data.avsd`).
 
 Semantic parity with reference data/data_handler.py:60-133 `load`: caption
 handling per include_caption / separate_caption, history = caption (or
@@ -105,3 +105,17 @@ def load_avsd(dataset_file: str, vocab: Dict[str, int],
 
     return AVSDData(examples=examples, vocab=vocab, original=dialog_data,
                     vid_set=vid_set)
+
+
+def cut_answer(answer_in: np.ndarray, answer_out: np.ndarray,
+               rng: np.random.Generator):
+    """Random answer truncation to simulate partial decoding.
+
+    Reference Dataset.__getitem__ (data/dataset.py:33-38): with p=0.5 pick
+    end_idx ∈ [1, len(answer_in)), answer_out = answer_in[1:end_idx] +
+    [answer_in[end_idx]], answer_in = answer_in[:end_idx]."""
+    if rng.uniform() >= 0.5 and len(answer_in) > 1:
+        end_idx = int(rng.integers(1, len(answer_in)))
+        new_out = np.concatenate((answer_in[1:end_idx], [answer_in[end_idx]]))
+        return answer_in[:end_idx].astype(np.int32), new_out.astype(np.int32)
+    return answer_in, answer_out

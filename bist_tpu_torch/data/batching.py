@@ -77,10 +77,16 @@ def pad_to(seqs: Sequence[np.ndarray], length: int, pad_value: int = PAD,
     return out
 
 
-def pad_tokens(seqs: Sequence[np.ndarray], buckets: Sequence[int]) -> np.ndarray:
-    """Bucket + pad 1-D token sequences into (len(seqs), L), L the smallest
-    bucket covering the longest sequence."""
-    return pad_to(seqs, bucket_len(max(len(s) for s in seqs), buckets))
+def pad_tokens(seqs: Sequence[np.ndarray], buckets: Sequence[int],
+               n_rows: int = 0) -> np.ndarray:
+    """Bucket + pad 1-D token sequences into (max(len(seqs), n_rows), L), L
+    the smallest bucket covering the longest sequence; rows beyond len(seqs)
+    are all-PAD (batch padding, masked everywhere downstream)."""
+    arr = pad_to(seqs, bucket_len(max(len(s) for s in seqs), buckets))
+    if n_rows > len(seqs):
+        arr = np.concatenate(
+            [arr, np.full((n_rows - len(seqs), arr.shape[1]), PAD, np.int32)])
+    return arr
 
 
 def make_batch(histories: Sequence[np.ndarray],
@@ -88,12 +94,18 @@ def make_batch(histories: Sequence[np.ndarray],
                answers_in: Sequence[np.ndarray],
                answers_out: Sequence[np.ndarray],
                captions: Optional[Sequence[np.ndarray]] = None,
-               len_buckets: Sequence[int] = (16, 32, 64, 128, 256)) -> Batch:
+               len_buckets: Sequence[int] = (16, 32, 64, 128, 256),
+               pad_batch_to: int = 0) -> Batch:
     """Assemble the token fields of a static-shape Batch from ragged
-    per-example arrays (features are assembled by data.features)."""
-    trg = pad_tokens(answers_in, len_buckets)
-    return Batch(query=pad_tokens(questions, len_buckets),
-                 his=pad_tokens(histories, len_buckets), trg=trg,
-                 trg_y=pad_to(answers_out, trg.shape[1]),
-                 cap=pad_tokens(captions, len_buckets) if captions is not None
-                 else None)
+    per-example arrays (features are assembled by data.features).
+    pad_batch_to > len(histories) adds all-PAD rows: their token counts are
+    0, so they add nothing to the loss (a tail batch padded to a multiple of
+    the gradient-accumulation microbatches)."""
+    n_rows = max(len(histories), pad_batch_to)
+    trg = pad_tokens(answers_in, len_buckets, n_rows)
+    return Batch(query=pad_tokens(questions, len_buckets, n_rows),
+                 his=pad_tokens(histories, len_buckets, n_rows), trg=trg,
+                 trg_y=pad_to(list(answers_out) + [()] * (n_rows - len(answers_out)),
+                              trg.shape[1]),
+                 cap=pad_tokens(captions, len_buckets, n_rows)
+                 if captions is not None else None)

@@ -70,6 +70,12 @@ class FeatureStore:
     def max_t(self, vids: Sequence[str]) -> int:
         return max(self.get(v).shape[0] for v in vids)
 
+    def dim(self) -> int:
+        """Trailing feature dim, from the first registered file's header
+        (reference feature_shape, data_handler.py:168-176)."""
+        vid = next(iter(self._paths))
+        return int(np.load(self.path(vid), mmap_mode="r").shape[-1])
+
 
 def build_stores(fea_types: Optional[Sequence[str]], fea_path_template: str,
                  vids: Sequence[str], skip: int = 1,
@@ -87,3 +93,7 @@ def build_stores(fea_types: Optional[Sequence[str]], fea_path_template: str,
         store.register(vids)
         (audio if store.is_audio else visual).append(store)
     return visual, audio
+
+
+def feature_shape(stores: Sequence[FeatureStore]) -> List[int]:
+    return [s.dim() for s in stores]

@@ -7,7 +7,10 @@ model/decoder.py:11-186).
   * The video grid lives under its own key 'video_grid' and is never
     overwritten by layer outputs.
   * Hop 1 of both directions goes through the fused K1 kernel
-    (`ops.bist_kernels.hop1_fused`) whenever `ops.dispatch` allows it.
+    (`ops.bist_kernels.hop1_fused`) whenever `ops.dispatch` allows it, and
+    under a gradient through `hop1_trainable` (K1 forward, K2 backward).
+  * `cfg.remat` recomputes each decoder round in the backward pass
+    (`torch.utils.checkpoint`), with the same dropout masks.
 
 Per layer, query x (B, Lq, D), grid V (B, T, S, D):
   t2s: self-attn(x) → attend along T per spatial region (temporal mask)
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bist_tpu_torch.config import ModelConfig
 from bist_tpu_torch.models.layers import (
@@ -28,7 +32,7 @@ from bist_tpu_torch.models.layers import (
     linear_init, mha, mha_init, sublayer,
 )
 from bist_tpu_torch.ops import dispatch
-from bist_tpu_torch.ops.bist_kernels import hop1_fused
+from bist_tpu_torch.ops.bist_kernels import hop1_fused, hop1_trainable
 
 Masks = Dict[str, Optional[torch.Tensor]]
 FT = Dict[str, torch.Tensor]
@@ -81,10 +85,12 @@ def _hop1(p_hop: Params, h: int, drop: float, adrop: float, rngs: Gen,
     x[:,None] + MHA(LN(x), kv, kv) of shape (B,G,Lq,D)."""
     normed = layer_norm(p_hop["norm"], x)
     a = p_hop["attn"]
-    if dispatch.hop1_uses_kernel(
-            dropout_active=rngs is not None,
-            grad=dispatch.needs_grad(x, kv_groups, a["wk"]["w"])):
-        return hop1_fused(x, linear(a["wq"], normed), kv_groups, a, h, mask)
+    if dispatch.hop1_uses_kernel(dropout_active=rngs is not None):
+        q = linear(a["wq"], normed)
+        w = [a[n][k] for n in ("wk", "wv", "wo") for k in ("w", "b")]
+        if dispatch.needs_grad(x, q, kv_groups, *w):
+            return hop1_trainable.apply(x, q, kv_groups, *w, h, mask)
+        return hop1_fused(x, q, kv_groups, a, h, mask)
     attn_out = mha(a, h, normed[:, None], kv_groups, kv_groups,
                    mask=None if mask is None else mask[:, None],
                    drop_rate=adrop, rngs=rngs)
@@ -377,15 +383,47 @@ def modality_step(p: Params, cfg: ModelConfig, layer_idx: int, in_ft: FT,
     return ft, in_ft
 
 
+def _cloned(gen: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    clone = torch.Generator(device=gen.device)
+    clone.set_state(state)
+    return clone
+
+
 def decoder_apply(p: Params, cfg: ModelConfig, ft: FT, x: torch.Tensor,
                   masks: Masks, rngs: Gen) -> FT:
     """Training-path decoder: N rounds of modality reasoning + response layer
     (decoder.py:107-186).  Returns ft with 'decoded_text' and the final-round
-    modality features."""
+    modality features.
+
+    cfg.remat wraps each round in `torch.utils.checkpoint`: its activations
+    are recomputed in the backward pass instead of stored.  Dropout draws
+    from the explicit generator `rngs`, which checkpoint does not restore,
+    so each round draws from a clone of the generator's state at the round's
+    start, the recomputation from a fresh clone of that same state (the same
+    masks), and `rngs` is then advanced to where the round left its clone,
+    as if the round had drawn from it directly."""
     in_ft: FT = {k: ft["encoded_query"] for k in ("t2s", "s2t", "audio", "cap")}
     for n in range(cfg.nb_blocks):
-        ft, in_ft = modality_step(p, cfg, n, in_ft, ft, masks, rngs)
-        x = mm_layer_apply(p["mm_layers"][n], cfg, ft, x, masks, rngs)
+        def round_body(ft, in_ft, x, gen, _n=n):
+            ft2, in_ft2 = modality_step(p, cfg, _n, in_ft, ft, masks, gen)
+            return ft2, in_ft2, mm_layer_apply(p["mm_layers"][_n], cfg, ft2, x,
+                                               masks, gen)
+
+        if not cfg.remat:
+            ft, in_ft, x = round_body(ft, in_ft, x, rngs)
+            continue
+        start = None if rngs is None else rngs.get_state()
+        last = []
+
+        def drawn(ft, in_ft, x, _start=start, _last=last, _body=round_body):
+            gen = None if _start is None else _cloned(rngs, _start)
+            out = _body(ft, in_ft, x, gen)
+            _last[:] = [None if gen is None else gen.get_state()]
+            return out
+
+        ft, in_ft, x = checkpoint(drawn, ft, in_ft, x, use_reentrant=False)
+        if rngs is not None:
+            rngs.set_state(last[0])
     ft = dict(ft)
     ft["decoded_text"] = layer_norm(p["norm"], x)
     return ft

@@ -6,8 +6,9 @@ by `nvcc` into its own shared library, loaded with `ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/bist_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as built.  `build()` starts
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as built.  `build()` starts
 one `nvcc` per missing library, all at once, and raises if any fails.
 Nothing here runs at import: a kernel's library is built the first time its
 wrapper launches it (or when a caller asks, as `chip_smoke.py` does).
@@ -26,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bist_tpu_torch"
-KERNEL_SOURCES = ("hop1_fwd", "flash_fwd")
+KERNEL_SOURCES = ("hop1_fwd", "hop1_bwd", "flash_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,6 +49,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

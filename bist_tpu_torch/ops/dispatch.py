@@ -1,10 +1,13 @@
 """Single source of the port's kernel dispatch rules.
 
-  * Hop 1 (K1, `ops.bist_kernels.hop1_fused`): always, when there is no
-    dropout and no gradient is asked for (the backward kernel, K2, belongs to
-    the training slice).  `bist_tpu` engages its Pallas hop-1 kernel only
-    above 5 GiB of grid, a capacity frontier of the TPU v5e's 16 GB HBM that
-    says nothing about this card.
+  * Hop 1: always, when there is no dropout, with or without a gradient.
+    Without one, `models.bist._hop1` calls `ops.bist_kernels.hop1_fused`
+    (K1); with one, `hop1_trainable`, whose forward is K1 writing its
+    residuals and whose backward is K2 (`hop1_bwd`).  Dropout (`--dropout`
+    or `--attn-dropout` above 0) keeps hop 1 on the plain path, as in
+    `bist_tpu`, whose kernels have no dropout either.  `bist_tpu` engages its
+    Pallas hop-1 kernels only above 5 GiB of grid, a capacity frontier of the
+    TPU v5e's 16 GB HBM that says nothing about this card.
   * Flash attention (K3, `ops.flash_attention.flash_attention`) inside
     `models.layers.mha`: the JAX predicate minus its d_k ≥ 64 guard (that
     guard exists for the TPU's 128-lane padding): no dropout, no returned
@@ -50,8 +53,8 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def hop1_uses_kernel(dropout_active: bool, grad: bool) -> bool:
-    return not (_force_plain or dropout_active or grad)
+def hop1_uses_kernel(dropout_active: bool) -> bool:
+    return not (_force_plain or dropout_active)
 
 
 def mha_uses_flash(kv_len: int, dropout_active: bool, grad: bool,

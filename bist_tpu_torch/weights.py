@@ -6,7 +6,8 @@ same names, and the same layouts — a linear weight is (in, out) in both, and
 way.  `params_from_jax` takes the JAX tree with numpy leaves (for example
 `jax.tree_util.tree_map(np.asarray, params)`); `params_to_jax` gives numpy
 leaves back.  A port checkpoint (`<model>.pt`) is that tree saved with
-`torch.save`.
+`torch.save`, or a training checkpoint (`train.checkpoint`) that holds it
+under "params".
 """
 
 from __future__ import annotations
@@ -24,6 +25,15 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a parameter tree in `tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_jax(tree, device=None):
@@ -45,7 +55,10 @@ def save_params(path: str, params) -> None:
 
 
 def load_params(path: str, device=None):
-    """A port checkpoint onto `device` (default cuda; raises without it)."""
+    """The parameters of a port checkpoint or training checkpoint onto
+    `device` (default cuda; raises without it)."""
     device = resolve_device(device)
-    return tree_map(lambda t: t.to(device),
-                    torch.load(path, map_location="cpu", weights_only=True))
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(tree, dict) and "params" in tree and "opt_state" in tree:
+        tree = tree["params"]
+    return tree_map(lambda t: t.to(device), tree)

@@ -8,8 +8,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA → exit 1;
   1. build the CUDA kernels of bist_tpu_torch/csrc, one nvcc per source, all
      started together (into build/bist_tpu_torch/);
-  2. each kernel against its plain PyTorch version (float32, TF32 off,
-     tolerance 2e-4 abs/rel) at the shapes the main path gives it, timed as
+  2. each kernel against its plain PyTorch version (float32, TF32 off; an
+     element passes when |kernel - plain| <= 2e-4 + 2e-4·|plain|, so K2's
+     weight gradients, sums over thousands of kv rows, may pass through the
+     relative term, and their largest relative error there is printed) at
+     the shapes the main path gives it, timed as
      the median of CUDA-event runs beside the plain version, a library call
      where one computes the same function, and the card's bound;
   3. the main path: the flagship AVSD model (d_model 128, 8 heads, 3/3/3
@@ -25,7 +28,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      counts zeroed and read around it, held against the plain path;
   5. the generate CLI on a tiny on-disk dataset (turns from the vendored test
      set, random .npy features, a .conf + .pt from the port's init_model),
-     with its result JSON checked.
+     with its result JSON checked;
+  6. the training path: the flagship model without dropout (so hop 1 runs
+     K1 with residuals and K2), random weights from seed 0, Noam-Adam with
+     warmup 10 over 2 cycled batches of 32 real training turns (random
+     features as in 3).  One step's gradients are first held against the
+     plain path (force_plain): the loss to 5e-4 relative, each gradient to
+     5e-4 + 5e-3·|g| (the key biases', analytically zero, to 5e-4).  Then 30
+     steps with the launch counts zeroed before and read after: K1 and K2 6
+     times per step each; the loss finite and lower at the end on the same
+     batch; ms/step (median after the first) and examples/s; then 3
+     steps under torch.profiler for the device time per step and the
+     hop-1 kernels' part of it;
+  7. the train CLI for one epoch on phase 5's tiny dataset without dropout,
+     then the generate CLI from its <model>_best.pt; the CSV headers, the
+     artifacts and the result JSON checked.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -61,6 +78,7 @@ FLAGSHIP = dict(nb_blocks=3, nb_venc_blocks=3, nb_cenc_blocks=3,
 # bench.py's static shape: queries <= 32, histories clipped to 256, summary
 # captions <= 64, <= 40 clips of (16 regions, 2048 features)
 LQ, LH, LC, T_MAX, S, DV = 32, 256, 64, 40, 16, 2048
+LA = 32                      # answers of the training batches, clipped
 T_BUCKETS = (16, 24, 32, 40)
 GEN = dict(maxlen=12, beam=5, penalty=1.0, nbest=5)
 
@@ -110,6 +128,22 @@ def hop1_work(B, G, Lq, Lk, D, masked):
     return nbytes, flops
 
 
+def hop1_bwd_work(B, G, Lq, Lk, D, h, masked):
+    """Bytes that must move and float32 operations of one hop-1 backward
+    call (K2): q_proj, kv, d_concat, dh, lse, Wk, bk, Wv, bv (and the mask)
+    read once; dq, dkv, dWk, dWv, dbk, dbv written once; the K/V recompute,
+    s and dp, dq, dk and dv, dkv and dW."""
+    nbytes = 4 * (2 * B * Lq * D + 2 * B * G * Lk * D + B * G * Lq * D
+                  + 2 * B * G * Lq * h + 4 * D * D + 4 * D) \
+        + (4 * B * Lk if masked else 0)
+    flops = (2 * 2 * B * G * Lk * D * D        # K and V recomputed
+             + 2 * 2 * B * G * Lq * Lk * D     # s and dp over all heads
+             + 3 * 2 * B * G * Lq * Lk * D     # dq, dk and dv
+             + 2 * 2 * B * G * Lk * D * D      # dkv = dk Wkᵀ + dv Wvᵀ
+             + 2 * 2 * B * G * Lk * D * D)     # dWk, dWv
+    return nbytes, flops
+
+
 def flash_work(G, Lq, Lk, d, masked):
     nbytes = 4 * (2 * G * Lq * d + 2 * G * Lk * d) + (4 * G * Lk if masked else 0)
     return nbytes, 4 * G * Lq * Lk * d
@@ -127,12 +161,12 @@ def random_mha_params(h, d, seed, device):
     return {n: {k: t.to(device) for k, t in w.items()} for n, w in p.items()}
 
 
-def check_hop1(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed):
-    """One K1 case: random inputs from a numpy seed; `strided_t2s` passes kv
-    as the main path's t2s does, a (B, T, S, D) grid with T and S swapped."""
+def hop1_inputs(device, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
+                full_row=True):
+    """Random hop-1 inputs from a numpy seed; `strided_t2s` passes kv as the
+    main path's t2s does, a (B, T, S, D) grid with T and S swapped;
+    `full_row` masks batch row 0 entirely."""
     import torch
-
-    from bist_tpu_torch.ops.bist_kernels import hop1_fused, hop1_plain
 
     rng = np.random.default_rng(seed)
     p = random_mha_params(h, D, seed, device)
@@ -148,22 +182,99 @@ def check_hop1(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed):
     if masked:
         lengths = rng.integers(1, Lk + 1, size=B)
         m = (np.arange(Lk)[None, :] < lengths[:, None]).astype(np.int32)
-        m[0] = 0                                   # one fully masked row
+        if full_row:
+            m[0] = 0                               # one fully masked row
         mask = torch.tensor(m[:, None, :], device=device)
-    got = hop1_fused(x, q, kv, p, h, mask)
-    want = hop1_plain(x, q, kv, p, h, mask)
-    torch.cuda.synchronize()
+    return rng, p, x, q, kv, mask
+
+
+def assert_agree(what, got, want):
+    """Max |diff| of a kernel's result against its plain version; raises
+    beyond the tolerance (TOL abs + TOL rel)."""
+    import torch
+
+    got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=TOL, atol=TOL):
-        raise AssertionError(f"hop1 {name}: kernel differs from plain version, "
+        raise AssertionError(f"{what}: kernel differs from plain version, "
                              f"max |diff| {err:.3e} > {TOL}")
+    return err
+
+
+def rel_beyond_atol(got, want):
+    """Largest |diff| / |want| over the elements off by more than TOL
+    absolute, which pass only through the relative term (0 when none)."""
+    diff = (got.float() - want.float()).abs()
+    over = diff > TOL
+    if not over.any():
+        return 0.0
+    return (diff[over] / want.float().abs()[over]).max().item()
+
+
+def check_hop1(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
+               residuals=False):
+    """One K1 case; with `residuals` the training launch, whose concat and
+    lse are held against the plain version's too."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused, hop1_plain
+
+    _, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
+                                       strided_t2s, seed)
+    got = hop1_fused(x, q, kv, p, h, mask, return_residuals=residuals)
+    want = hop1_plain(x, q, kv, p, h, mask, return_residuals=residuals)
+    torch.cuda.synchronize()
+    if residuals:
+        err = max(assert_agree(f"hop1 {name} {n}", a, b)
+                  for n, a, b in zip(("out", "concat", "lse"), got, want))
+    else:
+        err = assert_agree(f"hop1 {name}", got, want)
     nbytes, flops = hop1_work(B, G, Lq, Lk, D, masked)
+    if residuals:
+        nbytes += 4 * B * G * Lq * (D + h)
     b_ms, b_by = bound(nbytes, flops)
     return {"case": name, "shape": dict(B=B, G=G, Lq=Lq, Lk=Lk, D=D, h=h,
-                                        masked=masked),
+                                        masked=masked, residuals=residuals),
             "max_abs_err": err,
-            "ms": time_ms(lambda: hop1_fused(x, q, kv, p, h, mask)),
-            "plain_ms": time_ms(lambda: hop1_plain(x, q, kv, p, h, mask)),
+            "ms": time_ms(lambda: hop1_fused(x, q, kv, p, h, mask,
+                                             return_residuals=residuals)),
+            "plain_ms": time_ms(lambda: hop1_plain(x, q, kv, p, h, mask,
+                                                   return_residuals=residuals)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops}
+
+
+def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
+                   full_row=False):
+    """One K2 case: the residuals of the plain forward on random inputs, a
+    random upstream gradient, d_concat and Dh as `hop1_trainable`'s glue
+    makes them; every gradient held against `hop1_bwd_plain`."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_bwd_plain, hop1_plain
+
+    rng, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
+                                         strided_t2s, seed, full_row)
+    _, concat, lse = hop1_plain(x, q, kv, p, h, mask, return_residuals=True)
+    g = torch.tensor(rng.standard_normal((B, G, Lq, D), dtype=np.float32), device=device)
+    dcc = (g @ p["wo"]["w"].t()).contiguous()
+    dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
+    args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+            p["wv"]["b"], h)
+    got = hop1_bwd(*args)
+    want = hop1_bwd_plain(*args)
+    torch.cuda.synchronize()
+    names = ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")
+    err = max(assert_agree(f"hop1_bwd {name} {n}", a, b)
+              for n, a, b in zip(names, got, want))
+    rel = {n: rel_beyond_atol(a, b) for n, a, b in zip(names, got, want)}
+    nbytes, flops = hop1_bwd_work(B, G, Lq, Lk, D, h, masked)
+    b_ms, b_by = bound(nbytes, flops)
+    return {"case": name, "shape": dict(B=B, G=G, Lq=Lq, Lk=Lk, D=D, h=h,
+                                        masked=masked, full_row=full_row),
+            "max_abs_err": err, "max_rel_err_beyond_atol": rel,
+            "ms": time_ms(lambda: hop1_bwd(*args)),
+            "plain_ms": time_ms(lambda: hop1_bwd_plain(*args)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
@@ -212,13 +323,25 @@ def phase_kernels(device):
         # the t2s launch of wider models at the main path's batch
         check_hop1(device, "t2s D=256", 64, 16, 32, 40, 256, 8, True, True, 7),
         check_hop1(device, "t2s D=512", 64, 16, 32, 40, 512, 8, True, True, 8),
+        # the training launches (batches of 32), with the residuals
+        check_hop1(device, "train t2s", 32, 16, 32, 40, 128, 8, True, True, 9, True),
+        check_hop1(device, "train s2t", 32, 40, 32, 16, 128, 8, False, False, 10,
+                   True),
+    ]
+    hop1_bwd = [
+        # the training step's two hop-1 backward launches of each video layer
+        check_hop1_bwd(device, "t2s", 32, 16, 32, 40, 128, 8, True, True, 11),
+        check_hop1_bwd(device, "s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
+        check_hop1_bwd(device, "t2s D=512", 8, 16, 32, 40, 512, 8, True, True, 13),
+        check_hop1_bwd(device, "t2s, a fully masked row", 32, 16, 32, 40, 128, 8,
+                       True, True, 14, full_row=True),
     ]
     flash = [
         # the regime mha sends to the kernel (phase 4's shape)
         check_flash(device, "mha kv=32768", 128, 32, 32768, 64, True, 4),
         check_flash(device, "short kv, d=16", 4096, 1, 40, 16, True, 5),
     ]
-    return hop1, flash
+    return hop1, hop1_bwd, flash
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +353,10 @@ def flagship_cfg(vocab_size, dv=DV, **kw):
     return ModelConfig(vocab_size=vocab_size, ft_sizes=(dv,), **dict(FLAGSHIP, **kw))
 
 
-def make_batches(data, n_batches, B, seed):
+def make_batches(data, n_batches, B, seed, answers=False):
     """Host batches of real test turns clipped to LQ/LH/LC, with random
-    feature grids of 8..T_MAX clips (zero-padded to the batch's bucket)."""
+    feature grids of 8..T_MAX clips (zero-padded to the batch's bucket);
+    with `answers`, the turns' answers (clipped to LA) as targets."""
     from bist_tpu_torch.data.batching import Batch, bucket_len, pad_to
     from bist_tpu_torch.vocab import SOS
 
@@ -245,12 +369,15 @@ def make_batches(data, n_batches, B, seed):
         fts = np.zeros((len(exs), t_pad, S, DV), np.float32)
         for r, t in enumerate(clips):
             fts[r, :t] = rng.standard_normal((t, S, DV), dtype=np.float32)
-        dummy = np.full((len(exs), 1), SOS, np.int32)
+        trg = trg_y = np.full((len(exs), 1), SOS, np.int32)
+        if answers:
+            trg = pad_to([e.answer_in[:LA] for e in exs], LA)
+            trg_y = pad_to([e.answer_out[:LA] for e in exs], LA)
         batches.append(Batch(
             query=pad_to([e.question[:LQ] for e in exs], LQ),
             his=pad_to([e.history[-LH:] for e in exs], LH),
             cap=pad_to([e.caption[:LC] for e in exs], LC),
-            trg=dummy, trg_y=dummy, fts=fts))
+            trg=trg, trg_y=trg_y, fts=fts))
     return batches
 
 
@@ -479,6 +606,196 @@ def check_result_schema(result, orig):
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: the training path and the train CLI
+
+
+def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=None):
+    """Noam-Adam steps of the flagship model without dropout (hop 1 through
+    K1 with residuals and K2) over 2 cycled batches of B real training
+    turns; returns a summary.  One step's gradients are first held against
+    the plain path (force_plain)."""
+    import torch
+
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.models.model import forward_logprobs
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.losses import compute_losses
+    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+    from bist_tpu_torch.vocab import get_vocabulary
+    from bist_tpu_torch.weights import tree_leaves
+
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), **dict(model_kw or {}, dropout=0.0,
+                                          attn_dropout=0.0))
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary",
+                     separate_caption=True)
+    tcfg = TrainConfig(warmup_steps=warmup)
+    batches = [to_device(b, device) for b in
+               make_batches(data, 2, B, seed=1, answers=True)]
+    state, tx = create_train_state(0, cfg, tcfg, device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    # one step's gradients, kernels against the plain path
+    def loss_grads():
+        logp, ft = forward_logprobs(state.params, cfg, batches[0])
+        loss, _ = compute_losses(logp, ft, state.params["embed"]["lut"], cfg,
+                                 batches[0], tcfg.smoothing)
+        return loss, torch.autograd.grad(loss, tree_leaves(state.params),
+                                         allow_unused=True)
+
+    before = hop1_fused.launches, hop1_bwd.launches
+    loss_k, grads_k = loss_grads()
+    sync()
+    check_launches = (hop1_fused.launches - before[0], hop1_bwd.launches - before[1])
+    if device.type == "cuda" and check_launches != (6, 6):
+        raise AssertionError(f"gradient check: K1, K2 launched {check_launches} "
+                             f"times, expected 6 each")
+    with dispatch.force_plain():
+        loss_p, grads_p = loss_grads()
+    names = leaf_names(state.params)
+    grad_err, grad_max = 0.0, 0.0
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if loss_rel > 5e-4:
+        raise AssertionError(f"train loss: kernel path {loss_k.item()} vs plain "
+                             f"{loss_p.item()}")
+    for name, a, b in zip(names, grads_k, grads_p):
+        if (a is None) != (b is None):
+            raise AssertionError(f"gradient {name}: reached on one path only")
+        if a is None:
+            continue
+        rtol = 0.0 if name.endswith("wk.b") else 5e-3   # wk.b: zero, residue
+        err = (a - b).abs().max().item()
+        grad_err = max(grad_err, err)
+        grad_max = max(grad_max, b.abs().max().item())
+        if not torch.allclose(a, b, rtol=rtol, atol=5e-4):
+            raise AssertionError(f"gradient {name}: kernel path and plain path "
+                                 f"differ by {err:.3e}")
+
+    step = make_train_step(cfg, tcfg, tx)
+    sync()
+    hop1_fused.launches = hop1_bwd.launches = 0
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i % 2], None)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches}
+    want = 6 * steps if device.type == "cuda" else 0
+    if launches != {"hop1_fwd": want, "hop1_bwd": want}:
+        raise AssertionError(f"training launched {launches} in {steps} steps, "
+                             f"expected {want} each (6 per step)")
+    first, last = losses[0], losses[-2 if steps % 2 == 0 else -1]
+    if not (all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"training loss did not fall on batch 0: {losses}")
+    ms = statistics.median(times[1:]) * 1e3 if steps > 1 else times[0] * 1e3
+    by_name = {c["case"]: c["ms"] for c in kernel_cases}
+    per_layer = [by_name.get(k) for k in ("train t2s", "train s2t", "bwd t2s", "bwd s2t")]
+    kernel_ms = 3 * sum(per_layer) if all(v is not None for v in per_layer) else None
+    profile = profile_steps(step, state, batches, 3, sync) if device.type == "cuda" \
+        else None
+    return {"steps": steps, "batch_size": B, "ms_per_step": ms,
+            "profile": profile,
+            "examples_per_s": B / ms * 1e3, "first_step_ms": times[0] * 1e3,
+            "launches": launches, "loss_first": first, "loss_last_same_batch": last,
+            "grad_check": {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+                           "loss_rel_diff": loss_rel, "max_abs_diff": grad_err,
+                           "max_abs_grad": grad_max,
+                           "launches": check_launches},
+            "kernel_ms_per_step_from_phase2": kernel_ms,
+            "kernel_share_of_step": None if kernel_ms is None else kernel_ms / ms}
+
+
+def profile_steps(step, state, batches, n, sync):
+    """Device time of n train steps from torch.profiler: per step, all
+    kernels and the hop-1 kernels (K1, K2's three passes); None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            state, _ = step(state, batches[i % 2], None)
+        sync()
+    dev = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
+    # kernels only: a CPU op also carries the device time of what it launched
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev(e) > 0]
+    if not events:
+        return None
+    total = sum(dev(e) for e in events) / 1e3 / n
+    hop1 = sum(dev(e) for e in events
+               if "hop1_" in e.key or "sum_middle" in e.key) / 1e3 / n
+    top = sorted(events, key=dev, reverse=True)[:8]
+    return {"device_ms_per_step": total, "hop1_kernels_ms_per_step": hop1,
+            "top_kernels_ms_per_step": {e.key[:80]: dev(e) / 1e3 / n for e in top}}
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a parameter tree's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+
+
+def phase_train_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S,
+                    t_max=T_MAX):
+    """The train CLI for one epoch on phase 5's tiny dataset (no dropout),
+    then the generate CLI from its best checkpoint; checks the artifacts."""
+    test_set = write_tiny_dataset(root, n_dialogs, model_kw, dv, s, t_max)
+    cfg = flagship_cfg(1, dv=dv, **(model_kw or {}))
+    model = os.path.join(root, "exp", "mtn")
+    path = os.path.join(root, "<FeaType>", "<ImageID>.npy")
+    cmd = [sys.executable, "-m", "bist_tpu_torch.cli.train", "--fea-type", "resnext_st",
+           "--train-path", path, "--train-set", test_set, "--valid-set", test_set,
+           "--model", model, "--num-epochs", "1", "--batch-size", "4",
+           "--nb-blocks", str(cfg.nb_blocks), "--nb-venc-blocks", str(cfg.nb_venc_blocks),
+           "--nb-cenc-blocks", str(cfg.nb_cenc_blocks), "--d-model", str(cfg.d_model),
+           "--att-h", str(cfg.att_h), "--include-caption", "summary",
+           "--dropout", "0", "--attn-dropout", "0", "--cutoff", "0",
+           "--warmup-steps", "10", "--report-interval", "1", "--device", device.type]
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"train CLI exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    headers = {"_train.csv": "epoch,step,loss,ae_temporal_loss,ae_spatial_loss",
+               "_trace.csv": "epoch,split,loss,ae_temporal_loss,ae_spatial_loss"}
+    for suffix, header in headers.items():
+        with open(model + suffix) as f:
+            lines = f.read().splitlines()
+        if lines[0] != header or len(lines) < 2:
+            raise AssertionError(f"{suffix}: {lines[:3]}")
+    for suffix in (".conf", "_params.txt", "_best.pt"):
+        if not os.path.exists(model + suffix):
+            raise AssertionError(f"train CLI wrote no {model}{suffix}")
+    out = os.path.join(root, "result.json")
+    cmd = [sys.executable, "-m", "bist_tpu_torch.cli.generate", "--test-set", test_set,
+           "--test-path", path, "--model", model + "_best", "--decode-style",
+           "beam_search", "--beam", "3", "--undisclosed-only", "1",
+           "--gen-batch-size", "4", "--output", out, "--device", device.type]
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"generate CLI from the trained checkpoint exited "
+                             f"{r.returncode}:\n{r.stderr[-4000:]}")
+    with open(out) as f:
+        result = json.load(f)
+    with open(test_set) as f:
+        check_result_schema(result, json.load(f))
+    with open(model + "_trace.csv") as f:
+        trace = f.read().splitlines()[1:]
+    return {"trace": trace, "answers": [d["dialog"][-1]["answer"]
+                                        for d in result["dialogs"]]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -517,9 +834,11 @@ def main() -> int:
     print(f"build: {len(built)} kernel libraries compiled in "
           f"{time.perf_counter() - t0:.1f} s (wall, in parallel)", flush=True)
 
-    hop1_cases, flash_cases = phase_kernels(device)
-    for c in hop1_cases + flash_cases:
+    hop1_cases, bwd_cases, flash_cases = phase_kernels(device)
+    for c in hop1_cases + bwd_cases + flash_cases:
         log(f"kernel case {c['case']}: {json.dumps(c)}")
+    phase2_ms = [c for c in hop1_cases if c["case"].startswith("train")] + [
+        dict(c, case="bwd " + c["case"]) for c in bwd_cases]
 
     main_path = phase_main_path(device)
     print(f"main path on {card}: {json.dumps(main_path)}", flush=True)
@@ -530,12 +849,25 @@ def main() -> int:
     cli = phase_cli(device, os.path.join(HERE, "build", "chip_smoke", "cli"))
     print(f"generate CLI: {json.dumps(cli)}", flush=True)
 
+    train = phase_train(device, phase2_ms)
+    print(f"training path on {card}: {json.dumps(train)}", flush=True)
+
+    train_cli = phase_train_cli(device, os.path.join(HERE, "build", "chip_smoke",
+                                                     "train_cli"))
+    print(f"train CLI: {json.dumps(train_cli)}", flush=True)
+
     kernels = [
-        kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
-                     "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
-                     main_path["launches"]["hop1_fwd"],
-                     f"flagship beam_search, {main_path['batches']} batches "
-                     f"of {main_path['batch_size']}"),
+        dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
+                          "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
+                          main_path["launches"]["hop1_fwd"],
+                          f"flagship beam_search, {main_path['batches']} batches "
+                          f"of {main_path['batch_size']}"),
+             launches_train=train["launches"]["hop1_fwd"]),
+        kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
+                     "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
+                     train["launches"]["hop1_bwd"],
+                     f"flagship train step, {train['steps']} steps of "
+                     f"{train['batch_size']}"),
         kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                      "bist_tpu/ops/flash_attention.py:43", flash_cases,
                      mha_flash["launches"],

@@ -48,6 +48,8 @@ def close(got, want, what, rtol=TOL):
 
 
 BF16_RTOL = 4e-3      # a bfloat16 result: one rounding of a float32 value
+BF16_ULP = 8e-3       # two float32 values a hair apart may round one bfloat16
+                      # step apart (2^-7 relative)
 
 
 @pytest.mark.cuda
@@ -181,3 +183,86 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
     x, grid = tensor(rng, (2, 5, D), cuda), tensor(rng, (2, 3, 4, D), cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="D <= 512"):
         torch_bist._hop1(hop, h, 0.0, 0.0, None, x, grid, None)
+
+
+def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):
+    """K2's inputs as hop1_trainable's glue makes them, from the plain
+    forward's residuals; kv a strided (B, Lk, G, D) view, as t2s passes it."""
+    p = {n: {k: t.to(dev) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(4), h, D).items()}
+    x, q = tensor(rng, (B, Lq, D), dev), tensor(rng, (B, Lq, D), dev)
+    kv = tensor(rng, (B, Lk, G, D), dev).transpose(1, 2)
+    mask = prefix_mask(rng, B, Lk, dev)
+    if not full_row:
+        mask[0, 0] = 1
+    mask = mask[:, None, :].contiguous()
+    _, concat, lse = K1.hop1_plain(x, q, kv, p, h, mask, return_residuals=True)
+    dcc = (tensor(rng, (B, G, Lq, D), dev) @ p["wo"]["w"].t()).contiguous()
+    dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
+    return p, x, q, kv, mask, dcc, dh, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,Lq,Lk,D,h,full_row", [
+    (2, 4, 5, 7, 32, 2, True), (2, 3, 33, 130, 128, 8, False),
+    (2, 2, 8, 75, 512, 8, True), (4, 16, 32, 40, 128, 8, False),
+])
+def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_row):
+    """K1's residuals and K2's six gradients against their plain versions:
+    float32 and a bfloat16 grid, kv a strided view, a fully masked row."""
+    rng = np.random.default_rng(5)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda,
+                                                 full_row)
+    for grid in (kv, kv.to(torch.bfloat16)):
+        for a, b, n in zip(K1.hop1_fused(x, q, grid, p, h, mask, return_residuals=True),
+                           K1.hop1_plain(x, q, grid, p, h, mask, return_residuals=True),
+                           ("out", "concat", "lse")):
+            close(a, b, f"hop1 {n} {grid.dtype}")
+        args = (q, grid, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
+                p["wv"]["w"], p["wv"]["b"], h)
+        before = K1.hop1_bwd.launches
+        got = K1.hop1_bwd(*args)
+        assert K1.hop1_bwd.launches == before + 1
+        assert got[1].dtype == grid.dtype and got[1].shape == (B, G, Lk, D)
+        for a, b, n in zip(got, K1.hop1_bwd_plain(*args),
+                           ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
+            close(a, b, f"hop1_bwd {n} {grid.dtype}",
+                  rtol=BF16_ULP if n == "dkv" and grid.dtype == torch.bfloat16 else TOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.hop1_bwd(q, kv, mask, dcc, dh.transpose(2, 3).contiguous().transpose(2, 3),
+                    lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"], p["wv"]["b"], h)
+
+
+@pytest.mark.cuda
+def test_flagship_train_step_launches_k1_and_k2_only(cuda, monkeypatch):
+    """A flagship-width train step without dropout: hop 1 of every video
+    layer through K1 (with residuals) and K2, 6 launches each, and never
+    their plain versions; the loss falls on a repeated batch."""
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+
+    def plain_called(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(K1, "hop1_plain", plain_called)
+    monkeypatch.setattr(K1, "hop1_bwd_plain", plain_called)
+    cfg = ModelConfig(vocab_size=200, nb_blocks=3, nb_venc_blocks=3, nb_cenc_blocks=3,
+                      d_model=128, att_h=8, dropout=0.0, attn_dropout=0.0,
+                      ft_sizes=(64,), include_caption="summary", separate_caption=True)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(4, 200, size=(4, 9)).astype(np.int32)
+    toks[:, -2:] = 1
+    fts = rng.standard_normal((4, 12, 16, 64)).astype(np.float32)
+    fts[0, 5:] = 0.0
+    batch = to_device(Batch(query=toks, his=toks, trg=toks, trg_y=toks[:, ::-1].copy(),
+                            cap=toks, fts=fts), cuda)
+    tcfg = TrainConfig(warmup_steps=10)
+    state, tx = create_train_state(0, cfg, tcfg, device=cuda)
+    step = make_train_step(cfg, tcfg, tx)
+    fwd, bwd = K1.hop1_fused.launches, K1.hop1_bwd.launches
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch, None)
+        losses.append(float(m["loss"]))
+    assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (18, 18)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -300,11 +300,11 @@ def test_int8_features_bf16_activations_and_dropout(rng, monkeypatch):
                                                 rngs=torch.Generator().manual_seed(0))
     assert kernel_calls == [] and torch.isfinite(noisy).all()
     assert not torch.allclose(noisy, ref, atol=1e-3)
-    assert dispatch.hop1_uses_kernel(dropout_active=False, grad=False)
-    assert not dispatch.hop1_uses_kernel(dropout_active=True, grad=False)
-    assert not dispatch.hop1_uses_kernel(dropout_active=False, grad=True)
+    # with or without a gradient: the gradient goes through hop1_trainable
+    assert dispatch.hop1_uses_kernel(dropout_active=False)
+    assert not dispatch.hop1_uses_kernel(dropout_active=True)
     with dispatch.force_plain():
-        assert not dispatch.hop1_uses_kernel(dropout_active=False, grad=False)
+        assert not dispatch.hop1_uses_kernel(dropout_active=False)
     w = torch.zeros(2, requires_grad=True)
     assert dispatch.needs_grad(w)
     with torch.no_grad():
