@@ -11,42 +11,84 @@
 //     out[b,g] = x[b] + concat_heads(...) Wo + bo                 (Lq, D)
 //
 // with the projected K/V and the (h, Lq, Lk) scores kept in shared memory:
-// only kv is read from device memory and only `out` is written.
+// only kv is read from device memory and only `out` is written.  For
+// training (`hop1_trainable`) it also writes the residuals the backward
+// kernel (hop1_bwd.cu) reads: concat, the normalised attention output
+// before Wo, and per (row, head) lse = m + log(l); the evaluation path
+// passes null pointers and skips those writes.  A row whose columns are all
+// masked attends uniformly over the true Lk (as the plain version does; the
+// Pallas kernel also counted its padding columns there): no column at or
+// past Lk is ever part of a softmax.
 //
-// What bounds it on the H100: at the flagship t2s launch (B=64, G=16,
-// Lq=32, Lk=40, D=128, h=8) it reads ~21 MB and writes ~17 MB (12 us at
-// 3.35 TB/s) but does ~4.4 GFLOP, three fifths of it the K/V projection
-// (66 us at the 67 TFLOP/s float32 rate outside the tensor cores).  So it is
-// bound by operations, and the design feeds the FMA units from shared
-// memory: in the row-block x weight products (the K/V projection and Wo) a
-// thread owns 8 rows x 2 adjacent columns of each output; the 8 rows of the
-// activations are stored transposed, so two 16-byte broadcast loads bring
-// them, and the weights pass through shared memory in chunks of rows,
-// loaded once per kv tile for all rows (register double-buffered, one
-// barrier per chunk).  The tensor cores stay unused: TF32 would break the
-// 2e-4 agreement with the float32 plain version.
+// Two kernels, chosen by shape before any launch (`hop1_variant`, exported
+// as bist_hop1_fwd_variant):
 //
-// Design: one block of 256 threads per (b, g, chunk of up to 32 query rows).
-// The block loops over kv tiles of `tk` rows (`hop1_plan` sizes qc and tk
-// from D so that shared memory fits at any D <= 512) and keeps an online
-// softmax per
-// (row, head): running max m, running sum l and the unnormalised f32
-// accumulator.  On the last tile it normalises, applies Wo + bo and adds x.
-// Per-row data (q, scores, accumulator) is laid out row-fastest and K is
-// stored transposed, so in the two attention products a thread owns a small
-// register tile fed by 16-byte loads: 4 rows x 2 kv columns of one head's
-// scores (a float4 of q and a float2 of k per step of d_k) and 4 rows x 4
-// columns of p·v (a float4 of p and one of v per kv row), with the threads of
-// a warp on consecutive row groups of one head.  Columns past Lk are never
-// visited, so a row whose columns are all masked gets uniform attention over
-// the true Lk (as the plain version does; the Pallas kernel also counted its
-// padding columns there).
+// "whole" (hop1_fwd_whole_kernel), for D 64 or 128, a head width d_k a
+// multiple of 8 up to 32 and Lk <= 64: the main path's widths
+// (flagship t2s B64 G16 Lq32 Lk40 D128 h8, s2t B64 G40 Lq32 Lk16).  Its
+// ~4.4 GFLOP at t2s are 85 % weight products (K/V projection 2.7, Wo 1.1,
+// attention 0.7), so it is bound by operations, and every product goes to
+// the tensor cores:
+//   - one block of 8 warps per (b, chunk of <= 32 query rows, 1 group; 2
+//     groups of the same b when Lk <= 16) holds the groups' whole kv sets
+//     (their rows stacked, padded with zero rows to 16-row tiles), so Wk
+//     and Wv pass through shared memory once per block (once per 2 groups at
+//     s2t) and every warp is busy: warp w owns columns [w·D/4, (w+1)·D/4) of
+//     [K | V] for every row tile;
+//   - [kv] x [Wk | Wv], q kᵀ, p v and concat x Wo run as mma.sync m16n8k8
+//     TF32 in the 3xTF32 split (hop1_mma.cuh), float32 accumulators in
+//     registers: one TF32 pass would be off by ~1e-3 from float32, three
+//     keep it.  Where the tile count allows, a step's fragments all load
+//     ahead of its products, so that a stretch of code without a branch
+//     holds at least 4 independent chains of MMAs (a chain of dependent
+//     MMAs issues one every ~24 cycles, independent ones every ~6);
+//   - attention: one warp per (group, head) over both 16-row query tiles
+//     (when that leaves no warp idle, heads are up to 16 wide and Lk <=
+//     40: registers), so that each K and V fragment serves two independent
+//     chains; else one per (group, 16 query rows, head).  The scores stay
+//     in the MMA's D fragment, the softmax (exact in one pass, base 2)
+//     reduces a row over the 4 threads of a quad, the mask is a bit set a
+//     thread builds once, and the D fragment is p's A fragment once V's
+//     rows are read in the order 0, 2, 4, 6, 1, 3, 5, 7; columns past Lk
+//     get p = 0;
+//   - the weights stream from L2 through two-stage rings filled by 16-byte
+//     cp.async (one barrier per stage, the next chunk in flight during the
+//     current one's products): [Wk | Wv] in chunks of kChunk = 32 rows, Wo
+//     of kWoChunk = 16; kv (16 bytes a thread in float32, 8 in bfloat16),
+//     q, the mask and, behind Wo's first chunk, x come the same way.  Rows
+//     are padded (kv, K, V, q, concat: D + 4 floats; [Wk | Wv]: 2D + 8; Wo:
+//     D + 8) so that every fragment load hits 32 distinct banks;
+//   - shared memory (whole_layout): during the projection the [Wk | Wv]
+//     ring (2·32·(2D+8) floats) and the kv tile (rows·(D+4)); after it q
+//     (qc·(D+4), in the ring stage that the last chunk leaves free, loaded
+//     during that chunk; x's rows once attention is done), concat
+//     (groups·qc·(D+4)), K and V (rows·(D+4) each) and the Wo ring
+//     (2·16·(D+8)); then the mask's Lk flags.  At the flagship t2s and s2t
+//     102,144 bytes: two blocks an SM, 128 registers a thread at most.
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
+// bist_tpu_torch.tools.hop1_probe, PERF.md): the tensor cores as mma.sync
+// drives them, a TF32 m16n8k8 every 6.2 cycles on an SM sub-partition (24
+// along a dependent chain), ~70 % of the data sheet's TF32 rate, which
+// needs wgmma.  A t2s block runs 4,608 MMAs in the projection (40 kv rows
+// padded to 48), 960 in attention and 1,536 in Wo: ~43 us of the launch's
+// ~0.12 ms of device time at that rate.  A projection with the kv rows as
+// the MMA's 8-wide dimension (no padding, 17 % fewer MMAs) ran slower: its
+// row tiles split the products into stretches of 2 dependent chains.
 //
-// For training (`hop1_trainable`) it also writes the residuals the backward
-// kernel (hop1_bwd.cu) reads: concat, the normalised accumulator before Wo,
-// and per (row, head) lse = m + log(l).  The evaluation path passes null
-// pointers and skips those writes.  The row-block x weight product, the grid
-// loads and the width rule are shared with hop1_bwd.cu (hop1_tiles.cuh).
+// "tiled" (hop1_fwd_tiles_kernel, unchanged since it was first written):
+// every other width the kernels take (D up to 512) and Lk > 64.  One block
+// of 256 threads per (b, g, chunk of up to 32 query rows) loops over kv
+// tiles of `tk` rows (`hop1_plan` sizes qc and tk from D so that shared
+// memory fits at any D <= 512) with an online softmax per (row, head):
+// running max m, running sum l and the unnormalised f32 accumulator; on the
+// last tile it normalises, applies Wo + bo and adds x.  Its products are
+// FMAs from shared memory: in the row-block x weight products a thread owns
+// 8 rows x 2 adjacent columns (rows_times_w, hop1_tiles.cuh, shared with
+// hop1_bwd.cu), the weights staged through registers once per kv tile; in
+// the attention products a thread owns 4 rows x 2 kv columns of one head's
+// scores and 4 rows x 4 columns of p·v, with K stored transposed.  Above
+// the flagship width its kv tiles shrink and the weights stream once per
+// tile (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,15 +97,19 @@
 #include <algorithm>
 #include <initializer_list>
 
+#include "hop1_mma.cuh"
 #include "hop1_tiles.cuh"
 
 namespace {
 
 using namespace hop1;
 
+// ---------------------------------------------------------------------------
+// "tiled": kv tiles with an online softmax, FMAs from shared memory.
+
 template <typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
-hop1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ q,
+hop1_fwd_tiles_kernel(const float* __restrict__ x, const float* __restrict__ q,
                 const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
                 long long kv_st, const int* __restrict__ mask,
                 const float* __restrict__ wk, const float* __restrict__ bk,
@@ -310,25 +356,648 @@ bool hop1_plan(int Lq, int Lk, int D, int h, int* qc, int* tk, size_t* smem) {
   return false;
 }
 
+// ---------------------------------------------------------------------------
+// "whole": all kv rows of a group (or of several groups of one batch row)
+// in one tile, every product on the tensor cores.
+
+// Phase boundaries of the whole kernel (0 prologue, 1 projection, 2 drain,
+// 3 bias, 4 attention, 5 concat, 6 Wo, 7 end): nothing in the port's build;
+// bist_tpu_torch.tools.hop1_probe builds a copy that records clock64() there.
+#ifndef HOP1_MARK
+#define HOP1_MARK(k)
+#endif
+
+constexpr int kChunk = 32;       // [Wk | Wv] rows per ring stage
+constexpr int kWoChunk = 16;     // Wo rows per ring stage
+constexpr int kWholeMaxRows = 64;  // kv rows a block projects
+constexpr int kWholeThreads = 256;
+constexpr int kWarps = kWholeThreads / 32;
+
+// Shared-memory plan of the whole kernel, in floats (every offset a multiple
+// of 4, so every array starts 16-byte aligned).  Both weight rings have two
+// stages.  During the projection: the [Wk | Wv] ring (stage 0 at 0, stage 1
+// after it) and the kv tile.  After it: q (at 0, inside ring stage 0, which
+// the last weight chunk leaves free), concat, K, V and the Wo ring.  The
+// mask's column flags come last.
+struct WholeLayout {
+  int qc;      // query rows a block takes: 16 or 32
+  int mt;      // 16-row tiles of the projected kv rows
+  int ldkv;    // row stride of the kv tile, in grid elements
+  int ldw, ldo, ld;  // [Wk | Wv] and Wo ring rows; K, V, q, concat rows
+  int kv_off, acc_off, k_off, v_off, wo_off, mask_off, floats;
+};
+
+// kv rows the projection must cover: group j's rows start at j·Lk, and its
+// attention reads whole 8-row tiles from there.
+__host__ __device__ inline int whole_rows(int ng, int Lk) {
+  return (ng - 1) * Lk + (Lk + 7) / 8 * 8;
+}
+
+__host__ __device__ inline WholeLayout whole_layout(int Lq, int Lk, int D, int ng,
+                                                    int kv_bytes) {
+  WholeLayout s;
+  s.qc = Lq <= 16 ? 16 : 32;
+  s.mt = (whole_rows(ng, Lk) + 15) / 16;
+  const int rows = 16 * s.mt;
+  s.ldkv = kv_bytes == 4 ? D + 4 : D + 8;  // 4 words (mod 32): A fragments
+  s.ldw = 2 * D + 8;                       // 8 words (mod 32): B fragments
+  s.ldo = D + 8;
+  s.ld = D + 4;
+  s.kv_off = 2 * kChunk * s.ldw;
+  const int during = s.kv_off + (rows * s.ldkv * kv_bytes / 4 + 3) / 4 * 4;
+  s.acc_off = s.qc * s.ld;                 // q: qc x ld at 0
+  s.k_off = s.acc_off + ng * s.qc * s.ld;
+  s.v_off = s.k_off + rows * s.ld;
+  s.wo_off = s.v_off + rows * s.ld;
+  const int after = s.wo_off + 2 * kWoChunk * s.ldo;
+  s.mask_off = during > after ? during : after;   // Lk column flags (int)
+  s.floats = s.mask_off + kWholeMaxRows;
+  return s;
+}
+
+// Issue chunk c of [Wk | Wv] (rows c·kChunk.., 2D floats each) into buf.
+template <int D>
+__device__ __forceinline__ void issue_wkv(float* buf, const float* __restrict__ wk,
+                                          const float* __restrict__ wv, int c, int ldw) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < kChunk * 2 * n4; i += kWholeThreads) {
+    const int r = i / (2 * n4), f = i % (2 * n4);
+    const size_t row = (size_t)(c * kChunk + r) * D;
+    cp_async16(buf + r * ldw + 4 * f, f < n4 ? wk + row + 4 * f : wv + row + 4 * (f - n4));
+  }
+}
+
+// Issue chunk c of Wo (rows c·kWoChunk.., D floats each) into buf.
+template <int D>
+__device__ __forceinline__ void issue_wo(float* buf, const float* __restrict__ wo, int c,
+                                         int ldo) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < kWoChunk * n4; i += kWholeThreads) {
+    const int r = i / n4, f = i % n4;
+    cp_async16(buf + r * ldo + 4 * f, wo + (size_t)(c * kWoChunk + r) * D + 4 * f);
+  }
+}
+
+// Issue the kv rows of groups g0 .. g0 + ng - 1 (group j's row t to row
+// j·Lk + t of kv_s) and zero the rows after them up to `rows`.
+template <typename TKV, int D>
+__device__ __forceinline__ void issue_kv(TKV* kv_s, int ldkv, const TKV* __restrict__ kv_b,
+                                         long long kv_sg, long long kv_st, int Lk, int ng,
+                                         int rows) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < rows * n4; i += kWholeThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    TKV* dst = kv_s + r * ldkv + e;
+    const TKV* src = kv_b + (r / Lk) * kv_sg + (r % Lk) * kv_st + e;
+    if (sizeof(TKV) == 4) {
+      if (r < ng * Lk)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (r < ng * Lk)
+        cp_async8(dst, src);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+    }
+  }
+}
+
+// Issue query rows q0 .. q0 + nq - 1 of batch row b into q_s and zero the
+// rest up to qc.
+template <int D>
+__device__ __forceinline__ void issue_q(float* q_s, int ld, const float* __restrict__ q_b,
+                                        int nq, int qc) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < qc * n4; i += kWholeThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    if (r < nq)
+      cp_async16(q_s + r * ld + e, q_b + (size_t)r * D + e);
+    else
+      *reinterpret_cast<float4*>(q_s + r * ld + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// One attention task of the whole kernel: kQT tiles of 16 query rows (from
+// tile mi0) x one head of one group, in one warp.  Scores q kᵀ and p v are
+// m16n8k8 3xTF32 products whose operands come from shared memory (q, K, V)
+// or registers (p, as the scores' D fragment); each K and V fragment serves
+// the kQT query tiles, whose products are independent chains.  The softmax
+// runs on the D fragment, a row spread over the 4 threads of a quad; bit
+// 2n + e of `valid` / `inside` says whether this thread's score column
+// n·8 + 2·ft + e is unmasked / inside Lk.  Writes the head's columns of
+// concat to acc (row-major) and, for training, lse = m + log(l).
+template <int kMaxNT, int kDk8, int kQT>
+__device__ __forceinline__ void attention_task(
+    const float* q_s, const float* k_s, const float* v_s, float* acc, int ld, int mi0,
+    int hd, int dk, int r0, int Lk, uint32_t valid, uint32_t inside, float scale,
+    float* lse_row, int h, int nq, int fg, int ft) {
+  const int ntk = (Lk + 7) / 8;          // 8-column tiles of the scores
+  const int nd = dk / 8;                 // 8-column tiles of the head
+  float s[kQT][kMaxNT][4];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int n = 0; n < kMaxNT; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+  for (int ks = 0; ks < nd; ++ks) {
+    uint32_t ah[kQT][4], al[kQT][4];
+#pragma unroll
+    for (int i = 0; i < kQT; ++i)
+      load_a_rows(q_s + (mi0 + i) * 16 * ld + hd * dk + ks * 8, ld, fg, ft, ah[i], al[i]);
+#pragma unroll
+    for (int n = 0; n < kMaxNT; ++n) {
+      if (n < ntk) {
+        uint32_t bh[2], bl[2];
+        load_b_t(k_s + (r0 + n * 8) * ld + hd * dk + ks * 8, ld, fg, ft, bh, bl);
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) mma_3xtf32<false>(s[i][n], ah[i], al[i], bh, bl);
+      }
+    }
+  }
+  // scale (to base 2) and mask; columns past Lk take no part (exp2(-inf) = 0)
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = scale * kLog2e;
+  float mx[kQT][2], sum[kQT][2];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i) {
+    mx[i][0] = mx[i][1] = -INFINITY;
+    sum[i][0] = sum[i][1] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < kMaxNT; ++n) {
+    if (n < ntk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t bit = 1u << (2 * n + (e & 1));
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) {
+          s[i][n][e] = (valid & bit) ? s[i][n][e] * scale2
+                                     : ((inside & bit) ? kMaskedScore * kLog2e : -INFINITY);
+          mx[i][e >> 1] = fmaxf(mx[i][e >> 1], s[i][n][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[i][r] = fmaxf(mx[i][r], __shfl_xor_sync(0xffffffffu, mx[i][r], 1));
+      mx[i][r] = fmaxf(mx[i][r], __shfl_xor_sync(0xffffffffu, mx[i][r], 2));
+    }
+#pragma unroll
+  for (int n = 0; n < kMaxNT; ++n) {
+    if (n < ntk) {
+#pragma unroll
+      for (int i = 0; i < kQT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][n][e] = exp2f(s[i][n][e] - mx[i][e >> 1]);
+          sum[i][e >> 1] += s[i][n][e];
+        }
+    }
+  }
+  float inv[kQT][2];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[i][r] += __shfl_xor_sync(0xffffffffu, sum[i][r], 1);
+      sum[i][r] += __shfl_xor_sync(0xffffffffu, sum[i][r], 2);
+      const int row = (mi0 + i) * 16 + r * 8 + fg;
+      if (lse_row != nullptr && ft == 0 && row < nq)
+        lse_row[(size_t)row * h + hd] = (mx[i][r] + log2f(sum[i][r])) * 0.6931471805599453f;
+      inv[i][r] = 1.f / sum[i][r];
+    }
+  // p v: the scores' tile n is k-step n, its columns 2t, 2t + 1 are k = t,
+  // t + 4, and V's rows are taken in that order
+  float o[kQT][kDk8][4];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int c = 0; c < kDk8; ++c) o[i][c][0] = o[i][c][1] = o[i][c][2] = o[i][c][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kMaxNT; ++n) {
+    if (n < ntk) {
+      uint32_t ah[kQT][4], al[kQT][4];
+#pragma unroll
+      for (int i = 0; i < kQT; ++i) {
+        split_tf32(s[i][n][0] * inv[i][0], ah[i][0], al[i][0]);
+        split_tf32(s[i][n][2] * inv[i][1], ah[i][1], al[i][1]);
+        split_tf32(s[i][n][1] * inv[i][0], ah[i][2], al[i][2]);
+        split_tf32(s[i][n][3] * inv[i][1], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int c = 0; c < kDk8; ++c) {
+        if (c < nd) {
+          uint32_t bh[2], bl[2];
+          load_b_pairs(v_s + (r0 + n * 8) * ld + hd * dk + c * 8, ld, fg, ft, bh, bl);
+#pragma unroll
+          for (int i = 0; i < kQT; ++i) mma_3xtf32<false>(o[i][c], ah[i], al[i], bh, bl);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int c = 0; c < kDk8; ++c) {
+      if (c < nd) {
+        float* dst = acc + ((mi0 + i) * 16 + fg) * ld + hd * dk + c * 8 + 2 * ft;
+        *reinterpret_cast<float2*>(dst) = make_float2(o[i][c][0], o[i][c][1]);
+        *reinterpret_cast<float2*>(dst + 8 * ld) = make_float2(o[i][c][2], o[i][c][3]);
+      }
+    }
+}
+
+// NT: D / 32; kMT: most 16-row tiles of projected kv rows; kG: most groups
+// a block takes (see whole_short); kDk8: most 8-column tiles of a head.
+template <typename TKV, int NT, int kMT, int kG, int kDk8>
+__global__ void __launch_bounds__(kWholeThreads, 2)
+hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
+                      const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
+                      long long kv_st, const int* __restrict__ mask,
+                      const float* __restrict__ wk, const float* __restrict__ bk,
+                      const float* __restrict__ wv, const float* __restrict__ bv,
+                      const float* __restrict__ wo, const float* __restrict__ bo,
+                      float* __restrict__ out, float* __restrict__ concat_out,
+                      float* __restrict__ lse_out, int G, int Lq, int Lk, int h,
+                      int ng_max, float scale) {
+  constexpr int D = 32 * NT;
+  constexpr int nchunk = D / kChunk;
+  constexpr int nwo = D / kWoChunk;
+  constexpr int kNTW = (8 * NT + kWarps - 1) / kWarps;   // n-tiles of [K | V] a warp
+  constexpr bool kExact = sizeof(TKV) == 2;   // bfloat16 is exact in TF32
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const WholeLayout L = whole_layout(Lq, Lk, D, ng_max, sizeof(TKV));
+  const int dk = D / h, qc = L.qc, ld = L.ld;
+  const int stage = kChunk * L.ldw;                    // [Wk | Wv] ring stage
+  float* ring = smem;
+  TKV* kv_s = reinterpret_cast<TKV*>(smem + L.kv_off); // rows x ldkv
+  float* q_s = smem;                                   // qc x ld
+  float* acc_s = smem + L.acc_off;                     // ng x qc x ld: concat
+  float* k_s = smem + L.k_off;                         // rows x ld
+  float* v_s = smem + L.v_off;                         // rows x ld
+  float* wo_ring = smem + L.wo_off;
+  int* valid_s = reinterpret_cast<int*>(smem + L.mask_off);   // Lk column flags
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;              // fragment coordinates
+  const int gblocks = (G + ng_max - 1) / ng_max;
+  const int b = blockIdx.x / gblocks;
+  const int g0 = blockIdx.x % gblocks * ng_max;
+  const int ng = min(ng_max, G - g0);
+  const int q0 = blockIdx.y * qc;
+  const int nq = min(qc, Lq - q0);
+  const int* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
+
+  HOP1_MARK(0);
+  // Copy group 0: the kv rows, the mask and weight chunk 0.  Chunk c lies
+  // in ring stage (c + nchunk) % 2, so that the last one is in stage 1.
+  issue_kv<TKV, D>(kv_s, L.ldkv, kv + b * kv_sb + g0 * kv_sg, kv_sg, kv_st, Lk, ng,
+                   16 * L.mt);
+  for (int t = tid; t < Lk; t += kWholeThreads) {
+    if (mask_b != nullptr)
+      cp_async4(valid_s + t, mask_b + t);
+    else
+      valid_s[t] = 1;
+  }
+  issue_wkv<D>(ring + nchunk % 2 * stage, wk, wv, 0, L.ldw);
+  cp_async_commit();
+
+  HOP1_MARK(1);
+  // [K | V] = kv [Wk | Wv]: warp w owns n-tiles [w·kNTW, (w+1)·kNTW) of
+  // every 16-row tile (none past 2D).
+  const int col0 = warp * kNTW * 8;
+  const bool proj = col0 < 2 * D;
+  float acc[kMT][kNTW][4] = {};
+  for (int c = 0; c < nchunk; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c landed for all; chunk c - 1's stage is free
+    if (c + 1 < nchunk)
+      issue_wkv<D>(ring + (c + 1 + nchunk) % 2 * stage, wk, wv, c + 1, L.ldw);
+    else   // the query rows, into stage 0
+      issue_q<D>(q_s, ld, q + ((size_t)b * Lq + q0) * D, nq, qc);
+    cp_async_commit();
+    if (!proj) continue;
+    const float* wb = ring + (c + nchunk) % 2 * stage;
+    const TKV* kvc = kv_s + c * kChunk;   // the chunk's first weight row
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      uint32_t bh[kNTW][2], bl[kNTW][2];
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j)
+        load_b(wb + ks * 8 * L.ldw + col0 + j * 8, L.ldw, fg, ft, bh[j], bl[j]);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        if (m < L.mt) {
+          uint32_t ah[4], al[4];
+          load_a_rows<kExact>(kvc + m * 16 * L.ldkv + ks * 8, L.ldkv, fg, ft, ah, al);
+#pragma unroll
+          for (int j = 0; j < kNTW; ++j) mma_3xtf32<kExact>(acc[m][j], ah, al, bh[j], bl[j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring and the kv tile are dead; q has landed
+
+  HOP1_MARK(2);
+  // Wo's first chunk streams in behind the bias and the attention.
+  issue_wo<D>(wo_ring, wo, 0, L.ldo);
+  cp_async_commit();
+
+  HOP1_MARK(3);
+  // + bias, K and V row-major (rows x ld).  Rows past the groups' get the
+  // bias alone and only ever meet p = 0.
+  if (proj) {
+    const bool is_v = col0 >= D;
+    float* dst = is_v ? v_s : k_s;
+#pragma unroll
+    for (int j = 0; j < kNTW; ++j) {
+      const int c = col0 + j * 8 + 2 * ft - (is_v ? D : 0);
+      const float2 bias = *reinterpret_cast<const float2*>((is_v ? bv : bk) + c);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        if (m < L.mt) {
+          const int r = m * 16 + fg;
+          *reinterpret_cast<float2*>(dst + r * ld + c) =
+              make_float2(acc[m][j][0] + bias.x, acc[m][j][1] + bias.y);
+          *reinterpret_cast<float2*>(dst + (r + 8) * ld + c) =
+              make_float2(acc[m][j][2] + bias.x, acc[m][j][3] + bias.y);
+        }
+      }
+    }
+  }
+  // this thread's score columns n·8 + 2·ft + e of a group: bit 2n + e set
+  // inside Lk (`inside`) and where unmasked (`valid`)
+  constexpr int kNT = 2 * kMT / kG;   // 8-column tiles of one group's scores
+  uint32_t valid = 0, inside = 0;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = n * 8 + 2 * ft + e;
+      if (t < Lk) {
+        inside |= 1u << (2 * n + e);
+        if (valid_s[t] != 0) valid |= 1u << (2 * n + e);
+      }
+    }
+  __syncthreads();
+
+  HOP1_MARK(4);
+  // Attention, one warp a task: (group, head) over both 16-row query tiles
+  // when that leaves no warp idle and the registers allow (heads up to 16
+  // wide, Lk <= 40), else (group, 16-row tile, head).
+  const int mq = qc / 16;
+  auto lse_row = [&](int j) {
+    return lse_out == nullptr ? nullptr : lse_out + (((size_t)b * G + g0 + j) * Lq + q0) * h;
+  };
+  constexpr int kPairNT = kNT < 5 ? kNT : 5;
+  bool paired = false;
+  if constexpr (kDk8 == 2) {
+    paired = mq == 2 && ng * h >= kWarps && Lk <= 8 * kPairNT;
+    for (int task = warp; paired && task < ng * h; task += kWarps) {
+      const int j = task / h, hd = task % h;
+      attention_task<kPairNT, kDk8, 2>(q_s, k_s, v_s, acc_s + j * qc * ld, ld, 0, hd, dk,
+                                       j * Lk, Lk, valid, inside, scale, lse_row(j), h,
+                                       nq, fg, ft);
+    }
+  }
+  if (!paired) {
+    for (int task = warp; task < ng * mq * h; task += kWarps) {
+      const int j = task / (mq * h), mi = task / h % mq, hd = task % h;
+      attention_task<kNT, kDk8, 1>(q_s, k_s, v_s, acc_s + j * qc * ld, ld, mi, hd, dk,
+                                   j * Lk, Lk, valid, inside, scale, lse_row(j), h, nq,
+                                   fg, ft);
+    }
+  }
+  __syncthreads();
+
+  HOP1_MARK(5);
+  // Training residual concat: a thread writes 4 columns of one row.
+  if (concat_out != nullptr) {
+    constexpr int n4 = D / 4;
+    for (int item = tid; item < ng * qc * n4; item += kWholeThreads) {
+      const int r = item / n4, e = item % n4 * 4;
+      const int j = r / qc, i = r % qc;
+      if (i < nq)
+        *reinterpret_cast<float4*>(concat_out +
+                                   (((size_t)b * G + g0 + j) * Lq + q0 + i) * D + e) =
+            *reinterpret_cast<const float4*>(acc_s + r * ld + e);
+    }
+  }
+
+  HOP1_MARK(6);
+  // out = x + (concat Wo + bo): warp w owns n-tiles w, w + 8, .. of the D / 8
+  // and every 16-row tile of every group's concat.  A step's fragments all
+  // load ahead of its products; tiles past the block's (rows clamped,
+  // columns clamped) are computed and not stored.
+  constexpr int kWoTiles = (D / 8 + kWarps - 1) / kWarps;
+  constexpr int kMaxMQ = 2 * kG;
+  const int mo = ng * mq;
+  float o[kMaxMQ][kWoTiles][4] = {};
+  for (int c = 0; c < nwo; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c + 1 < nwo) issue_wo<D>(wo_ring + (c + 1) % 2 * kWoChunk * L.ldo, wo, c + 1, L.ldo);
+    // x's rows for the epilogue, into q_s (dead since the attention), with
+    // the next chunk
+    if (c == 0) issue_q<D>(q_s, ld, x + ((size_t)b * Lq + q0) * D, nq, qc);
+    cp_async_commit();
+    const float* wb = wo_ring + c % 2 * kWoChunk * L.ldo;
+    const float* ac = acc_s + c * kWoChunk;
+#pragma unroll
+    for (int ks = 0; ks < kWoChunk / 8; ++ks) {
+      uint32_t bh[kWoTiles][2], bl[kWoTiles][2], ah[kMaxMQ][4], al[kMaxMQ][4];
+#pragma unroll
+      for (int jj = 0; jj < kWoTiles; ++jj)
+        load_b(wb + ks * 8 * L.ldo + min(warp + jj * kWarps, D / 8 - 1) * 8, L.ldo, fg, ft,
+               bh[jj], bl[jj]);
+#pragma unroll
+      for (int m = 0; m < kMaxMQ; ++m)
+        load_a_rows(ac + min(m, mo - 1) * 16 * ld + ks * 8, ld, fg, ft, ah[m], al[m]);
+#pragma unroll
+      for (int m = 0; m < kMaxMQ; ++m)
+#pragma unroll
+        for (int jj = 0; jj < kWoTiles; ++jj)
+          mma_3xtf32<false>(o[m][jj], ah[m], al[m], bh[jj], bl[jj]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // x has landed in q_s
+#pragma unroll
+  for (int jj = 0; jj < kWoTiles; ++jj) {
+    const int n = warp + jj * kWarps;
+    if (n >= D / 8) continue;
+    const int c = n * 8 + 2 * ft;
+    const float2 bo2 = *reinterpret_cast<const float2*>(bo + c);
+#pragma unroll
+    for (int m = 0; m < kMaxMQ; ++m) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = m / mq, i = m % mq * 16 + half * 8 + fg;
+        if (m < mo && i < nq) {
+          const int row = q0 + i;
+          const float2 x2 = *reinterpret_cast<const float2*>(q_s + i * ld + c);
+          *reinterpret_cast<float2*>(out + (((size_t)b * G + g0 + j) * Lq + row) * D + c) =
+              make_float2(x2.x + (o[m][jj][2 * half] + bo2.x),
+                          x2.y + (o[m][jj][2 * half + 1] + bo2.y));
+        }
+      }
+    }
+  }
+  HOP1_MARK(7);
+}
+
+// ---------------------------------------------------------------------------
+// Variant choice and launch
+
+enum Variant { kVariantNone = 0, kVariantTiled = 1, kVariantWhole = 2 };
+
+// The whole kernel's two instantiations by kv length: "short" (two groups
+// of one batch row a block, at most 32 projected rows: Lk <= 16, the s2t
+// launch) halves the weight passes; "long" (one group, at most 64 rows: the
+// t2s launch) keeps its registers for the 4 row tiles.
+bool whole_short(int Lk) { return whole_rows(2, Lk) <= 32; }
+
+int whole_groups(int G, int Lk) { return whole_short(Lk) && G > 1 ? 2 : 1; }
+
+size_t whole_smem(int Lq, int Lk, int D, int G, int kv_bytes) {
+  return (size_t)whole_layout(Lq, Lk, D, whole_groups(G, Lk), kv_bytes).floats *
+         sizeof(float);
+}
+
+// The kernel a launch at these widths takes; decided by shape alone (the
+// float32 grid's shared memory at two groups, the most it can need), never
+// by an error.
+int hop1_variant(int Lq, int Lk, int D, int h) {
+  if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
+  const int dk = D / h;
+  if ((D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 &&
+      whole_rows(1, Lk) <= kWholeMaxRows &&
+      whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
+    return kVariantWhole;
+  int qc, tk;
+  size_t smem;
+  return hop1_plan(Lq, Lk, D, h, &qc, &tk, &smem) ? kVariantTiled : kVariantNone;
+}
+
+// The whole kernel's instantiation for a launch: NT = D / 32 (D 128, the
+// flagship's width, or 64, scripts/demo_learning.sh's); "long" (one group, up to 4 16-row tiles) or "short" (whole_short: two
+// groups, up to 2); heads up to 16 or up to 32 wide.
+#define BIST_HOP1_WHOLE_CASES(X)                                                    \
+  switch ((D == 128 ? 4 : 0) + (whole_short(Lk) ? 2 : 0) + (D / h > 16 ? 1 : 0)) {  \
+    case 0: X(2, 4, 1, 2); break;                                                   \
+    case 1: X(2, 4, 1, 4); break;                                                   \
+    case 2: X(2, 2, 2, 2); break;                                                   \
+    case 3: X(2, 2, 2, 4); break;                                                   \
+    case 4: X(4, 4, 1, 2); break;                                                   \
+    case 5: X(4, 4, 1, 4); break;                                                   \
+    case 6: X(4, 2, 2, 2); break;                                                   \
+    default: X(4, 2, 2, 4); break;                                                  \
+  }
+
 template <typename TKV>
-int launch(const float* x, const float* q, const TKV* kv, long long kv_sb,
+const void* whole_kernel(int Lk, int D, int h) {
+  const void* fn = nullptr;
+#define BIST_HOP1_WHOLE_FN(NT, MT, NG, DK8) \
+  fn = reinterpret_cast<const void*>(hop1_fwd_whole_kernel<TKV, NT, MT, NG, DK8>)
+  BIST_HOP1_WHOLE_CASES(BIST_HOP1_WHOLE_FN)
+#undef BIST_HOP1_WHOLE_FN
+  return fn;
+}
+
+// The kernel, its threads, dynamic shared memory, grid and tile sizes for a
+// launch (qc, tk for "tiled"; qc, groups a block for "whole").
+struct LaunchSpec {
+  const void* fn;
+  int threads;
+  size_t smem;
+  dim3 grid;
+  int qc, tk;
+};
+
+// `variant` is hop1_variant's choice, or the kernel a measurement asks for:
+// "tiled" takes every width hop1_variant takes, "whole" only its own.
+template <typename TKV>
+bool launch_spec(int variant, int B, int G, int Lq, int Lk, int D, int h,
+                 LaunchSpec* s) {
+  const int chosen = hop1_variant(Lq, Lk, D, h);
+  if (chosen == kVariantNone || (variant == kVariantWhole && chosen != kVariantWhole))
+    return false;
+  if (variant == kVariantWhole) {
+    const int ng = whole_groups(G, Lk);
+    const WholeLayout L = whole_layout(Lq, Lk, D, ng, sizeof(TKV));
+    s->fn = whole_kernel<TKV>(Lk, D, h);
+    s->threads = kWholeThreads;
+    s->smem = (size_t)L.floats * sizeof(float);
+    s->qc = L.qc;
+    s->tk = ng;
+    s->grid = dim3((unsigned)(B * ((G + ng - 1) / ng)), (unsigned)((Lq + L.qc - 1) / L.qc));
+    return true;
+  }
+  if (variant == kVariantTiled && hop1_plan(Lq, Lk, D, h, &s->qc, &s->tk, &s->smem)) {
+    s->fn = reinterpret_cast<const void*>(hop1_fwd_tiles_kernel<TKV>);
+    s->threads = kThreads;
+    s->grid = dim3((unsigned)(B * G), (unsigned)((Lq + s->qc - 1) / s->qc));
+    return true;
+  }
+  return false;
+}
+
+template <typename TKV>
+int launch(int variant, const float* x, const float* q, const TKV* kv, long long kv_sb,
            long long kv_sg, long long kv_st, const int* mask, const float* wk,
            const float* bk, const float* wv, const float* bv, const float* wo,
            const float* bo, float* out, float* concat, float* lse, int B, int G,
            int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
-  int qc, tk;
-  size_t smem;
-  if (!hop1_plan(Lq, Lk, D, h, &qc, &tk, &smem)) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  LaunchSpec s;
+  if (!launch_spec<TKV>(variant, B, G, Lq, Lk, D, h, &s)) return (int)cudaErrorInvalidValue;
+  if (s.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        hop1_fwd_kernel<TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        s.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)(B * G), (unsigned)((Lq + qc - 1) / qc));
-  hop1_fwd_kernel<TKV><<<grid, kThreads, smem, stream>>>(
-      x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat,
-      lse, G, Lq, Lk, D, h, qc, tk, scale);
+  if (s.fn == reinterpret_cast<const void*>(hop1_fwd_tiles_kernel<TKV>)) {
+    hop1_fwd_tiles_kernel<TKV><<<s.grid, s.threads, s.smem, stream>>>(
+        x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat,
+        lse, G, Lq, Lk, D, h, s.qc, s.tk, scale);
+  } else {
+#define BIST_HOP1_WHOLE(NT, MT, NG, DK8)                                            \
+  hop1_fwd_whole_kernel<TKV, NT, MT, NG, DK8><<<s.grid, s.threads, s.smem, stream>>>( \
+      x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse,  \
+      G, Lq, Lk, h, s.tk, scale)
+    BIST_HOP1_WHOLE_CASES(BIST_HOP1_WHOLE)
+#undef BIST_HOP1_WHOLE
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename TKV>
+int resources(int G, int Lq, int Lk, int D, int h, int* info) {
+  LaunchSpec s;
+  if (!launch_spec<TKV>(hop1_variant(Lq, Lk, D, h), 1, G, Lq, Lk, D, h, &s))
+    return (int)cudaErrorInvalidValue;
+  if (s.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        s.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, s.fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, s.fn, s.threads, s.smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = hop1_variant(Lq, Lk, D, h);
+  info[1] = (int)s.smem;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = blocks;
+  info[5] = info[0] == kVariantWhole ? s.tk : 1;
+  return 0;
 }
 
 }  // namespace
@@ -336,27 +1005,65 @@ int launch(const float* x, const float* q, const TKV* kv, long long kv_sb,
 extern "C" {
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = ok), or
-// cudaErrorInvalidValue for widths the kernel does not take (D > 512, D not
+// cudaErrorInvalidValue for widths the kernels do not take (D > 512, D not
 // a multiple of 8, D / h not a multiple of 4).  kv is float32, or bfloat16
 // when kv_bf16 is set; its strides are in elements.  concat (B, G, Lq, D)
 // and lse (B, G, Lq, h) are the training residuals: both null, or both
 // written.
+int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv,
+                     int kv_bf16, long long kv_sb, long long kv_sg, long long kv_st,
+                     const int* mask, const float* wk, const float* bk,
+                     const float* wv, const float* bv, const float* wo,
+                     const float* bo, float* out, float* concat, float* lse, int B,
+                     int G, int Lq, int Lk, int D, int h, float scale, void* stream);
+
 int bist_hop1_fwd(const float* x, const float* q, const void* kv, int kv_bf16,
                   long long kv_sb, long long kv_sg, long long kv_st,
                   const int* mask, const float* wk, const float* bk,
                   const float* wv, const float* bv, const float* wo,
                   const float* bo, float* out, float* concat, float* lse, int B,
                   int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
+  return bist_hop1_fwd_as(hop1_variant(Lq, Lk, D, h), x, q, kv, kv_bf16, kv_sb, kv_sg,
+                          kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G,
+                          Lq, Lk, D, h, scale, stream);
+}
+
+// bist_hop1_fwd through the named kernel (1 "tiled", 2 "whole"), for
+// measurements that hold the two against each other; cudaErrorInvalidValue
+// where that kernel does not take the widths.
+int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv,
+                     int kv_bf16, long long kv_sb, long long kv_sg, long long kv_st,
+                     const int* mask, const float* wk, const float* bk,
+                     const float* wv, const float* bv, const float* wo,
+                     const float* bo, float* out, float* concat, float* lse, int B,
+                     int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
   if (kv_sb % 4 != 0 || kv_sg % 4 != 0 || kv_st % 4 != 0 || B < 1 || G < 1 ||
       Lq < 1 || Lk < 1 || (concat == nullptr) != (lse == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_bf16)
-    return launch(x, q, static_cast<const __nv_bfloat16*>(kv), kv_sb, kv_sg, kv_st,
-                  mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h,
-                  scale, s);
-  return launch(x, q, static_cast<const float*>(kv), kv_sb, kv_sg, kv_st, mask,
+    return launch(variant, x, q, static_cast<const __nv_bfloat16*>(kv), kv_sb, kv_sg,
+                  kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk,
+                  D, h, scale, s);
+  return launch(variant, x, q, static_cast<const float*>(kv), kv_sb, kv_sg, kv_st, mask,
                 wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h, scale, s);
+}
+
+// The kernel bist_hop1_fwd launches at these widths: 2 "whole", 1 "tiled",
+// 0 none (it would return cudaErrorInvalidValue).
+int bist_hop1_fwd_variant(int Lq, int Lk, int D, int h) {
+  return hop1_variant(Lq, Lk, D, h);
+}
+
+// What that kernel takes on the current device at G groups: info[0]
+// variant, [1] dynamic shared memory bytes, [2] registers a thread, [3]
+// local memory bytes a thread (spills and stack), [4] resident blocks per
+// SM, [5] groups a block.  Returns the CUDA error code
+// (cudaErrorInvalidValue for widths the kernels do not take).
+int bist_hop1_fwd_resources(int G, int Lq, int Lk, int D, int h, int kv_bf16,
+                            int* info) {
+  return kv_bf16 ? resources<__nv_bfloat16>(G, Lq, Lk, D, h, info)
+                 : resources<float>(G, Lq, Lk, D, h, info);
 }
 
 }  // extern "C"

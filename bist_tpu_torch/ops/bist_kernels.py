@@ -12,13 +12,17 @@ with the query projection `q_proj` = LN(x) Wq + bq computed once outside
 (it is group-invariant).  K1 keeps the projected K/V and the scores on chip
 and, for training, also writes the residuals `concat` (the attention output
 before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
-gradients of q_proj, kv and the K/V weights.  See the sources for their
-designs and bounds.
+gradients of q_proj, kv and the K/V weights.  K1 has two kernels, which its
+launcher chooses by shape (`hop1_variant`): "whole" at the main path's
+widths (every product on the tensor cores as 3xTF32, which keeps float32
+accuracy) and "tiled" at the others.  See the sources for their designs and
+bounds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -137,10 +141,53 @@ def _lib(name: str, fn_name: str, argtypes, restype=ctypes.c_int) -> ctypes.CDLL
     return lib
 
 
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/hop1_fwd.cu."""
+    args = [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _F, _P]
+    for fn, argtypes in (("bist_hop1_fwd", args), ("bist_hop1_fwd_as", [_I] + args),
+                         ("bist_hop1_fwd_variant", [_I] * 4),
+                         ("bist_hop1_fwd_resources", [_I] * 6 + [_P])):
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def _fwd_lib() -> ctypes.CDLL:
-    return _lib("hop1_fwd", "bist_hop1_fwd",
-                [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _P, _I, _I, _I, _I, _I, _I, _F, _P])
+    lib = _build.load("hop1_fwd")
+    return lib if lib.bist_hop1_fwd.argtypes else bind_fwd(lib)
+
+
+# K1's two kernels (csrc/hop1_fwd.cu), by the code its launcher's choice returns
+HOP1_VARIANTS = {1: "tiled", 2: "whole"}
+
+
+@functools.lru_cache(maxsize=None)
+def hop1_variant(Lq: int, Lk: int, D: int, h: int) -> str:
+    """The K1 kernel a launch at these widths takes, as the launcher chooses
+    it from the shape alone: "whole" (all kv rows of a group in one tile,
+    every product on the tensor cores in 3xTF32; D 64 or 128, d_k a multiple
+    of 8 up to 32, Lk <= 64) or "tiled" (kv tiles with an online softmax, FMAs;
+    every other width K1 takes); ValueError for widths neither takes.
+    Builds the library on first use."""
+    code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h)
+    if code not in HOP1_VARIANTS:
+        raise ValueError(f"hop1_fused: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
+    return HOP1_VARIANTS[code]
+
+
+def hop1_resources(G: int, Lq: int, Lk: int, D: int, h: int, bf16: bool = False) -> dict:
+    """What the K1 kernel chosen at these widths takes on the current CUDA
+    device: its variant, dynamic shared memory, registers and local memory
+    (spills, stack) a thread, resident blocks per SM and groups a block."""
+    info = (ctypes.c_int * 6)()
+    rc = _fwd_lib().bist_hop1_fwd_resources(G, Lq, Lk, D, h, int(bf16), info)
+    if rc != 0:
+        raise RuntimeError(f"hop1_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} "
+                           f"D={D} h={h})")
+    return {"variant": HOP1_VARIANTS[info[0]], "smem_bytes": info[1],
+            "registers": info[2], "local_bytes": info[3], "blocks_per_sm": info[4],
+            "groups_per_block": info[5]}
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -194,9 +241,32 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
     strided view (the t2s direction passes the grid with T and S swapped) as
     long as its last axis is contiguous; x, q_proj, the weights and the mask
     must be contiguous, float32 (mask int32), on kv's device.  The results
-    are float32.  `hop1_fused.launches` counts kernel launches."""
+    are float32.  `hop1_fused.launches` counts kernel launches and
+    `hop1_fused.variants` counts them by kernel (`hop1_variant`)."""
     if kv.device.type == "cpu":
         return hop1_plain(x, q_proj, kv, attn_params, h, mask, return_residuals)
+    return _hop1_launch(_fwd_lib().bist_hop1_fwd, None, x, q_proj, kv, attn_params, h,
+                        mask, return_residuals)
+
+
+def _hop1_fused_as(variant: str, x, q_proj, kv, attn_params, h, mask=None,
+                   return_residuals=False, lib: Optional[ctypes.CDLL] = None):
+    """`hop1_fused` on a CUDA tensor through the named kernel ("tiled" or
+    "whole"), for measurements that hold the two against each other, from
+    `lib` (a library built from csrc/hop1_fwd.cu and bound by `bind_fwd`;
+    default the port's own).  Raises where that kernel does not take the
+    widths."""
+    code = {n: c for c, n in HOP1_VARIANTS.items()}[variant]
+    launch = (lib or _fwd_lib()).bist_hop1_fwd_as
+    return _hop1_launch(lambda *a: launch(code, *a), variant, x, q_proj, kv, attn_params,
+                        h, mask, return_residuals)
+
+
+def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, mask,
+                 return_residuals):
+    """Check K1's inputs, allocate its results and launch it by `launch`
+    (the C entry's arguments after any variant code); counts the launch
+    under `variant` (by default the launcher's choice, `hop1_variant`)."""
     _check_grid(kv, h, "hop1_fused")
     dev = kv.device
     B, G, Lk, D = kv.shape
@@ -211,15 +281,15 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
                          "aligned to their vector loads")
     if mask is not None:
         _check("mask", mask, (B, 1, Lk), dev, dtype=torch.int32)
+    variant = variant or hop1_variant(Lq, Lk, D, h)
     out = torch.empty((B, G, Lq, D), device=dev, dtype=torch.float32)
     concat = lse = None
     if return_residuals:
         concat = torch.empty((B, G, Lq, D), device=dev, dtype=torch.float32)
         lse = torch.empty((B, G, Lq, h), device=dev, dtype=torch.float32)
-    lib = _fwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bist_hop1_fwd(
+        rc = launch(
             x.data_ptr(), q_proj.data_ptr(), kv.data_ptr(),
             int(kv.dtype == torch.bfloat16),
             kv.stride(0), kv.stride(1), kv.stride(2),
@@ -231,10 +301,12 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
     if rc != 0:
         raise _launch_failed("hop1_fused", rc, kv, Lq, h)
     hop1_fused.launches += 1
+    hop1_fused.variants[variant] = hop1_fused.variants.get(variant, 0) + 1
     return (out, concat, lse) if return_residuals else out
 
 
 hop1_fused.launches = 0
+hop1_fused.variants = {}
 
 
 def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor],

@@ -7,22 +7,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
   0. the card's name and power limit (nvidia-smi); no CUDA → exit 1;
   1. build the CUDA kernels of bist_tpu_torch/csrc, one nvcc per source, all
-     started together (into build/bist_tpu_torch/);
+     started together (into build/bist_tpu_torch/), with ptxas's report of
+     K1's kernels (registers, stack and spill bytes) printed;
   2. each kernel against its plain PyTorch version (float32, TF32 off; an
      element passes when |kernel - plain| <= 2e-4 + 2e-4·|plain|, so K2's
      weight gradients, sums over thousands of kv rows, may pass through the
      relative term, and their largest relative error there is printed) at
-     the shapes the main path gives it, timed as
-     the median of CUDA-event runs beside the plain version, a library call
-     where one computes the same function, and the card's bound;
+     the shapes the main path gives it, beside the plain version, a library
+     call where one computes the same function, and the card's bound.
+     "ms" is the median of 20 single calls with CUDA events around each
+     (the device time plus the wrapper's host work before the launch);
+     "device_ms" puts the events around 20 calls made back to back, over
+     their number (the median of 5 such runs), so that the host work
+     overlaps the device work of the calls before.  K1's cases name the
+     kernel they must run ("whole" or "tiled", the two of
+     csrc/hop1_fwd.cu); its main-path cases also check and time "tiled",
+     the kernel that held those widths before "whole", at the same inputs;
   3. the main path: the flagship AVSD model (d_model 128, 8 heads, 3/3/3
      blocks, summary caption, pointer generator over query,cap; random
      weights from seed 0) generating for 4 batches of 64 real test turns
      (random features, 8-40 clips of 16 x 2048) by beam search (beam 5,
      maxlen 12, nbest 5, float32 cache).  Kernel launch counts are zeroed
      just before and read just after; hop 1 must have gone through its
-     kernel 6 times per batch.  The same batches then run with the kernels
-     forced off: every precomputed context tensor must agree to 2e-4;
+     kernel 6 times per batch, every time through "whole".  The same
+     batches then run with the kernels forced off: every precomputed
+     context tensor must agree to 2e-4;
   4. the flash kernel through models.layers.mha in the regime that sends it
      there (d_model 512, 8 heads, 32 queries, 32768 keys, key-padding mask),
      counts zeroed and read around it, held against the plain path;
@@ -64,8 +73,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 TEST_JSON = os.path.join(HERE, "dstc7avsd_eval", "data", "test_set4DSTC7-AVSD.json")
 TOL = 2e-4
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet at 700 W: float32 outside the tensor cores,
+# dense TF32 on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # the flagship configuration (the JAX package's __graft_entry__._flagship_cfg)
@@ -92,7 +103,9 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median time of one call, CUDA events around each call."""
+    """Median time of one call, CUDA events around each call: with the
+    device idle before it, the device time plus whatever of the call's host
+    work comes before its launch."""
     import torch
 
     for _ in range(warmup):
@@ -110,22 +123,54 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    """(least time in ms, what bounds it) on the card's published peaks."""
+def device_time_ms(fn, launches: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Time of one call made back to back: CUDA events around `launches`
+    calls, over their number; the median of `reps` such runs.  A call's host
+    work (the wrapper's checks, allocations, the launch) overlaps the device
+    work of the calls before it, so this is the device time wherever that
+    is the longer of the two."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float = 0.0, tf32x3_flops: float = 0.0,
+          tf32x2_flops: float = 0.0):
+    """(least time in ms, what bounds it) on the card's published peaks:
+    the bytes over the memory rate against the operations, `flops` at the
+    float32 rate and the float32 products done on the tensor cores at the
+    dense TF32 rate over the passes of their split: three for 3xTF32
+    (`tf32x3_flops`), two where one operand is bfloat16, exact in TF32, and
+    has no low half (`tf32x2_flops`)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + 3 * tf32x3_flops / PEAK_TF32_FLOPS
+             + 2 * tf32x2_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hop1_work(B, G, Lq, Lk, D, masked):
+def hop1_work(B, G, Lq, Lk, D, masked, kv_bytes=4):
     """Bytes that must move (each input read once, the output written once)
-    and float32 operations of one fused hop-1 call."""
-    nbytes = 4 * (2 * B * Lq * D + B * G * Lk * D + 3 * D * D + 3 * D
-                  + B * G * Lq * D) + (4 * B * Lk if masked else 0)
-    flops = (2 * 2 * B * G * Lk * D * D        # K and V projections
-             + 2 * 2 * B * G * Lq * Lk * D     # scores and p·v over all heads
-             + 2 * B * G * Lq * D * D)         # Wo
-    return nbytes, flops
+    and the float32 operations of one fused hop-1 call: those of the K/V
+    projection, of Wo and of attention (scores and p·v over all heads)."""
+    nbytes = 4 * (2 * B * Lq * D + 3 * D * D + 3 * D + B * G * Lq * D) \
+        + kv_bytes * B * G * Lk * D + (4 * B * Lk if masked else 0)
+    proj_flops = 2 * 2 * B * G * Lk * D * D
+    wo_flops = 2 * B * G * Lq * D * D
+    attn_flops = 2 * 2 * B * G * Lq * Lk * D
+    return nbytes, proj_flops, wo_flops, attn_flops
 
 
 def hop1_bwd_work(B, G, Lq, Lk, D, h, masked):
@@ -147,6 +192,37 @@ def hop1_bwd_work(B, G, Lq, Lk, D, h, masked):
 def flash_work(G, Lq, Lk, d, masked):
     nbytes = 4 * (2 * G * Lq * d + 2 * G * Lk * d) + (4 * G * Lk if masked else 0)
     return nbytes, 4 * G * Lq * Lk * d
+
+
+def ptxas_report(log):
+    """Per kernel of an `nvcc -Xptxas -v` log: registers, stack and spill
+    bytes, named by kernel, grid type and, for hop-1 "whole", its template
+    arguments: width D, 16-row kv tiles, groups a block, head width up to."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kind = re.search(r"\d((?:hop1|flash)_\w*?_kernel)", mangled)
+            args = [int(a) for a in re.findall(r"Li(\d+)E", mangled)]
+            cur = {"kernel": kind.group(1) if kind else mangled,
+                   "kv": "bfloat16" if "bfloat16" in mangled else "float32"}
+            if len(args) == 4:
+                cur.update(D=32 * args[0], row_tiles=args[1], groups=args[2],
+                           dk_max=8 * args[3])
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -211,37 +287,64 @@ def rel_beyond_atol(got, want):
     return (diff[over] / want.float().abs()[over]).max().item()
 
 
-def check_hop1(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
-               residuals=False):
-    """One K1 case; with `residuals` the training launch, whose concat and
-    lse are held against the plain version's too."""
+def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
+               seed, residuals=False, bf16=False, vs_tiled=False):
+    """One K1 case, which must run the named kernel variant; with
+    `residuals` the training launch, whose concat and lse are held against
+    the plain version's too; with `bf16` a bfloat16 grid.  The bound counts
+    every product at the rate "whole" runs it on the tensor cores: 3xTF32,
+    or two passes for the projection of a bfloat16 grid; `bound_f32_ms`
+    counts every operation at the float32 rate (the bound of the kernels
+    before the tensor cores).  With `vs_tiled` the "tiled" kernel is checked
+    and timed at the same inputs too."""
     import torch
 
-    from bist_tpu_torch.ops.bist_kernels import hop1_fused, hop1_plain
+    from bist_tpu_torch.ops.bist_kernels import (_hop1_fused_as, hop1_fused, hop1_plain,
+                                                 hop1_resources)
 
     _, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
                                        strided_t2s, seed)
+    if bf16:
+        kv = kv.to(torch.bfloat16)
+    before = dict(hop1_fused.variants)
     got = hop1_fused(x, q, kv, p, h, mask, return_residuals=residuals)
+    ran = [v for v, n in hop1_fused.variants.items() if n != before.get(v, 0)]
     want = hop1_plain(x, q, kv, p, h, mask, return_residuals=residuals)
     torch.cuda.synchronize()
-    if residuals:
-        err = max(assert_agree(f"hop1 {name} {n}", a, b)
-                  for n, a, b in zip(("out", "concat", "lse"), got, want))
-    else:
-        err = assert_agree(f"hop1 {name}", got, want)
-    nbytes, flops = hop1_work(B, G, Lq, Lk, D, masked)
+    if ran != [variant]:
+        raise AssertionError(f"hop1 {name}: ran the {ran} kernel, expected {variant}")
+    def agree(got, what):
+        if residuals:
+            return max(assert_agree(f"{what} {n}", a, b)
+                       for n, a, b in zip(("out", "concat", "lse"), got, want))
+        return assert_agree(what, got, want)
+
+    err = agree(got, f"hop1 {name}")
+    run = lambda: hop1_fused(x, q, kv, p, h, mask, return_residuals=residuals)
+    plain = lambda: hop1_plain(x, q, kv, p, h, mask, return_residuals=residuals)
+    extra = {}
+    if vs_tiled:
+        tiled = lambda: _hop1_fused_as("tiled", x, q, kv, p, h, mask, residuals)
+        extra = {"tiled_max_abs_err": agree(tiled(), f"hop1 {name} (tiled)"),
+                 "tiled_ms": time_ms(tiled), "tiled_device_ms": device_time_ms(tiled)}
+    nbytes, proj, wo, attn = hop1_work(B, G, Lq, Lk, D, masked, kv.element_size())
     if residuals:
         nbytes += 4 * B * G * Lq * (D + h)
-    b_ms, b_by = bound(nbytes, flops)
+    if bf16:
+        b_ms, b_by = bound(nbytes, tf32x3_flops=wo + attn, tf32x2_flops=proj)
+    else:
+        b_ms, b_by = bound(nbytes, tf32x3_flops=proj + wo + attn)
+    f32_ms, f32_by = bound(nbytes, proj + wo + attn)
     return {"case": name, "shape": dict(B=B, G=G, Lq=Lq, Lk=Lk, D=D, h=h,
-                                        masked=masked, residuals=residuals),
-            "max_abs_err": err,
-            "ms": time_ms(lambda: hop1_fused(x, q, kv, p, h, mask,
-                                             return_residuals=residuals)),
-            "plain_ms": time_ms(lambda: hop1_plain(x, q, kv, p, h, mask,
-                                                   return_residuals=residuals)),
+                                        masked=masked, residuals=residuals,
+                                        kv=str(kv.dtype).replace("torch.", "")),
+            "variant": variant, "max_abs_err": err,
+            "ms": time_ms(run), "device_ms": device_time_ms(run),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_time_ms(plain), **extra,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+            "bytes": nbytes, "flops": proj + wo + attn, "weight_flops": proj + wo,
+            "resources": hop1_resources(G, Lq, Lk, D, h, bf16)}
 
 
 def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
@@ -274,7 +377,9 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
                                         masked=masked, full_row=full_row),
             "max_abs_err": err, "max_rel_err_beyond_atol": rel,
             "ms": time_ms(lambda: hop1_bwd(*args)),
+            "device_ms": device_time_ms(lambda: hop1_bwd(*args)),
             "plain_ms": time_ms(lambda: hop1_bwd_plain(*args)),
+            "plain_device_ms": device_time_ms(lambda: hop1_bwd_plain(*args)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
 
@@ -307,7 +412,9 @@ def check_flash(device, name, G, Lq, Lk, d, masked, seed):
     return {"case": name, "shape": dict(G=G, Lq=Lq, Lk=Lk, d=d, masked=masked),
             "max_abs_err": err,
             "ms": time_ms(lambda: flash_attention(q, k, v, mask)),
+            "device_ms": device_time_ms(lambda: flash_attention(q, k, v, mask)),
             "plain_ms": time_ms(lambda: attention_plain(q, k, v, mask)),
+            "plain_device_ms": device_time_ms(lambda: attention_plain(q, k, v, mask)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bool_mask)),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
@@ -316,17 +423,30 @@ def check_flash(device, name, G, Lq, Lk, d, masked, seed):
 def phase_kernels(device):
     hop1 = [
         # the main path's two hop-1 launches of each video layer
-        check_hop1(device, "t2s", 64, 16, 32, 40, 128, 8, True, True, 1),
-        check_hop1(device, "s2t", 64, 40, 32, 16, 128, 8, False, False, 2),
+        check_hop1(device, "t2s", "whole", 64, 16, 32, 40, 128, 8, True, True, 1,
+                   vs_tiled=True),
+        check_hop1(device, "s2t", "whole", 64, 40, 32, 16, 128, 8, False, False, 2,
+                   vs_tiled=True),
         # many kv tiles at the widest D the kernel takes
-        check_hop1(device, "multi-tile", 4, 8, 32, 600, 512, 8, True, False, 3),
+        check_hop1(device, "multi-tile", "tiled", 4, 8, 32, 600, 512, 8, True, False, 3),
         # the t2s launch of wider models at the main path's batch
-        check_hop1(device, "t2s D=256", 64, 16, 32, 40, 256, 8, True, True, 7),
-        check_hop1(device, "t2s D=512", 64, 16, 32, 40, 512, 8, True, True, 8),
+        check_hop1(device, "t2s D=256", "tiled", 64, 16, 32, 40, 256, 8, True, True, 7),
+        check_hop1(device, "t2s D=512", "tiled", 64, 16, 32, 40, 512, 8, True, True, 8),
         # the training launches (batches of 32), with the residuals
-        check_hop1(device, "train t2s", 32, 16, 32, 40, 128, 8, True, True, 9, True),
-        check_hop1(device, "train s2t", 32, 40, 32, 16, 128, 8, False, False, 10,
-                   True),
+        check_hop1(device, "train t2s", "whole", 32, 16, 32, 40, 128, 8, True, True, 9,
+                   True, vs_tiled=True),
+        check_hop1(device, "train s2t", "whole", 32, 40, 32, 16, 128, 8, False, False,
+                   10, True, vs_tiled=True),
+        # shapes that fill no MMA tile (query rows, kv rows), a narrower
+        # model, a bfloat16 grid; batch row 0 fully masked in each
+        check_hop1(device, "ragged Lq5 Lk37", "whole", 64, 16, 5, 37, 128, 8, True,
+                   True, 15),
+        check_hop1(device, "ragged Lq12 Lk1", "whole", 64, 40, 12, 1, 128, 8, True,
+                   False, 16),
+        check_hop1(device, "t2s D=64 h=4", "whole", 64, 16, 32, 40, 64, 4, True, True,
+                   17),
+        check_hop1(device, "t2s bf16", "whole", 64, 16, 32, 40, 128, 8, True, True, 18,
+                   bf16=True),
     ]
     hop1_bwd = [
         # the training step's two hop-1 backward launches of each video layer
@@ -426,12 +546,14 @@ def phase_main_path(device, n_batches=4, B=64):
 
     sync()
     hop1_fused.launches = flash_attention.launches = 0
+    hop1_fused.variants = {}
     t0 = time.perf_counter()
     results = [beam_search(params, cfg, b, gcfg) for b in batches]
     sync()
     seconds = time.perf_counter() - t0
     launches = {"hop1_fwd": hop1_fused.launches,
                 "flash_fwd": flash_attention.launches}
+    variants = dict(hop1_fused.variants)
 
     K = gcfg.nbest
     for r in results:
@@ -447,6 +569,9 @@ def phase_main_path(device, n_batches=4, B=64):
         raise AssertionError(f"hop-1 kernel launched {launches['hop1_fwd']} "
                              f"times on the main path, expected {want} "
                              f"(6 per batch)")
+    if device.type == "cuda" and variants != {"whole": want}:
+        raise AssertionError(f"hop-1 launches on the main path by kernel: "
+                             f"{variants}, expected all {want} on \"whole\"")
 
     # the context precompute alone (encode + the BiST stack, where K1 runs)
     sync()
@@ -483,7 +608,8 @@ def phase_main_path(device, n_batches=4, B=64):
     return {"batches": n_batches, "batch_size": B,
             "responses_per_s": n_batches * B / seconds, "seconds": seconds,
             "precompute_seconds": precompute_seconds,
-            "launches": launches, "ctx_max_abs_diff": worst,
+            "launches": launches, "hop1_variants": variants,
+            "ctx_max_abs_diff": worst,
             "first_best_identical_share": same / total}
 
 
@@ -677,6 +803,7 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     step = make_train_step(cfg, tcfg, tx)
     sync()
     hop1_fused.launches = hop1_bwd.launches = 0
+    hop1_fused.variants = {}
     losses, times = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -685,6 +812,7 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     launches = {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches}
+    variants = dict(hop1_fused.variants)
     want = 6 * steps if device.type == "cuda" else 0
     if launches != {"hop1_fwd": want, "hop1_bwd": want}:
         raise AssertionError(f"training launched {launches} in {steps} steps, "
@@ -701,7 +829,8 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     return {"steps": steps, "batch_size": B, "ms_per_step": ms,
             "profile": profile,
             "examples_per_s": B / ms * 1e3, "first_step_ms": times[0] * 1e3,
-            "launches": launches, "loss_first": first, "loss_last_same_batch": last,
+            "launches": launches, "hop1_variants": variants,
+            "loss_first": first, "loss_last_same_batch": last,
             "grad_check": {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
                            "loss_rel_diff": loss_rel, "max_abs_diff": grad_err,
                            "max_abs_grad": grad_max,
@@ -803,9 +932,12 @@ def kernel_entry(name, source, replaces, cases, launches, path):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_on": path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "kernel_ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
+            **{k: main[k] for k in ("variant", "bound_f32_ms", "tiled_ms", "tiled_device_ms")
+               if k in main},
             "cases": cases}
 
 
@@ -831,6 +963,9 @@ def main() -> int:
     built = _build.build(ptxas_verbose=True)
     for name, info in built.items():
         log(f"built {name} in {info['seconds']:.1f} s\n{info['log'].strip()}")
+    if "hop1_fwd" in built:
+        for row in ptxas_report(built["hop1_fwd"]["log"]):
+            print(f"ptxas hop1_fwd: {json.dumps(row)}", flush=True)
     print(f"build: {len(built)} kernel libraries compiled in "
           f"{time.perf_counter() - t0:.1f} s (wall, in parallel)", flush=True)
 

@@ -88,6 +88,72 @@ def test_result_schema_check_rejects_placeholder_answers():
     assert np.isfinite(chip_smoke.bound(1e9, 1e12)[0])
 
 
+def test_ptxas_report_names_whole_kernel_arguments():
+    """chip_smoke.py's reading of an `nvcc -Xptxas -v` log: each kernel's
+    registers and spill bytes, K1 "whole"'s template arguments by name."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121hop1_fwd_whole_"
+        "kernelI13__nv_bfloat16Li4ELi2ELi2ELi2EEEvPKfS3_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121hop1_fwd_tiles_"
+        "kernelIfEEvPKf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 110 registers, 384 bytes cmem[0]",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "hop1_fwd_whole_kernel", "kv": "bfloat16", "D": 128, "row_tiles": 2,
+         "groups": 2, "dk_max": 16, "stack": 8, "spill_stores": 4, "spill_loads": 12,
+         "registers": 128},
+        {"kernel": "hop1_fwd_tiles_kernel", "kv": "float32", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 110}]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hop1_bound_counts_products_at_the_tensor_core_rate(bf16):
+    """The hop-1 bound of chip_smoke.py at the flagship t2s launch: every
+    product at the dense TF32 rate (495 TFLOP/s) over the passes "whole"
+    runs it in, three (3xTF32), or two for the projection of a bfloat16 grid
+    (exact in TF32): ~0.027 and ~0.021 ms, bound by operations; every
+    operation at the float32 rate, ~0.066 ms."""
+    nbytes, proj, wo, attn = chip_smoke.hop1_work(64, 16, 32, 40, 128, True,
+                                                  2 if bf16 else 4)
+    assert (proj, wo, attn) == (2_684_354_560, 1_073_741_824, 671_088_640)
+    if bf16:
+        ms, by = chip_smoke.bound(nbytes, tf32x3_flops=wo + attn, tf32x2_flops=proj)
+        assert ms == pytest.approx((3 * (wo + attn) + 2 * proj) / 495e12 * 1e3)
+        assert 0.021 < ms < 0.022
+    else:
+        ms, by = chip_smoke.bound(nbytes, tf32x3_flops=proj + wo + attn)
+        assert ms == pytest.approx(3 * (proj + wo + attn) / 495e12 * 1e3)
+        assert 0.026 < ms < 0.027
+    assert by == "operations"
+    f32_ms, f32_by = chip_smoke.bound(nbytes, proj + wo + attn)
+    assert f32_by == "operations" and 0.065 < f32_ms < 0.067
+
+
+def test_hop1_probe_marks_every_phase_of_the_whole_kernel():
+    """The phase marks the probe's instrumented copy of csrc/hop1_fwd.cu
+    records: HOP1_MARK(0) .. HOP1_MARK(7) once each, in order, all inside
+    the whole kernel, defined to nothing unless the includer defines them,
+    as the probe's source does before it includes the kernel's."""
+    import re
+
+    from bist_tpu_torch.ops import _build
+    from bist_tpu_torch.tools import hop1_probe
+
+    src = (_build.SRC_DIR / "hop1_fwd.cu").read_text()
+    marks = [(int(m.group(1)), m.start()) for m in re.finditer(r"HOP1_MARK\((\d)\);", src)]
+    assert [k for k, _ in marks] == list(range(len(hop1_probe.PHASES) + 1))
+    start = src.index("hop1_fwd_whole_kernel(const float*")
+    end = src.index("// Variant choice and launch")
+    assert all(start < at < end for _, at in marks)
+    assert "#ifndef HOP1_MARK\n#define HOP1_MARK(k)\n#endif" in src
+    probe = hop1_probe.INSTRUMENTED
+    assert probe.index("#define HOP1_MARK(k)") < probe.index('#include "hop1_fwd.cu"')
+
+
 def test_chip_smoke_phases_on_cpu(monkeypatch):
     """chip_smoke.py's main path and mha phases at a small batch on the CPU,
     where the wrappers run their plain versions (no launches)."""

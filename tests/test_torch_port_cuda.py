@@ -79,6 +79,67 @@ def test_hop1_kernel_matches_plain(cuda, B, G, Lq, Lk, D, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant,B,G,Lq,Lk,D,h,strided,bf16", [
+    ("whole", 4, 16, 32, 40, 128, 8, True, False),     # flagship t2s
+    ("whole", 4, 40, 32, 16, 128, 8, False, False),    # flagship s2t
+    ("whole", 3, 16, 5, 37, 128, 8, True, False),      # rows that fill no MMA tile
+    ("whole", 3, 7, 12, 1, 128, 8, False, False),      # odd G: a block with one group
+    ("whole", 4, 16, 32, 40, 64, 4, True, False),
+    ("whole", 4, 16, 32, 40, 128, 8, True, True),      # a bfloat16 grid
+    ("whole", 2, 5, 20, 64, 128, 8, True, False),      # Lk 64: one query tile a warp
+    ("whole", 2, 7, 32, 16, 128, 4, False, False),     # heads 32 wide, odd G
+    ("whole", 2, 5, 33, 23, 64, 2, True, False),       # two weight chunks, heads 32 wide
+    ("tiled", 2, 5, 33, 23, 96, 4, True, False),       # widths "whole" is not built for
+    ("tiled", 2, 9, 17, 9, 32, 4, False, True),
+    ("tiled", 2, 16, 32, 40, 256, 8, True, False),
+    ("tiled", 2, 16, 32, 40, 512, 8, True, False),
+])
+def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
+    """K1's two kernels at the main path's widths and around them, in the
+    evaluation and the training (residual) mode, a fully masked batch row
+    included: each case runs the kernel the launcher chooses for it."""
+    rng = np.random.default_rng(7)
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(2), h, D).items()}
+    x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
+    kv = (tensor(rng, (B, Lk, G, D), cuda).transpose(1, 2) if strided
+          else tensor(rng, (B, G, Lk, D), cuda))
+    if bf16:
+        kv = kv.to(torch.bfloat16)
+    mask = prefix_mask(rng, B, Lk, cuda)[:, None, :].contiguous()
+    assert K1.hop1_variant(Lq, Lk, D, h) == variant
+    before = dict(K1.hop1_fused.variants)
+    for res in (False, True):
+        got = K1.hop1_fused(x, q, kv, p, h, mask, return_residuals=res)
+        want = K1.hop1_plain(x, q, kv, p, h, mask, return_residuals=res)
+        for a, b, n in zip(got if res else [got], want if res else [want],
+                           ("out", "concat", "lse")):
+            close(a, b, f"hop1 {variant} {B, G, Lq, Lk, D, h} {n}")
+    assert K1.hop1_fused.variants[variant] == before.get(variant, 0) + 2
+    assert sum(K1.hop1_fused.variants.values()) == sum(before.values()) + 2
+
+
+@pytest.mark.cuda
+def test_hop1_forced_variants_agree(cuda):
+    """The measurement path (`_hop1_fused_as`): "tiled" takes the flagship
+    widths too and agrees with "whole"; "whole" refuses widths it does not
+    take; both count their launches by kernel."""
+    rng = np.random.default_rng(8)
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(3), 8, 128).items()}
+    x, q = tensor(rng, (2, 32, 128), cuda), tensor(rng, (2, 32, 128), cuda)
+    kv = tensor(rng, (2, 16, 40, 128), cuda)
+    before = dict(K1.hop1_fused.variants)
+    close(K1._hop1_fused_as("tiled", x, q, kv, p, 8),
+          K1._hop1_fused_as("whole", x, q, kv, p, 8), "tiled vs whole")
+    for v in ("tiled", "whole"):
+        assert K1.hop1_fused.variants[v] == before.get(v, 0) + 1
+    wide = tensor(rng, (2, 4, 70, 128), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K1._hop1_fused_as("whole", x, q, wide, p, 8)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G,Lq,Lk,d", [
     (4, 16, 300, 64), (3, 1, 40, 16), (2, 40, 70, 128), (2, 5, 65, 32),
     (3, 7, 90, 8), (2, 9, 70, 6), (2, 33, 100, 96), (2, 4, 1000, 256),

@@ -1,8 +1,9 @@
 """The port's kernel modules: on the CPU, the plain versions of K1 (hop 1)
 and K3 (flash attention) against the JAX package's references and its
-Pallas kernels in interpret mode (2e-4).  The CUDA kernels themselves are
-held against these plain versions on the card by test_torch_port_cuda.py
-and chip_smoke.py."""
+Pallas kernels in interpret mode (2e-4), and an emulation of the 3xTF32
+split that K1's tensor-core products rest on.  The CUDA kernels themselves
+are held against these plain versions on the card by
+test_torch_port_cuda.py and chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import torch
 from bist_tpu.models.layers import linear, mha_init
 from bist_tpu.ops.bist_kernels import bist_hop1_fused, hop1_reference
 from bist_tpu.ops.flash_attention import attention_reference, flash_attention as jax_flash
+from bist_tpu_torch.models.layers import mha_init as torch_mha_init
 from bist_tpu_torch.ops import bist_kernels as K1
 from bist_tpu_torch.ops import flash_attention as K3
 from bist_tpu_torch.weights import params_from_jax
@@ -105,6 +107,40 @@ def test_hop1_supports_widths():
         assert K1.hop1_supports(D, h), (D, h)
     for D, h in ((520, 8), (36, 4), (128, 64), (32, 16), (30, 3)):
         assert not K1.hop1_supports(D, h), (D, h)
+
+
+def tf32(a, rounding):
+    """float32 `a` cut to TF32 (10 mantissa bits) on its low 13 mantissa bits,
+    by integer view: to nearest, ties away from zero (cvt.rna.tf32), or
+    toward zero (a bit mask, as K1 splits)."""
+    bits = np.asarray(a, dtype=np.float32).view(np.uint32)
+    if rounding == "nearest":
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("rows", [40, 16])      # one group's kv rows: t2s, s2t
+def test_3xtf32_split_keeps_float32_accuracy(rows, rounding):
+    """Why K1 splits its tensor-core operands: at the flagship K/V
+    projection (kv rows x 128 standard normal, [Wk | Wv] as mha_init makes
+    them), one TF32 pass is off from the float32 product by more than 2e-4
+    abs + 2e-4 rel (~1e-3), while the 3xTF32 split a·b = lo_a·hi_b +
+    hi_a·lo_b + hi_a·hi_b agrees within it and is as close to the float64
+    product as float32 is.  Products and sums in float64: only the operand
+    rounding is emulated."""
+    p = torch_mha_init(torch.Generator().manual_seed(1), 8, 128)
+    w = torch.cat([p["wk"]["w"], p["wv"]["w"]], 1).numpy()
+    kv = np.random.default_rng(1).standard_normal((rows, 128), dtype=np.float32)
+    f32 = (torch.from_numpy(kv) @ torch.from_numpy(w)).numpy()
+    mm = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)
+    exact = mm(kv, w)
+    a_hi, b_hi = tf32(kv, rounding), tf32(w, rounding)
+    a_lo, b_lo = tf32(kv - a_hi, rounding), tf32(w - b_hi, rounding)
+    three = mm(a_lo, b_hi) + mm(a_hi, b_lo) + mm(a_hi, b_hi)
+    assert np.allclose(three, f32, rtol=TOL, atol=TOL)
+    assert np.abs(three - exact).max() < 2 * np.abs(f32 - exact).max()
+    assert not np.allclose(mm(a_hi, b_hi), f32, rtol=TOL, atol=TOL)
 
 
 def attn_inputs(rng, G, Lq, Lk, d, masked):
