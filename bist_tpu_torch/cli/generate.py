@@ -11,8 +11,11 @@ iterates the test JSON in dialog order, decodes each turn in batches of
 --gen-batch-size and writes the input structure back with the answers
 replaced.  It runs on CUDA unless --device cpu is given.
 
-Of the decode styles, beam_search is ported; greedy, oracle and sample raise
-for now, as do --ensemble and reference-format (.pth.tar) checkpoints.
+The decode styles are those of `bist_tpu`: greedy (the default), beam_search
+(with --ensemble <prefix> ... for a sum of several models' log-probs),
+oracle (teacher-forced argmax; needs labeled turns, so not with
+--undisclosed-only) and sample (--temperature, --top-k, --top-p,
+--sample-seed).  Reference-format (.pth.tar) checkpoints are not read yet.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import logging
 import os
 import time
 
-PORTED_STYLES = ("beam_search",)
+PORTED_STYLES = ("beam_search", "greedy", "oracle", "sample")
 
 
 def build_parser():
@@ -46,8 +49,7 @@ def build_parser():
     p.add_argument("--output", "-o", default="", type=str)
     p.add_argument("--verbose", "-v", default=0, type=int)
     p.add_argument("--decode-style", default="greedy", type=str,
-                   help="beam_search (greedy | oracle | sample are not "
-                        "ported yet)")
+                   help="beam_search | greedy | oracle | sample")
     p.add_argument("--temperature", default=1.0, type=float)
     p.add_argument("--top-k", default=0, type=int)
     p.add_argument("--top-p", default=0.0, type=float)
@@ -69,7 +71,8 @@ def build_parser():
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
     p.add_argument("--ensemble", nargs="*", default=None,
-                   help="ensembles are not ported yet; must stay empty")
+                   help="additional checkpoint prefixes to ensemble with "
+                        "--model (summed log-probs; all share --model-conf)")
     p.add_argument("--feat-int8", default=0, type=int,
                    help="ship video features as int8 + per-position scale, "
                         "dequantised on the device")
@@ -84,13 +87,17 @@ def main(argv=None):
     for k in vars(args):
         print(f"{k}={getattr(args, k)}")
     if args.decode_style not in PORTED_STYLES:
-        raise SystemExit(f"--decode-style {args.decode_style} is not ported to "
-                         f"bist_tpu_torch yet (ported: {', '.join(PORTED_STYLES)})")
+        raise SystemExit(f"--decode-style {args.decode_style}: not one of "
+                         f"{', '.join(PORTED_STYLES)}")
     if args.reference_root:
         raise SystemExit("--reference-root: reference-format checkpoints are "
                          "not read by bist_tpu_torch yet")
-    if args.ensemble:
-        raise SystemExit("--ensemble is not ported to bist_tpu_torch yet")
+    if args.decode_style == "oracle" and args.undisclosed_only:
+        raise SystemExit("--decode-style oracle requires labeled targets; "
+                         "run without --undisclosed-only")
+    if args.ensemble and args.decode_style != "beam_search":
+        raise SystemExit("--ensemble is only supported with "
+                         "--decode-style beam_search")
 
     import torch
 
@@ -100,8 +107,10 @@ def main(argv=None):
     from bist_tpu_torch.data.batching import quantize_features, to_device
     from bist_tpu_torch.data.features import build_stores
     from bist_tpu_torch.data.loader import AVSDLoader
-    from bist_tpu_torch.decode.beam import beam_search, extract_hyps
-    from bist_tpu_torch.vocab import make_id2word
+    from bist_tpu_torch.decode.beam import (beam_search, extract_hyps, greedy_decode,
+                                            oracle_decode)
+    from bist_tpu_torch.decode.sample import mix_seed, sample_decode
+    from bist_tpu_torch.vocab import ids2words, make_id2word
     from bist_tpu_torch.weights import load_params
 
     device = resolve_device(args.device)
@@ -109,9 +118,15 @@ def main(argv=None):
     conf_path = args.model_conf or default_conf_for(args.model)
     vocab, cfg, tcfg, extra = load_conf(conf_path)
 
-    path = args.model if args.model.endswith(".pt") else args.model + ".pt"
-    logging.info("Loading model params from %s", path)
-    params = load_params(path, device)
+    def load(prefix):
+        path = prefix if prefix.endswith(".pt") else prefix + ".pt"
+        logging.info("Loading model params from %s", path)
+        return load_params(path, device)
+
+    params = load(args.model)
+    if args.ensemble:
+        params = [params] + [load(p) for p in args.ensemble]
+        logging.info("ensembling %d models", len(params))
     id2word = make_id2word(vocab)
     logging.info("#vocab = %d", len(vocab))
 
@@ -153,16 +168,34 @@ def main(argv=None):
 
     logging.info("----------------------- generate --------------------------")
     start_time = time.time()
-    answers = {}     # qa_id -> (answer string, nbest hypotheses)
+    answers = {}     # qa_id -> (answer string, nbest hypotheses or None)
     n_done = 0
-    for batch, meta in loader:
+    for n_batch, (batch, meta) in enumerate(loader):
         if args.feat_int8 and batch.fts is not None:
             q8, scale = quantize_features(batch.fts)
             batch = batch._replace(fts=q8, fts_scale=scale)
-        result = beam_search(params, cfg, to_device(batch, device), gcfg)
-        for row in range(meta.real_count):
-            hyps = extract_hyps(result, id2word, row, gcfg.nbest)
-            answers[meta.qa_ids[row]] = (" ".join(hyps[0][0]) if hyps else "", hyps)
+        batch = to_device(batch, device)
+        if gcfg.decode_style == "beam_search":
+            result = beam_search(params, cfg, batch, gcfg)
+            for row in range(meta.real_count):
+                hyps = extract_hyps(result, id2word, row, gcfg.nbest)
+                answers[meta.qa_ids[row]] = (" ".join(hyps[0][0]) if hyps else "", hyps)
+        else:
+            if gcfg.decode_style == "oracle":
+                out = oracle_decode(params, cfg, batch)
+            elif gcfg.decode_style == "sample":
+                # the batch counter folded into the seed: rows of different
+                # batches draw independent noise
+                out = sample_decode(params, cfg, batch, gcfg.maxlen,
+                                    mix_seed(args.sample_seed, n_batch),
+                                    temperature=args.temperature, top_k=args.top_k,
+                                    top_p=args.top_p, cache_dtype=gcfg.cache_dtype)
+            else:
+                out = greedy_decode(params, cfg, batch, gcfg.maxlen,
+                                    cache_dtype=gcfg.cache_dtype)
+            out = out.cpu().numpy()
+            for row in range(meta.real_count):
+                answers[meta.qa_ids[row]] = (" ".join(ids2words(out[row], id2word)), None)
         n_done += meta.real_count
         logging.info("decoded %d/%d turns (%.1f turns/s)", n_done,
                      len(test_data.examples),
@@ -196,8 +229,11 @@ def main(argv=None):
             logging.info("QS: %s", qa["question"])
             logging.info("REF: %s", ref_dialog[t]["answer"] if ref_dialog
                          else qa["answer"])
-            for n, (words, score) in enumerate(hyps):
-                logging.info("HYP[%d]: %s  ( %f )", n + 1, " ".join(words), score)
+            if hyps:
+                for n, (words, score) in enumerate(hyps):
+                    logging.info("HYP[%d]: %s  ( %f )", n + 1, " ".join(words), score)
+            else:
+                logging.info("HYP: %s", best)
             pred_dialog["dialog"][t]["answer"] = best
             qa_id += 1
             logging.info("-----------------------")

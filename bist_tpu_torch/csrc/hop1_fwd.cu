@@ -75,20 +75,25 @@
 // the MMA's 8-wide dimension (no padding, 17 % fewer MMAs) ran slower: its
 // row tiles split the products into stretches of 2 dependent chains.
 //
-// "tiled" (hop1_fwd_tiles_kernel, unchanged since it was first written):
-// every other width the kernels take (D up to 512) and Lk > 64.  One block
-// of 256 threads per (b, g, chunk of up to 32 query rows) loops over kv
-// tiles of `tk` rows (`hop1_plan` sizes qc and tk from D so that shared
-// memory fits at any D <= 512) with an online softmax per (row, head):
-// running max m, running sum l and the unnormalised f32 accumulator; on the
-// last tile it normalises, applies Wo + bo and adds x.  Its products are
-// FMAs from shared memory: in the row-block x weight products a thread owns
-// 8 rows x 2 adjacent columns (rows_times_w, hop1_tiles.cuh, shared with
-// hop1_bwd.cu), the weights staged through registers once per kv tile; in
-// the attention products a thread owns 4 rows x 2 kv columns of one head's
-// scores and 4 rows x 4 columns of p·v, with K stored transposed.  Above
-// the flagship width its kv tiles shrink and the weights stream once per
-// tile (PERF.md).
+// "tiled" (hop1_fwd_tiles_kernel): every other width, any D with D % h ==
+// 0 (and every grid "whole" cannot copy in 16-byte pieces).  One block of
+// 256 threads per (b, g, chunk of up to 32 query rows) takes the heads in
+// groups (`hop1_plan`: as few as shared memory allows, one at the main
+// path's widths and at D = 1024, h = 8) and, for each group, loops over kv
+// tiles of `tk` rows with an online softmax per (row, head): running max m,
+// running sum l and the unnormalised f32 accumulator; after the last tile it
+// normalises and adds the group's rows of Wo (with x + bo for the first
+// group) to out.  Heads are held 4-column padded (hop1_tiles.cuh), so any
+// d_k works with zero columns; grids whose rows are not aligned 4-element
+// vectors load one element at a time.  Shared memory holds one kv tile (D x
+// tk) and one head group's q, K, V and accumulator, so it grows with D only
+// through the kv tile.  Its products are FMAs from shared memory: in the
+// row-block x weight products a thread owns 8 rows x 2 adjacent columns
+// (rows_times_w, hop1_tiles.cuh, shared with hop1_bwd.cu), the weights
+// staged through registers once per kv tile; in the attention products a
+// thread owns 4 rows x 2 kv columns of one head's scores and 4 rows x 4
+// columns of p·v, with K stored transposed.  Above the flagship width its kv
+// tiles shrink and the weights stream once per tile (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,7 +110,15 @@ namespace {
 using namespace hop1;
 
 // ---------------------------------------------------------------------------
-// "tiled": kv tiles with an online softmax, FMAs from shared memory.
+// "tiled": head groups, kv tiles with an online softmax, FMAs from shared
+// memory; any D with D % h == 0 (hop1_tiles.cuh: the padded head layout).
+
+// Floats of the weight stage: the projection's two weights over a group's
+// columns, or Wo over the output columns.
+__host__ __device__ inline int fwd_stage_floats(int Ng, int Do) {
+  const int a = stage_floats(2, Ng), b = stage_floats(1, Do);
+  return a > b ? a : b;
+}
 
 template <typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -117,242 +130,274 @@ hop1_fwd_tiles_kernel(const float* __restrict__ x, const float* __restrict__ q,
                 const float* __restrict__ wo, const float* __restrict__ bo,
                 float* __restrict__ out, float* __restrict__ concat_out,
                 float* __restrict__ lse_out, int G, int Lq, int Lk, int D, int h,
-                int qc, int tk, float scale) {
+                int qc, int tk, int hg, int kv_vec, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int dk = D / h;
-  const int qh = qc * h;       // (head, row) pairs, row fastest: hd * qc + i
+  const Widths W = widths(D, h);
+  const int dk = W.dk, dkp = W.dkp, Dp = W.Dp, Do = W.Do;
+  const int Ng = hg * dkp;     // columns of a full head group
   const int ng = qc / 4;       // groups of 4 query rows
   // every array is a multiple of 4 floats long, so each starts 16-byte aligned
-  float* w_s = smem;                          // 2 x 2 x kc x D weight chunks
-  float* kv_t = w_s + 4 * chunk_rows(D) * D;  // D x tk  kv tile, transposed
-  float* acc_t = kv_t + D * tk;               // D x qc  accumulator (concat)
-  float* v_s = acc_t + D * qc;                // tk x D
-  float* k_t = v_s + tk * D;                  // D x tk  K, transposed
-  float* q_t = k_t + D * tk;                  // D x qc  query, transposed
-  float* p_t = q_t + D * qc;                  // tk x qh scores / probabilities
-  float* m_s = p_t + tk * qh;                 // qh running max
-  float* l_s = m_s + qh;                      // qh running sum
-  float* a_s = l_s + qh;                      // qh rescale of the current tile
+  float* w_s = smem;                          // weight chunks
+  float* kv_t = w_s + fwd_stage_floats(Ng, Do);  // D x tk  kv tile, transposed
+  float* acc_t = kv_t + D * tk;               // Ng x qc  accumulator (concat)
+  float* v_s = acc_t + Ng * qc;               // tk x ncol
+  float* k_t = v_s + tk * Ng;                 // ncol x tk  K, transposed
+  float* q_t = k_t + Ng * tk;                 // ncol x qc  query, transposed
+  float* p_t = q_t + Ng * qc;                 // tk x qh scores / probabilities
+  float* m_s = p_t + tk * qc * hg;            // qh running max
+  float* l_s = m_s + qc * hg;                 // qh running sum
+  float* a_s = l_s + qc * hg;                 // qh rescale of the current tile
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / G;
   const int g = blockIdx.x % G;
   const int q0 = blockIdx.y * qc;
   const int nq = min(qc, Lq - q0);
-  const int ncp = D / 2;                      // column pairs
-  const int nd4 = D / 4;                      // float4s per row
-
-  // rows fastest, so the transposed shared-memory stores hit distinct banks
-  for (int i = tid; i < qc * nd4; i += kThreads) {
-    const int r = i % qc, d = i / qc * 4;
-    const float4 v = r < nq ? *reinterpret_cast<const float4*>(
-                                  q + ((size_t)b * Lq + q0 + r) * D + d)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    q_t[d * qc + r] = v.x;
-    q_t[(d + 1) * qc + r] = v.y;
-    q_t[(d + 2) * qc + r] = v.z;
-    q_t[(d + 3) * qc + r] = v.w;
-  }
-  for (int i = tid; i < qc * D; i += kThreads) acc_t[i] = 0.f;
-  for (int i = tid; i < qh; i += kThreads) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-  }
   const TKV* kv_bg = kv + b * kv_sb + g * kv_sg;
   const int* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
 
-  for (int t0 = 0; t0 < Lk; t0 += tk) {
-    const int nt = min(tk, Lk - t0);
-    __syncthreads();   // the previous tile's readers are done
-    load_rows_t(kv_bg, kv_st, t0, nt, D, tk, kv_t);
-    __syncthreads();
+  // Head groups one after the other: heads [hd0, hd0 + nh), columns
+  // [cg, cg + ncol) of the padded layout.  Each adds its concat Wo rows to out.
+  for (int hd0 = 0; hd0 < h; hd0 += hg) {
+    const int nh = min(hg, h - hd0);
+    const int ncol = nh * dkp, cg = hd0 * dkp;
+    const int qh = qc * nh;      // (head, row) pairs, row fastest: hd * qc + i
+    const int nc4 = ncol / 4;
+    __syncthreads();   // the previous group's readers are done
+    // rows fastest, so the transposed shared-memory stores hit distinct banks
+    for (int i = tid; i < qc * nc4; i += kThreads) {
+      const int r = i % qc, d = i / qc * 4;
+      const float4 v = r < nq ? *reinterpret_cast<const float4*>(
+                                    q + ((size_t)b * Lq + q0 + r) * Dp + cg + d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      q_t[d * qc + r] = v.x;
+      q_t[(d + 1) * qc + r] = v.y;
+      q_t[(d + 2) * qc + r] = v.z;
+      q_t[(d + 3) * qc + r] = v.w;
+    }
+    for (int i = tid; i < qc * ncol; i += kThreads) acc_t[i] = 0.f;
+    for (int i = tid; i < qh; i += kThreads) {
+      m_s[i] = -INFINITY;
+      l_s[i] = 0.f;
+    }
 
-    // K and V projections of the tile's rows, in groups of 8 rows (rows >= nt
-    // of the last group come from stale shared memory and are never read).
-    const int n_proj = (nt + kRM - 1) / kRM * ncp;
-    for (int base = 0; base < n_proj; base += kThreads) {
-      const int item = base + tid;
-      const bool active = item < n_proj;
-      const int c = item % ncp * 2, r0 = item / ncp * kRM;
-      float acc[2][kRM][2] = {};
-      rows_times_w<2>(kv_t, tk, r0, active, wk, wv, D, D, w_s, c, acc);
-      if (active) {
-        const float2 bk2 = *reinterpret_cast<const float2*>(bk + c);
-        const float2 bv2 = *reinterpret_cast<const float2*>(bv + c);
+    for (int t0 = 0; t0 < Lk; t0 += tk) {
+      const int nt = min(tk, Lk - t0);
+      __syncthreads();   // the previous tile's readers are done
+      load_rows_t(kv_bg, kv_st, t0, nt, D, tk, kv_t, kv_vec != 0);
+      __syncthreads();
+
+      // K and V of the group's columns for the tile's rows, in groups of 8
+      // rows (rows >= nt of the last group come from stale shared memory and
+      // are never read), kMaxN columns at a time.
+      for (int cb = 0; cb < ncol; cb += kMaxN) {
+        const int nb = min(kMaxN, ncol - cb), ncp = nb / 2;
+        const int n_proj = (nt + kRM - 1) / kRM * ncp;
+        for (int base = 0; base < n_proj; base += kThreads) {
+          const int item = base + tid;
+          const bool active = item < n_proj;
+          const int c = item % ncp * 2, r0 = item / ncp * kRM;
+          float acc[2][kRM][2] = {};
+          rows_times_w<2>(kv_t, tk, r0, active, wk + cg + cb, wv + cg + cb, Dp, D, nb,
+                          w_s, c, acc);
+          if (active) {
+            const int cc = cb + c;
+            const float2 bk2 = *reinterpret_cast<const float2*>(bk + cg + cc);
+            const float2 bv2 = *reinterpret_cast<const float2*>(bv + cg + cc);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float bj = j ? bk2.y : bk2.x;
+              float4* kt = reinterpret_cast<float4*>(k_t + (cc + j) * tk + r0);
+              kt[0] = make_float4(acc[0][0][j] + bj, acc[0][1][j] + bj,
+                                  acc[0][2][j] + bj, acc[0][3][j] + bj);
+              kt[1] = make_float4(acc[0][4][j] + bj, acc[0][5][j] + bj,
+                                  acc[0][6][j] + bj, acc[0][7][j] + bj);
+            }
+#pragma unroll
+            for (int i = 0; i < kRM; ++i)
+              *reinterpret_cast<float2*>(v_s + (r0 + i) * ncol + cc) =
+                  make_float2(acc[1][i][0] + bv2.x, acc[1][i][1] + bv2.y);
+          }
+        }
+      }
+      __syncthreads();
+
+      // Scores: a thread owns 4 rows x 2 kv columns of one head.
+      const int ntp = (nt + 1) / 2;
+      for (int item = tid; item < ng * ntp * nh; item += kThreads) {
+        const int i0 = item % ng * 4;
+        const int tp = item / ng % ntp * 2;
+        const int hd = item / (ng * ntp);
+        const float* qr = q_t + hd * dkp * qc + i0;
+        const float* kr = k_t + hd * dkp * tk + tp;
+        float s[4][2] = {};
+#pragma unroll 4
+        for (int e = 0; e < dk; ++e) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qr + e * qc);
+          const float2 k2 = *reinterpret_cast<const float2*>(kr + e * tk);
+          const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][0] = fmaf(qv[i], k2.x, s[i][0]);
+            s[i][1] = fmaf(qv[i], k2.y, s[i][1]);
+          }
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const float bj = j ? bk2.y : bk2.x;
-          float4* kt = reinterpret_cast<float4*>(k_t + (c + j) * tk + r0);
-          kt[0] = make_float4(acc[0][0][j] + bj, acc[0][1][j] + bj,
-                              acc[0][2][j] + bj, acc[0][3][j] + bj);
-          kt[1] = make_float4(acc[0][4][j] + bj, acc[0][5][j] + bj,
-                              acc[0][6][j] + bj, acc[0][7][j] + bj);
+          const int t = tp + j;
+          if (t < nt) {
+            const bool valid = mask_b == nullptr || mask_b[t0 + t] != 0;
+            *reinterpret_cast<float4*>(p_t + t * qh + hd * qc + i0) =
+                valid ? make_float4(s[0][j] * scale, s[1][j] * scale,
+                                    s[2][j] * scale, s[3][j] * scale)
+                      : make_float4(kMaskedScore, kMaskedScore, kMaskedScore,
+                                    kMaskedScore);
+          }
         }
-#pragma unroll
-        for (int i = 0; i < kRM; ++i)
-          *reinterpret_cast<float2*>(v_s + (r0 + i) * D + c) =
-              make_float2(acc[1][i][0] + bv2.x, acc[1][i][1] + bv2.y);
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // Scores: a thread owns 4 rows x 2 kv columns of one head.
-    const int ntp = (nt + 1) / 2;
-    for (int item = tid; item < ng * ntp * h; item += kThreads) {
-      const int i0 = item % ng * 4;
-      const int tp = item / ng % ntp * 2;
-      const int hd = item / (ng * ntp);
-      const float* qr = q_t + hd * dk * qc + i0;
-      const float* kr = k_t + hd * dk * tk + tp;
-      float s[4][2] = {};
+      // Online softmax update per (head, row).
+      for (int ih = tid; ih < qh; ih += kThreads) {
+        const float m_old = m_s[ih];
+        float mx = m_old;
+        for (int t = 0; t < nt; ++t) mx = fmaxf(mx, p_t[t * qh + ih]);
+        float sum = 0.f;
+        for (int t = 0; t < nt; ++t) {
+          const float p = expf(p_t[t * qh + ih] - mx);
+          p_t[t * qh + ih] = p;
+          sum += p;
+        }
+        const float alpha = expf(m_old - mx);   // 0 on the first tile
+        l_s[ih] = l_s[ih] * alpha + sum;
+        m_s[ih] = mx;
+        a_s[ih] = alpha;
+      }
+      __syncthreads();
+
+      // acc = acc * alpha + p v: a thread owns 4 rows x 4 columns of one head.
+      for (int item = tid; item < ng * nc4; item += kThreads) {
+        const int i0 = item % ng * 4, c0 = item / ng * 4;
+        const int ih0 = c0 / dkp * qc + i0;
+        const float4 al = *reinterpret_cast<const float4*>(a_s + ih0);
+        float a[4][4];   // [column][row]
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(acc_t + (c0 + j) * qc + i0);
+          a[j][0] = v.x * al.x;
+          a[j][1] = v.y * al.y;
+          a[j][2] = v.z * al.z;
+          a[j][3] = v.w * al.w;
+        }
 #pragma unroll 4
-      for (int e = 0; e < dk; ++e) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qr + e * qc);
-        const float2 k2 = *reinterpret_cast<const float2*>(kr + e * tk);
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+        for (int t = 0; t < nt; ++t) {
+          const float4 p4 = *reinterpret_cast<const float4*>(p_t + t * qh + ih0);
+          const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * ncol + c0);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][0] = fmaf(qv[i], k2.x, s[i][0]);
-          s[i][1] = fmaf(qv[i], k2.y, s[i][1]);
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[j][i] = fmaf(pv[i], vv[j], a[j][i]);
         }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int t = tp + j;
-        if (t < nt) {
-          const bool valid = mask_b == nullptr || mask_b[t0 + t] != 0;
-          *reinterpret_cast<float4*>(p_t + t * qh + hd * qc + i0) =
-              valid ? make_float4(s[0][j] * scale, s[1][j] * scale,
-                                  s[2][j] * scale, s[3][j] * scale)
-                    : make_float4(kMaskedScore, kMaskedScore, kMaskedScore,
-                                  kMaskedScore);
-        }
-      }
-    }
-    __syncthreads();
-
-    // Online softmax update per (head, row).
-    for (int ih = tid; ih < qh; ih += kThreads) {
-      const float m_old = m_s[ih];
-      float mx = m_old;
-      for (int t = 0; t < nt; ++t) mx = fmaxf(mx, p_t[t * qh + ih]);
-      float sum = 0.f;
-      for (int t = 0; t < nt; ++t) {
-        const float p = expf(p_t[t * qh + ih] - mx);
-        p_t[t * qh + ih] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_old - mx);   // 0 on the first tile
-      l_s[ih] = l_s[ih] * alpha + sum;
-      m_s[ih] = mx;
-      a_s[ih] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p v: a thread owns 4 rows x 4 columns of one head.
-    for (int item = tid; item < ng * nd4; item += kThreads) {
-      const int i0 = item % ng * 4, c0 = item / ng * 4;
-      const int ih0 = c0 / dk * qc + i0;
-      const float4 al = *reinterpret_cast<const float4*>(a_s + ih0);
-      float a[4][4];   // [column][row]
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(acc_t + (c0 + j) * qc + i0);
-        a[j][0] = v.x * al.x;
-        a[j][1] = v.y * al.y;
-        a[j][2] = v.z * al.z;
-        a[j][3] = v.w * al.w;
-      }
-#pragma unroll 4
-      for (int t = 0; t < nt; ++t) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p_t + t * qh + ih0);
-        const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * D + c0);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[j][i] = fmaf(pv[i], vv[j], a[j][i]);
+          *reinterpret_cast<float4*>(acc_t + (c0 + j) * qc + i0) =
+              make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
       }
+    }
+    __syncthreads();
+
+    // concat = acc / l, in place.
+    for (int item = tid; item < qc * ncol; item += kThreads) {
+      const int i = item % qc, c = item / qc;
+      acc_t[item] /= l_s[c / dkp * qc + i];
+    }
+    __syncthreads();
+
+    // Training residuals: concat (the rows of acc_t, in the padded layout) and
+    // per-head lse = m + log(l), the log-sum-exp of the scores as the softmax
+    // saw them (-1e9 on masked columns).  A thread writes 4 columns of one row.
+    if (concat_out != nullptr) {
+      const size_t row0 = ((size_t)b * G + g) * Lq + q0;
+      for (int item = tid; item < qc * nc4; item += kThreads) {
+        const int i = item % qc, c = item / qc * 4;
+        if (i < nq)
+          *reinterpret_cast<float4*>(concat_out + (row0 + i) * Dp + cg + c) =
+              make_float4(acc_t[c * qc + i], acc_t[(c + 1) * qc + i],
+                          acc_t[(c + 2) * qc + i], acc_t[(c + 3) * qc + i]);
+      }
+      for (int ih = tid; ih < qh; ih += kThreads) {
+        const int i = ih % qc, hd = ih / qc;
+        if (i < nq) lse_out[(row0 + i) * h + hd0 + hd] = m_s[ih] + logf(l_s[ih]);
+      }
+    }
+
+    // out = x + (concat Wo + bo), the group's rows of Wo at a time, kMaxN of
+    // its columns at a time; the first group writes x + bo + its share, the
+    // others add theirs (each thread to the elements it wrote).
+    for (int ob = 0; ob < Do; ob += kMaxN) {
+      const int nb = min(kMaxN, Do - ob), ncp = nb / 2;
+      const int n_out = qc / kRM * ncp;
+      for (int base = 0; base < n_out; base += kThreads) {
+        const int item = base + tid;
+        const bool active = item < n_out;
+        const int c = item % ncp * 2, r0 = item / ncp * kRM;
+        float acc[1][kRM][2] = {};
+        const float* wo_g = wo + (size_t)cg * Do + ob;
+        rows_times_w<1>(acc_t, qc, r0, active, wo_g, wo_g, Do, ncol, nb, w_s, c, acc);
+        if (active) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(acc_t + (c0 + j) * qc + i0) =
-            make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
-    }
-  }
-  __syncthreads();
-
-  // concat = acc / l, in place.
-  for (int item = tid; item < qc * D; item += kThreads) {
-    const int i = item % qc, c = item / qc;
-    acc_t[item] /= l_s[c / dk * qc + i];
-  }
-  __syncthreads();
-
-  // Training residuals: concat (the rows of acc_t) and per-head lse = m +
-  // log(l), the log-sum-exp of the scores as the softmax saw them (-1e9 on
-  // masked columns).  A thread writes 4 columns of one row.
-  if (concat_out != nullptr) {
-    const size_t row0 = ((size_t)b * G + g) * Lq + q0;
-    for (int item = tid; item < qc * nd4; item += kThreads) {
-      const int i = item % qc, c = item / qc * 4;
-      if (i < nq)
-        *reinterpret_cast<float4*>(concat_out + (row0 + i) * D + c) =
-            make_float4(acc_t[c * qc + i], acc_t[(c + 1) * qc + i],
-                        acc_t[(c + 2) * qc + i], acc_t[(c + 3) * qc + i]);
-    }
-    for (int ih = tid; ih < qh; ih += kThreads) {
-      const int i = ih % qc, hd = ih / qc;
-      if (i < nq) lse_out[(row0 + i) * h + hd] = m_s[ih] + logf(l_s[ih]);
-    }
-  }
-
-  // out = x + (concat Wo + bo).
-  const int n_out = qc / kRM * ncp;
-  for (int base = 0; base < n_out; base += kThreads) {
-    const int item = base + tid;
-    const bool active = item < n_out;
-    const int c = item % ncp * 2, r0 = item / ncp * kRM;
-    float acc[1][kRM][2] = {};
-    rows_times_w<1>(acc_t, qc, r0, active, wo, wo, D, D, w_s, c, acc);
-    if (active) {
-      const float2 bo2 = *reinterpret_cast<const float2*>(bo + c);
+          for (int i = 0; i < kRM; ++i) {
+            if (r0 + i >= nq) continue;
+            const int row = q0 + r0 + i;
+            float* o = out + (((size_t)b * G + g) * Lq + row) * D;
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        if (r0 + i < nq) {
-          const int row = q0 + r0 + i;
-          const float2 x2 =
-              *reinterpret_cast<const float2*>(x + ((size_t)b * Lq + row) * D + c);
-          *reinterpret_cast<float2*>(out + (((size_t)b * G + g) * Lq + row) * D + c) =
-              make_float2(x2.x + (acc[0][i][0] + bo2.x), x2.y + (acc[0][i][1] + bo2.y));
+            for (int j = 0; j < 2; ++j) {
+              const int col = ob + c + j;
+              if (col < D)
+                o[col] = hd0 == 0 ? x[((size_t)b * Lq + row) * D + col] +
+                                        (acc[0][i][j] + bo[col])
+                                  : o[col] + acc[0][i][j];
+            }
+          }
         }
       }
     }
   }
 }
 
-size_t smem_bytes(int qc, int tk, int D, int h) {
-  const size_t floats = 4 * (size_t)chunk_rows(D) * D + 3 * (size_t)D * tk +
-                        2 * (size_t)D * qc + (size_t)tk * qc * h + 3 * (size_t)qc * h;
+size_t smem_bytes(int qc, int tk, int hg, int D, int h) {
+  const Widths W = widths(D, h);
+  const size_t Ng = (size_t)hg * W.dkp;
+  const size_t floats = fwd_stage_floats((int)Ng, W.Do) + (size_t)D * tk + 3 * Ng * tk +
+                        2 * Ng * qc + (size_t)tk * qc * hg + 3 * (size_t)qc * hg;
   return floats * sizeof(float);
 }
 
-// Tile plan: the most query rows per block (a multiple of 8, at most 32) and
-// then the largest kv tile (a multiple of 8, at most 64) that fit two blocks
-// per SM, else one.  False for widths the kernel does not take.
-bool hop1_plan(int Lq, int Lk, int D, int h, int* qc, int* tk, size_t* smem) {
+// Tile plan: the fewest head groups, then the most query rows per block (a
+// multiple of 8, at most 32) and then the largest kv tile (a multiple of 8,
+// at most 64) that fit two blocks per SM, else one.  False where even one
+// head with 8 query and 8 kv rows does not fit shared memory.
+bool hop1_plan(int Lq, int Lk, int D, int h, int* qc, int* tk, int* hg, size_t* smem) {
   if (!widths_ok(D, h)) return false;
   const int tk_max = std::min(64, (Lk + kAlign - 1) / kAlign * kAlign);
-  for (int c = std::min(32, (Lq + kAlign - 1) / kAlign * kAlign); c > 0; c -= kAlign)
-    for (size_t limit : {kSmemTarget, kSmemLimit})
-      for (int t = tk_max; t > 0; t -= kAlign)
-        if (smem_bytes(c, t, D, h) <= limit) {
-          *qc = c;
-          *tk = t;
-          *smem = smem_bytes(c, t, D, h);
-          return true;
-        }
+  const int qc_max = std::min(32, (Lq + kAlign - 1) / kAlign * kAlign);
+  for (int n = 1; n <= h; ++n) {
+    const int g = (h + n - 1) / n;
+    if (n > 1 && g == (h + n - 2) / (n - 1)) continue;   // the same group size
+    for (int c = qc_max; c > 0; c -= kAlign)
+      for (size_t limit : {kSmemTarget, kSmemLimit})
+        for (int t = tk_max; t > 0; t -= kAlign)
+          if (smem_bytes(c, t, g, D, h) <= limit) {
+            *qc = c;
+            *tk = t;
+            *hg = g;
+            *smem = smem_bytes(c, t, g, D, h);
+            return true;
+          }
+  }
   return false;
 }
 
@@ -869,19 +914,20 @@ size_t whole_smem(int Lq, int Lk, int D, int G, int kv_bytes) {
          sizeof(float);
 }
 
-// The kernel a launch at these widths takes; decided by shape alone (the
-// float32 grid's shared memory at two groups, the most it can need), never
-// by an error.
-int hop1_variant(int Lq, int Lk, int D, int h) {
+// The kernel a launch at these widths takes; decided by shape and by
+// whether kv's rows are aligned 4-element vectors ("whole" copies them in
+// 16-byte and 8-byte pieces) alone (the float32 grid's shared memory at two
+// groups, the most it can need), never by an error.
+int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
-  if ((D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 &&
+  if (kv_vec && (D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 &&
       whole_rows(1, Lk) <= kWholeMaxRows &&
       whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
     return kVariantWhole;
-  int qc, tk;
+  int qc, tk, hg;
   size_t smem;
-  return hop1_plan(Lq, Lk, D, h, &qc, &tk, &smem) ? kVariantTiled : kVariantNone;
+  return hop1_plan(Lq, Lk, D, h, &qc, &tk, &hg, &smem) ? kVariantTiled : kVariantNone;
 }
 
 // The whole kernel's instantiation for a launch: NT = D / 32 (D 128, the
@@ -910,21 +956,21 @@ const void* whole_kernel(int Lk, int D, int h) {
 }
 
 // The kernel, its threads, dynamic shared memory, grid and tile sizes for a
-// launch (qc, tk for "tiled"; qc, groups a block for "whole").
+// launch (qc, tk and heads a group for "tiled"; qc, groups a block for "whole").
 struct LaunchSpec {
   const void* fn;
   int threads;
   size_t smem;
   dim3 grid;
-  int qc, tk;
+  int qc, tk, hg;
 };
 
 // `variant` is hop1_variant's choice, or the kernel a measurement asks for:
 // "tiled" takes every width hop1_variant takes, "whole" only its own.
 template <typename TKV>
-bool launch_spec(int variant, int B, int G, int Lq, int Lk, int D, int h,
+bool launch_spec(int variant, int B, int G, int Lq, int Lk, int D, int h, bool kv_vec,
                  LaunchSpec* s) {
-  const int chosen = hop1_variant(Lq, Lk, D, h);
+  const int chosen = hop1_variant(Lq, Lk, D, h, kv_vec);
   if (chosen == kVariantNone || (variant == kVariantWhole && chosen != kVariantWhole))
     return false;
   if (variant == kVariantWhole) {
@@ -938,7 +984,8 @@ bool launch_spec(int variant, int B, int G, int Lq, int Lk, int D, int h,
     s->grid = dim3((unsigned)(B * ((G + ng - 1) / ng)), (unsigned)((Lq + L.qc - 1) / L.qc));
     return true;
   }
-  if (variant == kVariantTiled && hop1_plan(Lq, Lk, D, h, &s->qc, &s->tk, &s->smem)) {
+  if (variant == kVariantTiled &&
+      hop1_plan(Lq, Lk, D, h, &s->qc, &s->tk, &s->hg, &s->smem)) {
     s->fn = reinterpret_cast<const void*>(hop1_fwd_tiles_kernel<TKV>);
     s->threads = kThreads;
     s->grid = dim3((unsigned)(B * G), (unsigned)((Lq + s->qc - 1) / s->qc));
@@ -954,7 +1001,9 @@ int launch(int variant, const float* x, const float* q, const TKV* kv, long long
            const float* bo, float* out, float* concat, float* lse, int B, int G,
            int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
   LaunchSpec s;
-  if (!launch_spec<TKV>(variant, B, G, Lq, Lk, D, h, &s)) return (int)cudaErrorInvalidValue;
+  const bool kv_vec = rows_vec4(kv, kv_sb, kv_sg, kv_st, D);
+  if (!launch_spec<TKV>(variant, B, G, Lq, Lk, D, h, kv_vec, &s))
+    return (int)cudaErrorInvalidValue;
   if (s.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         s.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
@@ -963,7 +1012,7 @@ int launch(int variant, const float* x, const float* q, const TKV* kv, long long
   if (s.fn == reinterpret_cast<const void*>(hop1_fwd_tiles_kernel<TKV>)) {
     hop1_fwd_tiles_kernel<TKV><<<s.grid, s.threads, s.smem, stream>>>(
         x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat,
-        lse, G, Lq, Lk, D, h, s.qc, s.tk, scale);
+        lse, G, Lq, Lk, D, h, s.qc, s.tk, s.hg, (int)kv_vec, scale);
   } else {
 #define BIST_HOP1_WHOLE(NT, MT, NG, DK8)                                            \
   hop1_fwd_whole_kernel<TKV, NT, MT, NG, DK8><<<s.grid, s.threads, s.smem, stream>>>( \
@@ -978,7 +1027,7 @@ int launch(int variant, const float* x, const float* q, const TKV* kv, long long
 template <typename TKV>
 int resources(int G, int Lq, int Lk, int D, int h, int* info) {
   LaunchSpec s;
-  if (!launch_spec<TKV>(hop1_variant(Lq, Lk, D, h), 1, G, Lq, Lk, D, h, &s))
+  if (!launch_spec<TKV>(hop1_variant(Lq, Lk, D, h, true), 1, G, Lq, Lk, D, h, true, &s))
     return (int)cudaErrorInvalidValue;
   if (s.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -991,12 +1040,13 @@ int resources(int G, int Lq, int Lk, int D, int h, int* info) {
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, s.fn, s.threads, s.smem);
   if (e != cudaSuccess) return (int)e;
-  info[0] = hop1_variant(Lq, Lk, D, h);
+  info[0] = hop1_variant(Lq, Lk, D, h, true);
   info[1] = (int)s.smem;
   info[2] = attr.numRegs;
   info[3] = (int)attr.localSizeBytes;
   info[4] = blocks;
   info[5] = info[0] == kVariantWhole ? s.tk : 1;
+  info[6] = info[0] == kVariantWhole ? h : s.hg;
   return 0;
 }
 
@@ -1005,11 +1055,15 @@ int resources(int G, int Lq, int Lk, int D, int h, int* info) {
 extern "C" {
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = ok), or
-// cudaErrorInvalidValue for widths the kernels do not take (D > 512, D not
-// a multiple of 8, D / h not a multiple of 4).  kv is float32, or bfloat16
-// when kv_bf16 is set; its strides are in elements.  concat (B, G, Lq, D)
-// and lse (B, G, Lq, h) are the training residuals: both null, or both
-// written.
+// cudaErrorInvalidValue for widths the kernels do not take (D % h != 0, or
+// too wide for shared memory even at one head a group and 8 query and kv
+// rows: far above any width the model runs).  kv is float32, or bfloat16
+// when kv_bf16 is set, of any alignment; its strides are in elements.  q,
+// the weights and the biases come in the padded head layout of
+// hop1_tiles.cuh (q (B, Lq, Dp); wk, wv (D, Dp); bk, bv (Dp); wo (Dp, Do);
+// bo (D)); with d_k a multiple of 4 and D of 4 that is the plain layout.
+// concat (B, G, Lq, Dp) and lse (B, G, Lq, h) are the training residuals:
+// both null, or both written.
 int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv,
                      int kv_bf16, long long kv_sb, long long kv_sg, long long kv_st,
                      const int* mask, const float* wk, const float* bk,
@@ -1023,9 +1077,13 @@ int bist_hop1_fwd(const float* x, const float* q, const void* kv, int kv_bf16,
                   const float* wv, const float* bv, const float* wo,
                   const float* bo, float* out, float* concat, float* lse, int B,
                   int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
-  return bist_hop1_fwd_as(hop1_variant(Lq, Lk, D, h), x, q, kv, kv_bf16, kv_sb, kv_sg,
-                          kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G,
-                          Lq, Lk, D, h, scale, stream);
+  const bool vec = kv_bf16 ? rows_vec4(static_cast<const __nv_bfloat16*>(kv), kv_sb,
+                                       kv_sg, kv_st, D)
+                           : rows_vec4(static_cast<const float*>(kv), kv_sb, kv_sg,
+                                       kv_st, D);
+  return bist_hop1_fwd_as(hop1_variant(Lq, Lk, D, h, vec), x, q, kv, kv_bf16, kv_sb,
+                          kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse,
+                          B, G, Lq, Lk, D, h, scale, stream);
 }
 
 // bist_hop1_fwd through the named kernel (1 "tiled", 2 "whole"), for
@@ -1037,8 +1095,7 @@ int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv
                      const float* wv, const float* bv, const float* wo,
                      const float* bo, float* out, float* concat, float* lse, int B,
                      int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
-  if (kv_sb % 4 != 0 || kv_sg % 4 != 0 || kv_st % 4 != 0 || B < 1 || G < 1 ||
-      Lq < 1 || Lk < 1 || (concat == nullptr) != (lse == nullptr))
+  if (B < 1 || G < 1 || Lq < 1 || Lk < 1 || (concat == nullptr) != (lse == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_bf16)
@@ -1049,17 +1106,18 @@ int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv
                 wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h, scale, s);
 }
 
-// The kernel bist_hop1_fwd launches at these widths: 2 "whole", 1 "tiled",
-// 0 none (it would return cudaErrorInvalidValue).
-int bist_hop1_fwd_variant(int Lq, int Lk, int D, int h) {
-  return hop1_variant(Lq, Lk, D, h);
+// The kernel bist_hop1_fwd launches at these widths, kv's rows aligned
+// 4-element vectors or not (kv_vec): 2 "whole", 1 "tiled", 0 none (it would
+// return cudaErrorInvalidValue).
+int bist_hop1_fwd_variant(int Lq, int Lk, int D, int h, int kv_vec) {
+  return hop1_variant(Lq, Lk, D, h, kv_vec != 0);
 }
 
-// What that kernel takes on the current device at G groups: info[0]
-// variant, [1] dynamic shared memory bytes, [2] registers a thread, [3]
-// local memory bytes a thread (spills and stack), [4] resident blocks per
-// SM, [5] groups a block.  Returns the CUDA error code
-// (cudaErrorInvalidValue for widths the kernels do not take).
+// What that kernel takes on the current device at G groups (aligned kv
+// rows): info[0] variant, [1] dynamic shared memory bytes, [2] registers a
+// thread, [3] local memory bytes a thread (spills and stack), [4] resident
+// blocks per SM, [5] groups a block, [6] heads a head group.  Returns the
+// CUDA error code (cudaErrorInvalidValue for widths the kernels do not take).
 int bist_hop1_fwd_resources(int G, int Lq, int Lk, int D, int h, int kv_bf16,
                             int* info) {
   return kv_bf16 ? resources<__nv_bfloat16>(G, Lq, Lk, D, h, info)

@@ -1,4 +1,5 @@
-"""Batched beam search (after `bist_tpu.decode.beam`).
+"""Batched beam search, greedy and teacher-forced (oracle) decoding (after
+`bist_tpu.decode.beam`).
 
 Scoring parity with the reference `beam_search_decode` (model/decode.py:53-104):
   * cumulative log-prob expansion keeping the top-`beam` continuations;
@@ -12,7 +13,10 @@ The search is a Python loop of `maxlen` steps over static shapes: each step
 advances the B·beam cached decoder rows (`models.model.decode_step`).  Both
 top-k selections break ties towards the lower index, as `jax.lax.top_k`
 does, so the beams equal the JAX package's at float32 — including step 0,
-where beams 1..K-1 are identical NEG copies.
+where beams 1..K-1 are identical NEG copies.  `params` may be a list of
+parameter trees of one configuration: the ensemble sums the models'
+log-probabilities at every step, each model with its own context and KV
+cache, all caches following the same parents.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from bist_tpu_torch.config import GenerateConfig, ModelConfig
 from bist_tpu_torch.data.batching import Batch, to_device
 from bist_tpu_torch.models.layers import storage_dtype
 from bist_tpu_torch.models.model import (
-    DecodeCache, decode_step, init_cache, precompute_decode_ctx,
+    DecodeCache, decode_step, forward_logprobs, init_cache, precompute_decode_ctx,
 )
 from bist_tpu_torch.vocab import EOS, PAD, SOS, UNK
 
@@ -57,20 +61,30 @@ def _converged(scores, comp_scores, l: int, gcfg: GenerateConfig) -> bool:
     return bool(torch.all(best + slack <= comp_scores.min(dim=1).values))
 
 
-@torch.no_grad()
-def beam_search(params, cfg: ModelConfig, batch: Batch,
-                gcfg: GenerateConfig) -> BeamResult:
-    """Beam search for every row of `batch` at once.  A host batch (numpy
-    arrays) moves to the parameters' device."""
+def _on_device(params, batch: Batch) -> Tuple[torch.device, Batch]:
+    """The parameters' device, and `batch` moved there if it is a host batch
+    (numpy arrays)."""
     device = params["embed"]["lut"].device
     if not isinstance(batch.query, torch.Tensor):
         batch = to_device(batch, device)
+    return device, batch
+
+
+@torch.no_grad()
+def beam_search(params, cfg: ModelConfig, batch: Batch,
+                gcfg: GenerateConfig) -> BeamResult:
+    """Beam search for every row of `batch` at once; `params` is one
+    parameter tree or a list of them (an ensemble of one configuration).  A
+    host batch (numpy arrays) moves to the parameters' device."""
+    params_list = list(params) if isinstance(params, (list, tuple)) else [params]
+    device, batch = _on_device(params_list[0], batch)
     K, maxlen, nbest = gcfg.beam, gcfg.maxlen, gcfg.nbest
     B = batch.query.shape[0]
     V = cfg.vocab_size
     cache_dt = storage_dtype(gcfg.cache_dtype)
-    ctx = precompute_decode_ctx(params, cfg, batch, dtype=cache_dt)
-    cache = init_cache(cfg, B * K, maxlen + 1, dtype=cache_dt, device=device)
+    ctxs = [precompute_decode_ctx(p, cfg, batch, dtype=cache_dt) for p in params_list]
+    caches = [init_cache(cfg, B * K, maxlen + 1, dtype=cache_dt, device=device)
+              for _ in params_list]
 
     i32 = dict(dtype=torch.int32, device=device)
     tokens = torch.full((B, K, maxlen + 1), PAD, **i32)
@@ -86,8 +100,11 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
     for l in range(maxlen):
         if gcfg.early_exit and _converged(scores, comp_scores, l, gcfg):
             break
-        logp, cache = decode_step(params, cfg, ctx, cache,
-                                  tokens[:, :, l].reshape(B * K), l, beam=K)
+        cur = tokens[:, :, l].reshape(B * K)
+        logp = 0.0
+        for m, (p, ctx) in enumerate(zip(params_list, ctxs)):
+            lp_m, caches[m] = decode_step(p, cfg, ctx, caches[m], cur, l, beam=K)
+            logp = logp + lp_m
         lp = scores[:, :, None] + logp.reshape(B, K, V)           # (B, K, V)
 
         # completion candidates (decode.py:73-77); the bonus is an f32
@@ -119,9 +136,39 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
             return a.reshape((B, K) + a.shape[1:])[rows, parent] \
                 .reshape(a.shape)
 
-        cache = DecodeCache(k=tuple(regroup(a) for a in cache.k),
-                            v=tuple(regroup(a) for a in cache.v))
+        caches = [DecodeCache(k=tuple(regroup(a) for a in c.k),
+                              v=tuple(regroup(a) for a in c.v)) for c in caches]
     return BeamResult(tokens=comp_tokens, scores=comp_scores, lengths=comp_lens)
+
+
+@torch.no_grad()
+def greedy_decode(params, cfg: ModelConfig, batch: Batch, maxlen: int,
+                  cache_dtype: str = "float32") -> torch.Tensor:
+    """Argmax decoding over the same cached `decode_step` as beam_search:
+    (B, maxlen) int32 token ids, which may hold <eos> (the caller truncates,
+    `vocab.ids2words`).  Ties go to the lower id, as `jnp.argmax`'s do."""
+    device, batch = _on_device(params, batch)
+    B = batch.query.shape[0]
+    dt = storage_dtype(cache_dtype)
+    ctx = precompute_decode_ctx(params, cfg, batch, dtype=dt)
+    cache = init_cache(cfg, B, maxlen + 1, dtype=dt, device=device)
+    tok = torch.full((B,), SOS, dtype=torch.int32, device=device)
+    out = []
+    for l in range(maxlen):
+        logp, cache = decode_step(params, cfg, ctx, cache, tok, l)
+        tok = torch.argmax(logp, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def oracle_decode(params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
+    """Teacher-forced argmax: the model's most likely token at every target
+    position given the ground-truth prefix, (B, Lt) int32.  Needs labeled
+    targets (batch.trg), so not an undisclosed-only test set."""
+    _, batch = _on_device(params, batch)
+    logp, _ = forward_logprobs(params, cfg, batch, rngs=None)
+    return torch.argmax(logp, dim=-1).to(torch.int32)
 
 
 def extract_hyps(result: BeamResult, id2word: List[str],

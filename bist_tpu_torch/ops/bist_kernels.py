@@ -15,8 +15,11 @@ before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
 gradients of q_proj, kv and the K/V weights.  K1 has two kernels, which its
 launcher chooses by shape (`hop1_variant`): "whole" at the main path's
 widths (every product on the tensor cores as 3xTF32, which keeps float32
-accuracy) and "tiled" at the others.  See the sources for their designs and
-bounds.
+accuracy) and "tiled" at every other width with D % h == 0.  The kernels
+hold each head's columns padded with zeros to a multiple of 4; the wrappers
+hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
+the padding off what comes back, which changes no number.  See the sources
+for their designs and bounds.
 """
 
 from __future__ import annotations
@@ -31,15 +34,45 @@ import torch
 from bist_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-MAX_D = 512
 GRID_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def hop1_supports(D: int, h: int) -> bool:
-    """Widths the kernels take: D <= 512, a multiple of 8, and a head width
-    D / h that is a multiple of 4 (their p·v tiles are 4 columns of one
-    head).  The launchers in the sources check the same and plan the tiles."""
-    return D <= MAX_D and D % 8 == 0 and D % h == 0 and (D // h) % 4 == 0
+    """Widths the kernels take: every D with D % h == 0, as the model's
+    config allows (the launchers in the sources plan the tiles)."""
+    return D >= 1 and h >= 1 and D % h == 0
+
+
+def _pad_heads(t: torch.Tensor, h: int, dim: int = -1) -> torch.Tensor:
+    """`t` with axis `dim` (h heads of d_k columns) in the kernels' padded
+    head layout: each head's columns followed by zeros up to a multiple of
+    4 (csrc/hop1_tiles.cuh); `t` itself when d_k is one already."""
+    dk = t.shape[dim] // h
+    pad = -dk % 4
+    if pad == 0:
+        return t
+    t = t.movedim(dim, -1)
+    t = torch.nn.functional.pad(t.reshape(*t.shape[:-1], h, dk), (0, pad))
+    return t.reshape(*t.shape[:-2], h * (dk + pad)).movedim(-1, dim).contiguous()
+
+
+def _unpad_heads(t: torch.Tensor, h: int, D: int) -> torch.Tensor:
+    """The inverse of `_pad_heads` on the last axis, back to D columns."""
+    if t.shape[-1] == D:
+        return t
+    return t.reshape(*t.shape[:-1], h, -1)[..., :D // h].reshape(*t.shape[:-1], D)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy at a fresh allocation where `t` does not start on the
+    16 bytes the kernels' vector loads need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_cols4(t: torch.Tensor) -> torch.Tensor:
+    """`t` with its columns padded with zeros to a multiple of 4."""
+    pad = -t.shape[-1] % 4
+    return t if pad == 0 else torch.nn.functional.pad(t, (0, pad))
 
 
 def _valid_columns(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -146,7 +179,7 @@ def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     args = [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _I, _F, _P]
     for fn, argtypes in (("bist_hop1_fwd", args), ("bist_hop1_fwd_as", [_I] + args),
-                         ("bist_hop1_fwd_variant", [_I] * 4),
+                         ("bist_hop1_fwd_variant", [_I] * 5),
                          ("bist_hop1_fwd_resources", [_I] * 6 + [_P])):
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -162,15 +195,23 @@ def _fwd_lib() -> ctypes.CDLL:
 HOP1_VARIANTS = {1: "tiled", 2: "whole"}
 
 
+def _rows_vec4(kv: torch.Tensor) -> bool:
+    """Whether kv's rows are whole, aligned 4-element vectors (the test the
+    launcher makes before it may choose "whole")."""
+    return (kv.shape[-1] % 4 == 0 and all(st % 4 == 0 for st in kv.stride()[:3])
+            and kv.data_ptr() % (4 * kv.element_size()) == 0)
+
+
 @functools.lru_cache(maxsize=None)
-def hop1_variant(Lq: int, Lk: int, D: int, h: int) -> str:
+def hop1_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
     """The K1 kernel a launch at these widths takes, as the launcher chooses
-    it from the shape alone: "whole" (all kv rows of a group in one tile,
+    it from the shape and kv's alignment (`kv_vec`: rows of aligned
+    4-element vectors) alone: "whole" (all kv rows of a group in one tile,
     every product on the tensor cores in 3xTF32; D 64 or 128, d_k a multiple
-    of 8 up to 32, Lk <= 64) or "tiled" (kv tiles with an online softmax, FMAs;
-    every other width K1 takes); ValueError for widths neither takes.
-    Builds the library on first use."""
-    code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h)
+    of 8 up to 32, Lk <= 64, aligned rows) or "tiled" (head groups, kv tiles
+    with an online softmax, FMAs; every other width); ValueError for widths
+    neither takes.  Builds the library on first use."""
+    code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
         raise ValueError(f"hop1_fused: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
     return HOP1_VARIANTS[code]
@@ -179,22 +220,23 @@ def hop1_variant(Lq: int, Lk: int, D: int, h: int) -> str:
 def hop1_resources(G: int, Lq: int, Lk: int, D: int, h: int, bf16: bool = False) -> dict:
     """What the K1 kernel chosen at these widths takes on the current CUDA
     device: its variant, dynamic shared memory, registers and local memory
-    (spills, stack) a thread, resident blocks per SM and groups a block."""
-    info = (ctypes.c_int * 6)()
+    (spills, stack) a thread, resident blocks per SM, groups a block and
+    heads a head group."""
+    info = (ctypes.c_int * 7)()
     rc = _fwd_lib().bist_hop1_fwd_resources(G, Lq, Lk, D, h, int(bf16), info)
     if rc != 0:
         raise RuntimeError(f"hop1_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} "
                            f"D={D} h={h})")
     return {"variant": HOP1_VARIANTS[info[0]], "smem_bytes": info[1],
             "registers": info[2], "local_bytes": info[3], "blocks_per_sm": info[4],
-            "groups_per_block": info[5]}
+            "groups_per_block": info[5], "heads_per_group": info[6]}
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _lib("hop1_bwd", "bist_hop1_bwd",
                [_P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-    _lib("hop1_bwd", "bist_hop1_bwd_workspace", [_I, _I, _I, _I, _I], _L)
+    _lib("hop1_bwd", "bist_hop1_bwd_workspace", [_I] * 6, _L)
     return lib
 
 
@@ -208,20 +250,18 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32,
 
 
 def _check_grid(kv: torch.Tensor, h: int, who: str) -> None:
-    """The checks K1 and K2 share: a CUDA grid of a width and dtype they
-    take, its last axis contiguous and its rows of 4 aligned."""
+    """The checks K1 and K2 share: a CUDA grid of a dtype they take, heads
+    that divide its width and its last axis contiguous (a strided view of
+    any alignment is taken)."""
     if kv.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {kv.device}")
     D = kv.shape[-1]
     if not hop1_supports(D, h):
-        raise ValueError(f"{who}: the kernel takes D <= {MAX_D}, a multiple "
-                         f"of 8, with D / h a multiple of 4; got D={D}, h={h}")
+        raise ValueError(f"{who}: D must be a multiple of h; got D={D}, h={h}")
     if kv.dtype not in GRID_DTYPES:
         raise ValueError(f"{who}: kv must be float32 or bfloat16; got {kv.dtype}")
     if kv.stride(-1) != 1:
         raise ValueError(f"{who}: kv's last axis must be contiguous")
-    if kv.data_ptr() % (4 * kv.element_size()) or any(st % 4 for st in kv.stride()[:3]):
-        raise ValueError(f"{who}: kv's rows of 4 must be aligned to their vector loads")
 
 
 def _launch_failed(who: str, rc: int, kv: torch.Tensor, Lq: int, h: int):
@@ -235,14 +275,14 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
                return_residuals: bool = False):
     """Fused hop 1 (same arguments and results as `hop1_plain`).
 
-    On a CUDA tensor it launches the K1 kernel, or raises (for widths outside
-    `hop1_supports`, other dtypes, misaligned or non-contiguous inputs); on a
-    CPU tensor it runs `hop1_plain`.  kv is float32 or bfloat16 and may be a
-    strided view (the t2s direction passes the grid with T and S swapped) as
-    long as its last axis is contiguous; x, q_proj, the weights and the mask
-    must be contiguous, float32 (mask int32), on kv's device.  The results
-    are float32.  `hop1_fused.launches` counts kernel launches and
-    `hop1_fused.variants` counts them by kernel (`hop1_variant`)."""
+    On a CUDA tensor it launches the K1 kernel, or raises (for D not a
+    multiple of h, other dtypes or shapes); on a CPU tensor it runs
+    `hop1_plain`.  kv is float32 or bfloat16 and may be a strided view of
+    any alignment (the t2s direction passes the grid with T and S swapped);
+    x, q_proj, the weights and the mask must be float32 (mask int32), on
+    kv's device, and contiguous.  The results are float32.
+    `hop1_fused.launches` counts kernel launches and `hop1_fused.variants`
+    counts them by kernel (`hop1_variant`)."""
     if kv.device.type == "cpu":
         return hop1_plain(x, q_proj, kv, attn_params, h, mask, return_residuals)
     return _hop1_launch(_fwd_lib().bist_hop1_fwd, None, x, q_proj, kv, attn_params, h,
@@ -264,9 +304,10 @@ def _hop1_fused_as(variant: str, x, q_proj, kv, attn_params, h, mask=None,
 
 def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, mask,
                  return_residuals):
-    """Check K1's inputs, allocate its results and launch it by `launch`
-    (the C entry's arguments after any variant code); counts the launch
-    under `variant` (by default the launcher's choice, `hop1_variant`)."""
+    """Check K1's inputs, put q and the weights into the padded head layout,
+    allocate the results and launch the kernel by `launch` (the C entry's
+    arguments after any variant code); counts the launch under `variant` (by
+    default the launcher's choice, `hop1_variant`)."""
     _check_grid(kv, h, "hop1_fused")
     dev = kv.device
     B, G, Lk, D = kv.shape
@@ -276,25 +317,29 @@ def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, 
     w = [attn_params[n][p] for n in ("wk", "wv", "wo") for p in ("w", "b")]
     for n, t in zip(("wk", "bk", "wv", "bv", "wo", "bo"), w):
         _check(n, t, (D, D) if n[0] == "w" else (D,), dev)
-    if any(t.data_ptr() % 16 for t in [x, q_proj] + w):
-        raise ValueError("hop1_fused: x, q_proj, weights and biases must be "
-                         "aligned to their vector loads")
     if mask is not None:
         _check("mask", mask, (B, 1, Lk), dev, dtype=torch.int32)
-    variant = variant or hop1_variant(Lq, Lk, D, h)
+    if (D // h) % 4 or D % 4:
+        # the padded head layout (csrc/hop1_tiles.cuh): q, Wk, bk, Wv, bv by
+        # their columns, Wo by its rows (and its columns to a multiple of 4)
+        q_proj = _pad_heads(q_proj, h)
+        w = [_pad_heads(t, h) for t in w[:4]] + [_pad_cols4(_pad_heads(w[4], h, dim=0)), w[5]]
+    args = [_aligned(t) for t in [x, q_proj] + w]
+    Dp = q_proj.shape[-1]
+    variant = variant or hop1_variant(Lq, Lk, D, h, _rows_vec4(kv))
     out = torch.empty((B, G, Lq, D), device=dev, dtype=torch.float32)
     concat = lse = None
     if return_residuals:
-        concat = torch.empty((B, G, Lq, D), device=dev, dtype=torch.float32)
+        concat = torch.empty((B, G, Lq, Dp), device=dev, dtype=torch.float32)
         lse = torch.empty((B, G, Lq, h), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
-            x.data_ptr(), q_proj.data_ptr(), kv.data_ptr(),
+            args[0].data_ptr(), args[1].data_ptr(), kv.data_ptr(),
             int(kv.dtype == torch.bfloat16),
             kv.stride(0), kv.stride(1), kv.stride(2),
             None if mask is None else mask.data_ptr(),
-            *[t.data_ptr() for t in w], out.data_ptr(),
+            *[t.data_ptr() for t in args[2:]], out.data_ptr(),
             None if concat is None else concat.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, G, Lq, Lk, D, h, 1.0 / math.sqrt(D // h), stream)
@@ -302,7 +347,7 @@ def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, 
         raise _launch_failed("hop1_fused", rc, kv, Lq, h)
     hop1_fused.launches += 1
     hop1_fused.variants[variant] = hop1_fused.variants.get(variant, 0) + 1
-    return (out, concat, lse) if return_residuals else out
+    return (out, _unpad_heads(concat, h, D), lse) if return_residuals else out
 
 
 hop1_fused.launches = 0
@@ -315,11 +360,12 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
              h: int):
     """Hop-1 backward (same arguments and results as `hop1_bwd_plain`).
 
-    On a CUDA tensor it launches the K2 kernel (its three passes), or raises
-    as `hop1_fused` does; on a CPU tensor it runs `hop1_bwd_plain`.  kv is
-    float32 or bfloat16 and may be a strided view; every other tensor must be
-    contiguous float32 (mask int32) on kv's device.  dkv comes back
-    contiguous in kv's dtype.  `hop1_bwd.launches` counts kernel launches."""
+    On a CUDA tensor it launches the K2 kernel (its passes), or raises as
+    `hop1_fused` does; on a CPU tensor it runs `hop1_bwd_plain`.  kv is
+    float32 or bfloat16 and may be a strided view of any alignment; every
+    other tensor must be contiguous float32 (mask int32) on kv's device.
+    dkv comes back contiguous in kv's dtype.  `hop1_bwd.launches` counts
+    kernel launches."""
     if kv.device.type == "cpu":
         return hop1_bwd_plain(q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h)
     who = "hop1_bwd"
@@ -335,32 +381,34 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
         _check(n, t, (D, D) if n[0] == "w" else (D,), dev, who=who)
     if mask is not None:
         _check("mask", mask, (B, 1, Lk), dev, dtype=torch.int32, who=who)
-    wkv_t = torch.cat([wk.t(), wv.t()]).contiguous()          # [Wkᵀ ; Wvᵀ] (2D, D)
-    if any(t.data_ptr() % 16 for t in (q_proj, d_concat, wk, bk, wv, bv, wkv_t)):
-        raise ValueError("hop1_bwd: q_proj, d_concat, weights and biases must be "
-                         "aligned to their vector loads")
+    args = (q_proj, d_concat, wk, bk, wv, bv)
+    if (D // h) % 4:
+        args = [_pad_heads(t, h) for t in args]      # the padded head layout
+    q_p, dcc_p, wk_p, bk_p, wv_p, bv_p = (_aligned(t) for t in args)
+    Dp = q_p.shape[-1]
+    wkv_t = _pad_cols4(torch.cat([wk_p.t(), wv_p.t()])).contiguous()   # (2Dp, Do)
     lib = _bwd_lib()
     dkv = torch.empty((B, G, Lk, D), device=dev, dtype=kv.dtype)
-    dq = torch.empty((B, Lq, D), device=dev, dtype=torch.float32)
-    wgrad = torch.empty(2 * D * D + 2 * D, device=dev, dtype=torch.float32)
-    ws = torch.empty(lib.bist_hop1_bwd_workspace(B, G, Lq, Lk, D), device=dev,
+    dq = torch.empty((B, Lq, Dp), device=dev, dtype=torch.float32)
+    wgrad = torch.empty(2 * D * Dp + 2 * Dp, device=dev, dtype=torch.float32)
+    ws = torch.empty(lib.bist_hop1_bwd_workspace(B, G, Lq, Lk, D, h), device=dev,
                      dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bist_hop1_bwd(
-            q_proj.data_ptr(), kv.data_ptr(), int(kv.dtype == torch.bfloat16),
+            q_p.data_ptr(), kv.data_ptr(), int(kv.dtype == torch.bfloat16),
             kv.stride(0), kv.stride(1), kv.stride(2),
             None if mask is None else mask.data_ptr(),
-            d_concat.data_ptr(), dh.data_ptr(), lse.data_ptr(),
-            wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+            dcc_p.data_ptr(), dh.data_ptr(), lse.data_ptr(),
+            wk_p.data_ptr(), bk_p.data_ptr(), wv_p.data_ptr(), bv_p.data_ptr(),
             wkv_t.data_ptr(), dkv.data_ptr(), dq.data_ptr(), wgrad.data_ptr(),
             ws.data_ptr(), B, G, Lq, Lk, D, h, 1.0 / math.sqrt(D // h), stream)
     if rc != 0:
         raise _launch_failed(who, rc, kv, Lq, h)
     hop1_bwd.launches += 1
-    dwk, dwv = wgrad[:2 * D * D].view(2, D, D)
-    dbk, dbv = wgrad[2 * D * D:].view(2, D)
-    return dq, dkv, dwk, dwv, dbk, dbv
+    dwk, dwv = (_unpad_heads(a, h, D) for a in wgrad[:2 * D * Dp].view(2, D, Dp))
+    dbk, dbv = (_unpad_heads(a, h, D) for a in wgrad[2 * D * Dp:].view(2, Dp))
+    return _unpad_heads(dq, h, D), dkv, dwk, dwv, dbk, dbv
 
 
 hop1_bwd.launches = 0

@@ -15,12 +15,11 @@
     FLASH_MIN_KV.  The threshold keeps the JAX value until a sweep on the
     H100 sets it.
 
-Neither rule looks at widths or dtypes: on the card a call that meets it
-goes to the kernel, which takes float32 and bfloat16 and raises on a width
-it cannot take (hop 1: D > 512, D not a multiple of 8, or D / h not a
-multiple of 4; flash: a head dim above 256).  K1 is known to be slower than
-the plain path at widths above the flagship's when few (batch, group)
-blocks fill the card (PERF.md, section 7).
+Neither rule looks at widths, dtypes or alignment: on the card a call that
+meets it goes to the kernel, which takes float32 and bfloat16 grids, every
+D with D % h == 0 (hop 1) and every head dim (flash).  The kernels are
+known to be slower than the plain path at widths above the flagship's
+(PERF.md, section 7; ROADMAP's K4).
 
 `force_plain()` turns both kernels off, so one batch can run through the
 kernels and through the plain PyTorch paths for comparison (tests,

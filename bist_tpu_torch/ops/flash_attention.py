@@ -17,7 +17,6 @@ import torch
 from bist_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -57,20 +56,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention without materialised scores (same arguments and result as
     `attention_plain`).
 
-    On a CUDA tensor it launches the K3 kernel, or raises (head dims above
-    MAX_HEAD_DIM, other dtypes, misaligned or non-contiguous inputs); on a
-    CPU tensor it runs `attention_plain`.  q, k, v: contiguous, one dtype,
-    float32 or bfloat16 (the result has it too), any head dim d <= 256;
-    mask: contiguous int32 (G, Lk) or None.  `flash_attention.launches`
-    counts kernel launches."""
+    On a CUDA tensor it launches the K3 kernel, or raises (other dtypes,
+    non-contiguous inputs); on a CPU tensor it runs `attention_plain`.  q,
+    k, v: contiguous, one dtype, float32 or bfloat16 (the result has it
+    too), any head dim and alignment; mask: contiguous int32 (G, Lk) or
+    None.  `flash_attention.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     G, Lq, d = q.shape
     Lk = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} above {MAX_HEAD_DIM}")
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: q must be float32 or bfloat16; got {q.dtype}")
     want = {"k": (k, (G, Lk, d), q.dtype), "v": (v, (G, Lk, d), q.dtype),
@@ -83,9 +79,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(
                 f"flash_attention: {name} must be contiguous {dtype} {shape} on "
                 f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if d % 4 == 0 and any(t.data_ptr() % (4 * t.element_size()) for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be aligned to 4 "
-                         "elements (the kernel loads rows in vectors)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     dev = q.device

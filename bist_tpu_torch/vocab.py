@@ -12,7 +12,7 @@ across turns, then all answer words across turns).
 from __future__ import annotations
 
 import json
-from typing import Dict, List
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -72,6 +72,18 @@ def words2ids(text: str, vocab: Dict[str, int]) -> np.ndarray:
         out[i + 1] = vocab.get(w, UNK)
     out[-1] = EOS
     return out
+
+
+def ids2words(ids: Iterable[int], id2word: Sequence[str],
+              stop_at_eos: bool = True) -> List[str]:
+    """Decode ids to words, stopping at <eos> (generate.py:63-68 semantics)."""
+    words = []
+    for i in ids:
+        i = int(i)
+        if stop_at_eos and i == EOS:
+            break
+        words.append(id2word[i])
+    return words
 
 
 def make_id2word(vocab: Dict[str, int]) -> List[str]:

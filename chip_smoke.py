@@ -22,22 +22,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      overlaps the device work of the calls before.  K1's cases name the
      kernel they must run ("whole" or "tiled", the two of
      csrc/hop1_fwd.cu); its main-path cases also check and time "tiled",
-     the kernel that held those widths before "whole", at the same inputs;
+     the kernel that held those widths before "whole", at the same inputs.
+     K1 and K2 also run at widths "whole" does not take (D 120, 520 and
+     1024 with 8 heads), K3 at head dim 320;
   3. the main path: the flagship AVSD model (d_model 128, 8 heads, 3/3/3
      blocks, summary caption, pointer generator over query,cap; random
      weights from seed 0) generating for 4 batches of 64 real test turns
      (random features, 8-40 clips of 16 x 2048) by beam search (beam 5,
      maxlen 12, nbest 5, float32 cache).  Kernel launch counts are zeroed
      just before and read just after; hop 1 must have gone through its
-     kernel 6 times per batch, every time through "whole".  The same
-     batches then run with the kernels forced off: every precomputed
-     context tensor must agree to 2e-4;
+     kernel 6 times per batch, every time through "whole".  Then greedy
+     decoding of the same batches, counted the same way.  The same batches
+     then run with the kernels forced off: every precomputed context tensor
+     must agree to 2e-4 and the greedy tokens must be identical;
   4. the flash kernel through models.layers.mha in the regime that sends it
      there (d_model 512, 8 heads, 32 queries, 32768 keys, key-padding mask),
      counts zeroed and read around it, held against the plain path;
   5. the generate CLI on a tiny on-disk dataset (turns from the vendored test
-     set, random .npy features, a .conf + .pt from the port's init_model),
-     with its result JSON checked;
+     set, random .npy features, a .conf + .pt from the port's init_model) in
+     every decode style: at its defaults (greedy), beam search, beam search
+     over an ensemble of two models, sampling, and oracle on the labeled
+     turns; each result JSON checked;
   6. the training path: the flagship model without dropout (so hop 1 runs
      K1 with residuals and K2), random weights from seed 0, Noam-Adam with
      warmup 10 over 2 cycled batches of 32 real training turns (random
@@ -447,6 +452,16 @@ def phase_kernels(device):
                    17),
         check_hop1(device, "t2s bf16", "whole", 64, 16, 32, 40, 128, 8, True, True, 18,
                    bf16=True),
+        # widths "whole" is not built for: d_k 15 (padded to 16 in the
+        # kernel), D above 512 with d_k 65, D 1024; a bfloat16 grid
+        check_hop1(device, "t2s D=120 h=8", "tiled", 8, 16, 32, 40, 120, 8, True, True,
+                   19),
+        check_hop1(device, "t2s D=520 h=8", "tiled", 8, 16, 32, 40, 520, 8, True, True,
+                   20),
+        check_hop1(device, "t2s D=1024 h=8", "tiled", 8, 16, 32, 40, 1024, 8, True, True,
+                   21),
+        check_hop1(device, "t2s D=120 h=8 bf16", "tiled", 8, 16, 32, 40, 120, 8, True,
+                   True, 22, bf16=True),
     ]
     hop1_bwd = [
         # the training step's two hop-1 backward launches of each video layer
@@ -455,11 +470,20 @@ def phase_kernels(device):
         check_hop1_bwd(device, "t2s D=512", 8, 16, 32, 40, 512, 8, True, True, 13),
         check_hop1_bwd(device, "t2s, a fully masked row", 32, 16, 32, 40, 128, 8,
                        True, True, 14, full_row=True),
+        # the widths of phase 2's wide K1 cases (D 1024: two head groups)
+        check_hop1_bwd(device, "t2s D=120 h=8", 8, 16, 32, 40, 120, 8, True, True, 23,
+                       full_row=True),
+        check_hop1_bwd(device, "t2s D=520 h=8", 8, 16, 32, 40, 520, 8, True, True, 24,
+                       full_row=True),
+        check_hop1_bwd(device, "t2s D=1024 h=8", 8, 16, 32, 40, 1024, 8, True, True, 25,
+                       full_row=True),
     ]
     flash = [
         # the regime mha sends to the kernel (phase 4's shape)
         check_flash(device, "mha kv=32768", 128, 32, 32768, 64, True, 4),
         check_flash(device, "short kv, d=16", 4096, 1, 40, 16, True, 5),
+        # a head dim above the templated kernel's 256 (the wide kernel)
+        check_flash(device, "kv=32768, d=320", 32, 32, 32768, 320, True, 26),
     ]
     return hop1, hop1_bwd, flash
 
@@ -516,13 +540,14 @@ def ctx_tensors(ctx):
 
 
 def phase_main_path(device, n_batches=4, B=64):
-    """Beam-search generation at the flagship width; returns a summary."""
+    """Beam-search and greedy generation at the flagship width; returns a
+    summary."""
     import torch
 
     from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import to_device
-    from bist_tpu_torch.decode.beam import NEG, beam_search
+    from bist_tpu_torch.decode.beam import NEG, beam_search, greedy_decode
     from bist_tpu_torch.models.model import init_model, precompute_decode_ctx
     from bist_tpu_torch.ops import dispatch
     from bist_tpu_torch.ops.bist_kernels import hop1_fused
@@ -573,6 +598,28 @@ def phase_main_path(device, n_batches=4, B=64):
         raise AssertionError(f"hop-1 launches on the main path by kernel: "
                              f"{variants}, expected all {want} on \"whole\"")
 
+    # greedy decoding of the same batches (the generate CLI's default style)
+    greedy_decode(params, cfg, batches[0], gcfg.maxlen)          # warm-up
+    sync()
+    hop1_fused.launches = flash_attention.launches = 0
+    hop1_fused.variants = {}
+    t0 = time.perf_counter()
+    greedy = [greedy_decode(params, cfg, b, gcfg.maxlen) for b in batches]
+    sync()
+    greedy_seconds = time.perf_counter() - t0
+    greedy_launches = {"hop1_fwd": hop1_fused.launches,
+                       "flash_fwd": flash_attention.launches}
+    greedy_variants = dict(hop1_fused.variants)
+    for g in greedy:
+        if tuple(g.shape) != (B, gcfg.maxlen) or not ((g >= 0) & (g < len(vocab))).all():
+            raise AssertionError(f"greedy tokens: shape {tuple(g.shape)} or ids out "
+                                 f"of the vocabulary")
+    if greedy_launches["hop1_fwd"] != want or (
+            device.type == "cuda" and greedy_variants != {"whole": want}):
+        raise AssertionError(f"greedy: hop-1 kernel launches {greedy_variants} "
+                             f"({greedy_launches['hop1_fwd']}), expected {want} "
+                             f"on \"whole\"")
+
     # the context precompute alone (encode + the BiST stack, where K1 runs)
     sync()
     t0 = time.perf_counter()
@@ -585,6 +632,12 @@ def phase_main_path(device, n_batches=4, B=64):
     # the same batches with the kernels forced off
     with dispatch.force_plain():
         plain_results = [beam_search(params, cfg, b, gcfg) for b in batches]
+        plain_greedy = [greedy_decode(params, cfg, b, gcfg.maxlen) for b in batches]
+    greedy_same = sum(int(torch.equal(a[row], b[row])) for a, b in zip(greedy, plain_greedy)
+                      for row in range(B))
+    if greedy_same != n_batches * B:
+        raise AssertionError(f"greedy: {n_batches * B - greedy_same} rows differ "
+                             f"between the kernel path and the plain path")
     worst = 0.0
     for b in batches:
         with torch.no_grad():
@@ -610,7 +663,11 @@ def phase_main_path(device, n_batches=4, B=64):
             "precompute_seconds": precompute_seconds,
             "launches": launches, "hop1_variants": variants,
             "ctx_max_abs_diff": worst,
-            "first_best_identical_share": same / total}
+            "first_best_identical_share": same / total,
+            "greedy": {"responses_per_s": n_batches * B / greedy_seconds,
+                       "seconds": greedy_seconds, "launches": greedy_launches,
+                       "hop1_variants": greedy_variants,
+                       "identical_share": greedy_same / (n_batches * B)}}
 
 
 # ---------------------------------------------------------------------------
@@ -693,42 +750,85 @@ def write_tiny_dataset(root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX
     return test_set
 
 
-def phase_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX):
-    test_set = write_tiny_dataset(root, n_dialogs, model_kw, dv, s, t_max)
+def run_generate(root, test_set, args, device):
+    """The generate CLI (a process of its own) on `test_set` with the model
+    <root>/mtn; returns its result JSON."""
     out = os.path.join(root, "result.json")
     cmd = [sys.executable, "-m", "bist_tpu_torch.cli.generate",
            "--test-set", test_set,
            "--test-path", os.path.join(root, "<FeaType>", "<ImageID>.npy"),
-           "--model", os.path.join(root, "mtn"), "--decode-style", "beam_search",
-           "--beam", "5", "--penalty", "1.0", "--nbest", "5", "--maxlen", "12",
-           "--undisclosed-only", "1", "--gen-batch-size", "4",
-           "--output", out, "--device", device.type]
+           "--model", os.path.join(root, "mtn"), *args, "--maxlen", "12",
+           "--gen-batch-size", "4", "--output", out, "--device", device.type]
     r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        raise AssertionError(f"generate CLI exited {r.returncode}:\n"
+        raise AssertionError(f"generate CLI {' '.join(args)} exited {r.returncode}:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
     with open(out) as f:
-        result = json.load(f)
+        return json.load(f)
+
+
+def phase_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX):
+    """The generate CLI in every decode style on a tiny dataset: at its
+    defaults (greedy), beam search, an ensemble of two models by beam
+    search, sampling, and oracle on the dataset's labeled turns (each
+    dialog without its undisclosed last turn); each result JSON checked
+    against its input.  Returns the answers by style."""
+    import torch
+
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.config import load_conf
+    from bist_tpu_torch.weights import save_params
+
+    test_set = write_tiny_dataset(root, n_dialogs, model_kw, dv, s, t_max)
+    _, cfg, _, _ = load_conf(os.path.join(root, "mtn.conf"))
+    save_params(os.path.join(root, "mtn2.pt"), init_model(1, cfg, device=torch.device("cpu")))
     with open(test_set) as f:
         orig = json.load(f)
-    check_result_schema(result, orig)
-    return {"dialogs": len(result["dialogs"]),
-            "answers": [d["dialog"][-1]["answer"] for d in result["dialogs"]]}
+    labeled = dict(orig, dialogs=[dict(d, dialog=d["dialog"][:-1]) for d in orig["dialogs"]])
+    labeled_set = os.path.join(root, "labeled_set.json")
+    with open(labeled_set, "w") as f:
+        json.dump(labeled, f)
+    beam = ["--decode-style", "beam_search", "--beam", "5", "--penalty", "1.0",
+            "--nbest", "5"]
+    runs = {
+        "greedy (default)": (test_set, ["--undisclosed-only", "1"]),
+        "beam_search": (test_set, beam + ["--undisclosed-only", "1"]),
+        "beam_search ensemble of 2": (test_set, beam + [
+            "--undisclosed-only", "1", "--ensemble", os.path.join(root, "mtn2")]),
+        "sample": (test_set, ["--decode-style", "sample", "--top-k", "20", "--top-p",
+                              "0.9", "--temperature", "0.8", "--sample-seed", "3",
+                              "--undisclosed-only", "1"]),
+        "oracle": (labeled_set, ["--decode-style", "oracle"]),
+    }
+    answers = {}
+    for style, (data, args) in runs.items():
+        result = run_generate(root, data, args, device)
+        # greedy, sampled and oracle rows are cut at <eos>: on a random model
+        # an answer may be empty, as in bist_tpu; beam search ranks only
+        # hypotheses of at least one token
+        check_result_schema(result, labeled if data == labeled_set else orig,
+                            undisclosed=data == test_set,
+                            allow_empty=not style.startswith("beam"))
+        answers[style] = [t["answer"] for d in result["dialogs"] for t in d["dialog"]]
+    return {"dialogs": len(orig["dialogs"]), "answers": answers}
 
 
-def check_result_schema(result, orig):
-    """The result JSON of an --undisclosed-only run: one entry per dialog,
-    same image ids, the last turn's question kept and its answer generated."""
+def check_result_schema(result, orig, undisclosed=True, allow_empty=False):
+    """The result JSON: one entry per dialog, same image ids and turns (the
+    last turn only for an --undisclosed-only run), each question kept and
+    each answer generated (a string, never the placeholder; non-empty
+    unless `allow_empty`)."""
     if set(result) != {"dialogs"} or len(result["dialogs"]) != len(orig["dialogs"]):
         raise AssertionError("result JSON: expected one dialog per test dialog")
     for rd, od in zip(result["dialogs"], orig["dialogs"]):
-        if rd["image_id"] != od["image_id"] or len(rd["dialog"]) != 1:
+        turns = od["dialog"][-1:] if undisclosed else od["dialog"]
+        if rd["image_id"] != od["image_id"] or len(rd["dialog"]) != len(turns):
             raise AssertionError(f"result JSON: bad entry for {od['image_id']}")
-        turn = rd["dialog"][0]
-        if (turn["question"] != od["dialog"][-1]["question"]
-                or not isinstance(turn["answer"], str) or not turn["answer"]
-                or turn["answer"] == "__UNDISCLOSED__"):
-            raise AssertionError(f"result JSON: bad answer for {od['image_id']}")
+        for turn, ot in zip(rd["dialog"], turns):
+            if (turn["question"] != ot["question"] or not isinstance(turn["answer"], str)
+                    or not (turn["answer"] or allow_empty)
+                    or turn["answer"] == "__UNDISCLOSED__"):
+                raise AssertionError(f"result JSON: bad answer for {od['image_id']}")
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,19 @@ def run(args, timeout=300):
 
 
 def test_generate_cli_end_to_end_on_cpu(tmp_path):
+    """Every decode style through the CLI on --device cpu, each result JSON
+    in the JAX CLI's schema (chip_smoke.check_result_schema): greedy at the
+    defaults (no --decode-style), beam search, a 2-model ensemble, sampling
+    and oracle on the labeled turns."""
     root = str(tmp_path / "tiny")
     out = chip_smoke.phase_cli(torch.device("cpu"), root, n_dialogs=5,
                                model_kw=TINY, dv=24, s=4, t_max=9)
-    assert out["dialogs"] == 5 and all(out["answers"])
+    assert out["dialogs"] == 5
+    assert set(out["answers"]) == {"greedy (default)", "beam_search",
+                                   "beam_search ensemble of 2", "sample", "oracle"}
+    assert all(out["answers"]["beam_search"])
+    assert len(out["answers"]["greedy (default)"]) == 5
+    assert len(out["answers"]["oracle"]) > 5          # every labeled turn
     # the .conf is the JAX package's format too; the .pt holds the JAX tree
     vocab, cfg, _, _ = load_conf(os.path.join(root, "mtn.conf"))
     jvocab, jcfg, _, _ = jax_load_conf(os.path.join(root, "mtn.conf"))
@@ -53,13 +62,29 @@ def test_entry_points_default_to_cuda(capsys):
     assert '"ok"' not in out and '"kernels"' not in out
 
 
-@pytest.mark.parametrize("args", [
-    ["--decode-style", "greedy"],
-    ["--decode-style", "beam_search", "--ensemble", "other"],
+@pytest.mark.parametrize("args,match", [
+    (["--reference-root", "/nonexistent"], "not read"),
+    (["--decode-style", "nucleus"], "not one of"),
 ])
-def test_unported_options_raise(args):
-    with pytest.raises(SystemExit, match="not ported"):
+def test_unported_options_raise(args, match):
+    with pytest.raises(SystemExit, match=match):
         generate.main(args + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("args,match", [
+    (["--decode-style", "oracle", "--undisclosed-only", "1"], "requires labeled"),
+    (["--decode-style", "greedy", "--ensemble", "other"], "only supported with"),
+])
+def test_jax_cli_guards_exit(args, match):
+    """The two guards of bist_tpu's CLI, before any model is read: oracle
+    needs labeled turns, and an ensemble decodes by beam search only."""
+    with pytest.raises(SystemExit, match=match):
+        generate.main(args + ["--device", "cpu", "--model", "absent"])
+
+
+def test_default_decode_style_is_greedy():
+    assert generate.build_parser().parse_args([]).decode_style == "greedy"
+    assert set(generate.PORTED_STYLES) == {"beam_search", "greedy", "oracle", "sample"}
 
 
 def test_package_imports_neither_jax_nor_bist_tpu():

@@ -143,6 +143,7 @@ def test_hop1_forced_variants_agree(cuda):
 @pytest.mark.parametrize("G,Lq,Lk,d", [
     (4, 16, 300, 64), (3, 1, 40, 16), (2, 40, 70, 128), (2, 5, 65, 32),
     (3, 7, 90, 8), (2, 9, 70, 6), (2, 33, 100, 96), (2, 4, 1000, 256),
+    (2, 5, 300, 264), (3, 33, 2000, 320), (2, 3, 70, 600),   # the wide kernel
 ])
 def test_flash_kernel_matches_plain(cuda, G, Lq, Lk, d):
     rng = np.random.default_rng(1)
@@ -158,10 +159,6 @@ def test_flash_kernel_matches_plain(cuda, G, Lq, Lk, d):
     close(got, K3.attention_plain(q16.float(), k16.float(), v16.float(), mask),
           f"flash {G, Lq, Lk, d} bf16", rtol=BF16_RTOL)
     assert K3.flash_attention.launches == before + 3
-    wide = torch.zeros((G, Lq, 264), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        K3.flash_attention(wide, wide[:, :1].expand(G, Lk, 264).contiguous(),
-                           wide[:, :1].expand(G, Lk, 264).contiguous())
 
 
 @pytest.mark.cuda
@@ -204,15 +201,25 @@ def test_mha_flash_branch_and_model_context(cuda, monkeypatch):
                 close(a, b, f"decode context {name}")
 
 
+WIDE_HOP1 = [(12, 3), (30, 3), (120, 8), (520, 8), (1024, 8)]
+
+
 @pytest.mark.cuda
 def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
-    """On the card a call that meets the dispatch rule launches its kernel
-    or raises; it never runs the plain version: a bfloat16 model's hop 1 and
-    long-kv mha launch K1 and K3, and hop 1 at D=520 raises."""
+    """On the card a call that meets the dispatch rule launches its kernel;
+    it never runs the plain version: a bfloat16 model's hop 1 and long-kv
+    mha launch K1 and K3; hop 1 (K1, K1 with residuals, K2) at widths
+    "whole" does not take (D not a multiple of 8, d_k not one of 4, D above
+    512, a misaligned grid), float32 and bfloat16 grids with a fully masked
+    row, and K3 at head dim 320, launch and agree with the plain versions
+    within 2e-4 + 2e-4·|plain| (a bfloat16 dkv within one rounding)."""
+    plain_fwd, plain_bwd, plain_attn = K1.hop1_plain, K1.hop1_bwd_plain, K3.attention_plain
+
     def plain_called(*a, **kw):
         raise AssertionError("the plain version ran on the card")
 
     monkeypatch.setattr(K1, "hop1_plain", plain_called)
+    monkeypatch.setattr(K1, "hop1_bwd_plain", plain_called)
     monkeypatch.setattr(K3, "attention_plain", plain_called)
     monkeypatch.setattr(dispatch, "FLASH_MIN_KV", 0)
     rng = np.random.default_rng(3)
@@ -236,14 +243,49 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
             assert torch.isfinite(k).all() and torch.isfinite(v).all()
 
     from bist_tpu_torch.models import bist as torch_bist
-    D, h = 520, 8
-    p = {n: {k: t.to(cuda) for k, t in w.items()}
-         for n, w in mha_init(torch.Generator().manual_seed(0), h, D).items()}
-    hop = {"attn": p, "norm": {"scale": torch.ones(D, device=cuda),
-                               "bias": torch.zeros(D, device=cuda)}}
-    x, grid = tensor(rng, (2, 5, D), cuda), tensor(rng, (2, 3, 4, D), cuda)
-    with torch.no_grad(), pytest.raises(ValueError, match="D <= 512"):
-        torch_bist._hop1(hop, h, 0.0, 0.0, None, x, grid, None)
+    B, G, Lq, Lk = 2, 3, 5, 9
+    for D, h in WIDE_HOP1 + [(128, 8)]:
+        p = {n: {k: t.to(cuda) for k, t in w.items()}
+             for n, w in mha_init(torch.Generator().manual_seed(0), h, D).items()}
+        x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
+        mask = prefix_mask(rng, B, Lk, cuda)[:, None, :].contiguous()
+        raw = tensor(rng, (B * Lk * G * D + 1,), cuda)
+        # a t2s-style strided view, its rows one element off the 16 bytes
+        grid = raw[1:].view(B, Lk, G, D).transpose(1, 2)
+        if D == 128:
+            assert K1.hop1_variant(Lq, Lk, D, h, K1._rows_vec4(grid)) == "tiled"
+        for kv in (grid, grid.to(torch.bfloat16)):
+            what = f"D={D} h={h} {kv.dtype}"
+            before = (K1.hop1_fused.launches, K1.hop1_bwd.launches)
+            close(K1.hop1_fused(x, q, kv, p, h, mask), plain_fwd(x, q, kv, p, h, mask),
+                  f"hop1 {what}")
+            got = K1.hop1_fused(x, q, kv, p, h, mask, return_residuals=True)
+            want = plain_fwd(x, q, kv, p, h, mask, return_residuals=True)
+            for a, b, n in zip(got, want, ("out", "concat", "lse")):
+                close(a, b, f"hop1 {n} {what}")
+            dcc = (tensor(rng, (B, G, Lq, D), cuda) @ p["wo"]["w"].t()).contiguous()
+            dh = (dcc * want[1]).reshape(B, G, Lq, h, D // h).sum(-1)
+            args = (q, kv, mask, dcc, dh, want[2], p["wk"]["w"], p["wk"]["b"],
+                    p["wv"]["w"], p["wv"]["b"], h)
+            for a, b, n in zip(K1.hop1_bwd(*args), plain_bwd(*args),
+                               ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
+                close(a, b, f"hop1_bwd {n} {what}",
+                      rtol=BF16_ULP if n == "dkv" and kv.dtype == torch.bfloat16 else TOL)
+            assert (K1.hop1_fused.launches, K1.hop1_bwd.launches) == \
+                (before[0] + 2, before[1] + 1)
+        hop = {"attn": p, "norm": {"scale": torch.ones(D, device=cuda),
+                                   "bias": torch.zeros(D, device=cuda)}}
+        with torch.no_grad():
+            out = torch_bist._hop1(hop, h, 0.0, 0.0, None, x, grid, mask)
+        assert out.shape == (B, G, Lq, D) and torch.isfinite(out).all()
+
+    q, k, v = (tensor(rng, s, cuda) for s in ((4, 9, 320), (4, 300, 320), (4, 300, 320)))
+    mask = prefix_mask(rng, 4, 300, cuda)
+    before = K3.flash_attention.launches
+    for m in (mask, None):
+        close(K3.flash_attention(q, k, v, m), plain_attn(q, k, v, m),
+              f"flash d=320 mask={m is not None}")
+    assert K3.flash_attention.launches == before + 2
 
 
 def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):

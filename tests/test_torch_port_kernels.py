@@ -48,6 +48,11 @@ def j(a):
 @pytest.mark.parametrize("B,G,Lq,Lk,D,h", [
     (2, 4, 5, 7, 32, 2),       # t2s-like, unaligned everything
     (1, 3, 12, 130, 128, 8),   # s2t-like at flagship width, Lk > 128
+    (2, 3, 5, 7, 12, 3),       # widths K1 "tiled" pads: d_k 4, D % 8 != 0
+    (2, 3, 5, 7, 30, 3),       # d_k 10
+    (2, 2, 4, 9, 120, 8),      # d_k 15
+    (1, 2, 3, 6, 520, 8),      # above 512, d_k 65
+    (1, 2, 3, 5, 1024, 8),     # two head groups in K2
 ])
 def test_hop1_plain_matches_jax(B, G, Lq, Lk, D, h, masked, rng):
     p, tp, x, q_proj, kv, mask = hop1_inputs(rng, B, G, Lq, Lk, D, h, masked)
@@ -102,11 +107,41 @@ def test_hop1_plain_bf16_grid_matches_jax(B, G, Lq, Lk, D, h, rng):
 
 
 def test_hop1_supports_widths():
-    """The widths the K1 wrapper launches on a card (others raise there)."""
-    for D, h in ((32, 4), (128, 8), (512, 8), (512, 128), (16, 1)):
+    """The widths the K1 wrapper launches on a card: every D with D % h == 0,
+    as the model's config allows (others raise there)."""
+    for D, h in ((32, 4), (128, 8), (512, 8), (512, 128), (16, 1), (520, 8),
+                 (36, 4), (128, 64), (32, 16), (30, 3), (1024, 8), (7, 7)):
         assert K1.hop1_supports(D, h), (D, h)
-    for D, h in ((520, 8), (36, 4), (128, 64), (32, 16), (30, 3)):
+    for D, h in ((30, 4), (10, 3), (128, 0)):
         assert not K1.hop1_supports(D, h), (D, h)
+
+
+@pytest.mark.parametrize("D,h", [(12, 3), (30, 3), (120, 8), (20, 2), (7, 7)])
+def test_padded_head_layout_changes_no_number(D, h, rng):
+    """What the wrappers hand the kernels: q, Wk, bk, Wv, bv with each head's
+    columns zero-padded to a multiple of 4 and Wo with its rows so padded
+    (its columns to a multiple of 4) give hop 1's numbers with the scale of
+    the true head width, and `_unpad_heads` takes the padding off again."""
+    _, tp, x, q_proj, kv, mask = hop1_inputs(rng, 2, 3, 5, 7, D, h)
+    x, q, kv, mask = t(x), t(q_proj), t(kv), t(mask)
+    w = {n: tp[n] for n in ("wk", "wv", "wo")}
+    qp = K1._pad_heads(q, h)
+    Dp = qp.shape[-1]
+    assert Dp % 4 == 0 and Dp // h >= D // h and (Dp // h) % 4 == 0
+    assert torch.equal(K1._unpad_heads(qp, h, D), q)
+    kp = kv @ K1._pad_heads(w["wk"]["w"], h) + K1._pad_heads(w["wk"]["b"], h)
+    vp = kv @ K1._pad_heads(w["wv"]["w"], h) + K1._pad_heads(w["wv"]["b"], h)
+    heads = lambda a: a.reshape(*a.shape[:-1], h, Dp // h).transpose(-2, -3)
+    s = heads(qp)[:, None] @ heads(kp).transpose(-1, -2) / (D // h) ** 0.5
+    s = torch.where((mask != 0)[:, None, None], s, K1.NEG_INF)
+    concat = (torch.softmax(s, -1) @ heads(vp)).transpose(-2, -3).reshape(2, 3, 5, Dp)
+    wo = K1._pad_cols4(K1._pad_heads(w["wo"]["w"], h, dim=0))
+    assert wo.shape == (Dp, -(-D // 4) * 4)
+    out = x[:, None] + (concat @ wo)[..., :D] + w["wo"]["b"]
+    want, want_concat, _ = K1.hop1_plain(x, q, kv, tp, h, mask, return_residuals=True)
+    assert_close(out, want, 1e-5, "out through the padded layout")
+    assert_close(K1._unpad_heads(concat, h, D), want_concat, 1e-5, "concat")
+    assert torch.count_nonzero(concat.reshape(2, 3, 5, h, -1)[..., D // h:]) == 0
 
 
 def tf32(a, rounding):
@@ -167,10 +202,11 @@ def test_attention_plain_matches_jax(G, Lq, Lk, d, masked, rng):
                  TOL, "vs the Pallas kernel (interpret)")
 
 
-@pytest.mark.parametrize("d", [6, 8, 96])
+@pytest.mark.parametrize("d", [6, 8, 96, 320])
 def test_attention_plain_any_head_dim_matches_jax(d, rng):
     """Head dims the kernel pads in shared memory only (6: not a multiple
-    of 4, 8: below its smallest tile, 96: between two tiles)."""
+    of 4, 8: below its smallest tile, 96: between two tiles) and one above
+    its templates (320: the wide kernel's column blocks)."""
     q, k, v, mask = attn_inputs(rng, 3, 5, 200, d, True)
     plain = K3.attention_plain(t(q), t(k), t(v), t(mask))
     assert_close(plain, attention_reference(j(q), j(k), j(v), j(mask)), TOL,

@@ -144,13 +144,20 @@ def test_hop1_bwd_plain_equals_autograd_through_hop1_plain(masked, rng):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("Lk", [7, 600])
-def test_hop1_trainable_grads_match_jax(Lk, rng):
+@pytest.mark.parametrize("B,G,Lk,D,h", [
+    pytest.param(2, 3, 7, 32, 4, id="7"),
+    pytest.param(2, 3, 600, 32, 4, id="600"),
+    (2, 3, 7, 12, 3),          # widths K1/K2 pad: d_k 4, D % 8 != 0
+    (2, 3, 7, 30, 3),          # d_k 10
+    (2, 2, 9, 120, 8),         # d_k 15
+    (1, 2, 6, 520, 8),         # above 512, d_k 65
+    (1, 2, 5, 1024, 8),        # two head groups in K2
+])
+def test_hop1_trainable_grads_match_jax(B, G, Lk, D, h, rng):
     """All 9 gradients against jax.grad of JAX's hop1_trainable (Pallas
     forward and backward, interpret mode) and of _hop1_flat (autodiff
     through the einsum reference), to 5e-4."""
-    h = 4
-    p, x, q_proj, kv, mask, g = inputs(rng, 2, 3, 5, Lk, 32, h)
+    p, x, q_proj, kv, mask, g = inputs(rng, B, G, 5, Lk, D, h)
     got = torch_grads(K.hop1_trainable.apply, x, q_proj, kv, p, h, mask, g)
     for ref in (jk.hop1_trainable, jk._hop1_flat):
         want = jax_grads(ref, x, q_proj, kv, p, h, mask, g)
