@@ -1,7 +1,7 @@
-// Tensor-core and asynchronous-copy pieces of the whole-tile hop-1 forward
-// (hop1_fwd.cu): 16- and 8-byte cp.async copies into shared memory, the
-// 3xTF32 split of float32 operands and the m16n8k8 TF32 tensor-core product
-// with its fragment loads.
+// Tensor-core and asynchronous-copy pieces of the whole-tile hop-1 kernels
+// (hop1_fwd.cu, hop1_bwd.cu): 16- and 8-byte cp.async copies into shared
+// memory, the 3xTF32 split of float32 operands and the m16n8k8 TF32
+// tensor-core product with its fragment loads.
 //
 // 3xTF32: a float32 value a is split into hi = a with its low 13 mantissa
 // bits cleared (a TF32 value: 10 explicit mantissa bits) and lo = a - hi
@@ -68,6 +68,22 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi)) & kTf32Mask;
 }
 
+// The same split with both halves rounded to nearest (ties away from zero)
+// by an integer add before the mask: a = hi + lo to ~22 bits instead of ~20,
+// for K2's long sums and cancellations (hop1_bwd.cu).
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & kTf32Mask;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & kTf32Mask;
+}
+
+template <bool kRn>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (kRn)
+    split_tf32_rn(x, hi, lo);
+  else
+    split_tf32(x, hi, lo);
+}
+
 // d += a b on one m16n8k8 tile: a 16 x 8 (row), b 8 x 8 (col), d 16 x 8.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -93,10 +109,10 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)
 // t = l % 4.  A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
 // B: b0 (t, g), b1 (t + 4, g); D: d0, d1 (g, 2t + {0, 1}), d2, d3 (g + 8, ...).
 
-// A fragment of a row-major tile a[row * ld + k], split into TF32 halves;
-// kExact: the values are TF32 already (a bfloat16 grid), the low halves are
-// 0 and not computed.
-template <bool kExact = false, typename T>
+// A fragment of a row-major tile a[row * ld + k], split into TF32 halves
+// (kRn: rounded to nearest); kExact: the values are TF32 already (a
+// bfloat16 grid), the low halves are 0 and not computed.
+template <bool kExact = false, bool kRn = false, typename T>
 __device__ __forceinline__ void load_a_rows(const T* a, int ld, int g, int t,
                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   const float v[4] = {to_float(a[g * ld + t]), to_float(a[(g + 8) * ld + t]),
@@ -107,32 +123,78 @@ __device__ __forceinline__ void load_a_rows(const T* a, int ld, int g, int t,
       hi[i] = __float_as_uint(v[i]);
       lo[i] = 0u;
     } else {
-      split_tf32(v[i], hi[i], lo[i]);
+      split<kRn>(v[i], hi[i], lo[i]);
     }
   }
 }
 
+// A fragment of a tile stored k-major, a_t[k * ld + row] (a transposed
+// operand: pᵀ and dsᵀ, kvᵀ in hop1_bwd.cu), split as load_a_rows does.
+template <bool kExact = false, bool kRn = false, typename T>
+__device__ __forceinline__ void load_a_cols(const T* a_t, int ld, int g, int t,
+                                            uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float v[4] = {to_float(a_t[t * ld + g]), to_float(a_t[t * ld + g + 8]),
+                      to_float(a_t[(t + 4) * ld + g]), to_float(a_t[(t + 4) * ld + g + 8])};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (kExact) {
+      hi[i] = __float_as_uint(v[i]);
+      lo[i] = 0u;
+    } else {
+      split<kRn>(v[i], hi[i], lo[i]);
+    }
+  }
+}
+
+// A fragment of a row-major tile whose values were split once into TF32
+// halves stored apart (hi_s, lo_s, the same layout): for an operand that
+// every warp of a block reads.
+__device__ __forceinline__ void load_a_split(const uint32_t* hi_s, const uint32_t* lo_s,
+                                             int ld, int g, int t, uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  const int at[4] = {g * ld + t, (g + 8) * ld + t, g * ld + t + 4, (g + 8) * ld + t + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = hi_s[at[i]];
+    lo[i] = lo_s[at[i]];
+  }
+}
+
+// A fragment from the D fragment of an 8-column tile (columns 2t, 2t + 1 as
+// k = t, t + 4; the B operand's k rows then go in the order of load_b_pairs).
+template <bool kRn = false>
+__device__ __forceinline__ void d_as_a(const float (&d)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split<kRn>(d[0], hi[0], lo[0]);
+  split<kRn>(d[2], hi[1], lo[1]);
+  split<kRn>(d[1], hi[2], lo[2]);
+  split<kRn>(d[3], hi[3], lo[3]);
+}
+
 // B fragment of a row-major tile w[k * ld + n] (the weights).
+template <bool kRn = false>
 __device__ __forceinline__ void load_b(const float* w, int ld, int g, int t,
                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split_tf32(w[t * ld + g], hi[0], lo[0]);
-  split_tf32(w[(t + 4) * ld + g], hi[1], lo[1]);
+  split<kRn>(w[t * ld + g], hi[0], lo[0]);
+  split<kRn>(w[(t + 4) * ld + g], hi[1], lo[1]);
 }
 
 // B fragment of a tile stored n-major, w_t[n * ld + k] (K for q kᵀ).
+template <bool kRn = false>
 __device__ __forceinline__ void load_b_t(const float* w_t, int ld, int g, int t,
                                          uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split_tf32(w_t[g * ld + t], hi[0], lo[0]);
-  split_tf32(w_t[g * ld + t + 4], hi[1], lo[1]);
+  split<kRn>(w_t[g * ld + t], hi[0], lo[0]);
+  split<kRn>(w_t[g * ld + t + 4], hi[1], lo[1]);
 }
 
 // B fragment of a row-major tile w[k * ld + n] whose k rows are taken in the
 // order 0, 2, 4, 6, 1, 3, 5, 7 (V for p v: so that the D fragment of the
 // scores, columns 2t and 2t + 1, serves as p's A fragment, k = t and t + 4).
+template <bool kRn = false>
 __device__ __forceinline__ void load_b_pairs(const float* w, int ld, int g, int t,
                                              uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split_tf32(w[2 * t * ld + g], hi[0], lo[0]);
-  split_tf32(w[(2 * t + 1) * ld + g], hi[1], lo[1]);
+  split<kRn>(w[2 * t * ld + g], hi[0], lo[0]);
+  split<kRn>(w[(2 * t + 1) * ld + g], hi[1], lo[1]);
 }
 
 }  // namespace hop1

@@ -12,10 +12,11 @@ with the query projection `q_proj` = LN(x) Wq + bq computed once outside
 (it is group-invariant).  K1 keeps the projected K/V and the scores on chip
 and, for training, also writes the residuals `concat` (the attention output
 before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
-gradients of q_proj, kv and the K/V weights.  K1 has two kernels, which its
-launcher chooses by shape (`hop1_variant`): "whole" at the main path's
-widths (every product on the tensor cores as 3xTF32, which keeps float32
-accuracy) and "tiled" at every other width with D % h == 0.  The kernels
+gradients of q_proj, kv and the K/V weights.  K1 and K2 have two kernels
+each, which their launchers choose by shape (`hop1_variant`,
+`hop1_bwd_variant`): "whole" at the main path's widths (every product on
+the tensor cores as 3xTF32, which keeps float32 accuracy) and "tiled" at
+every other width with D % h == 0.  The kernels
 hold each head's columns padded with zeros to a multiple of 4; the wrappers
 hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
 the padding off what comes back, which changes no number.  See the sources
@@ -165,15 +166,6 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
-def _lib(name: str, fn_name: str, argtypes, restype=ctypes.c_int) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
-
-
 def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/hop1_fwd.cu."""
     args = [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -232,12 +224,54 @@ def hop1_resources(G: int, Lq: int, Lk: int, D: int, h: int, bf16: bool = False)
             "groups_per_block": info[5], "heads_per_group": info[6]}
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _lib("hop1_bwd", "bist_hop1_bwd",
-               [_P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-    _lib("hop1_bwd", "bist_hop1_bwd_workspace", [_I] * 6, _L)
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/hop1_bwd.cu."""
+    args = [_P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+    for fn, argtypes, restype in (
+            ("bist_hop1_bwd", args, _I), ("bist_hop1_bwd_as", [_I] + args, _I),
+            ("bist_hop1_bwd_variant", [_I] * 5, _I),
+            ("bist_hop1_bwd_workspace", [_I] * 6, _L),
+            ("bist_hop1_bwd_resources", [_I] * 6 + [_P], _I)):
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("hop1_bwd")
+    return lib if lib.bist_hop1_bwd.argtypes else bind_bwd(lib)
+
+
+@functools.lru_cache(maxsize=None)
+def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
+    """The K2 kernel a launch at these widths takes, as its launcher chooses
+    it from the shape and kv's alignment alone, by K1's rule
+    (`hop1_variant`): "whole" (all kv rows of a group in one block, every
+    product on the tensor cores in 3xTF32, and a tensor-core dW pass; D 64
+    or 128, d_k a multiple of 8 up to 32, Lk <= 64, aligned rows, any Lq) or
+    "tiled" (FMA passes; every other width); ValueError for widths neither
+    takes.  Builds the library on first use."""
+    code = _bwd_lib().bist_hop1_bwd_variant(Lq, Lk, D, h, int(kv_vec))
+    if code not in HOP1_VARIANTS:
+        raise ValueError(f"hop1_bwd: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
+    return HOP1_VARIANTS[code]
+
+
+def hop1_bwd_resources(G: int, Lq: int, Lk: int, D: int, h: int,
+                       bf16: bool = False) -> dict:
+    """What the K2 kernels chosen at these widths take on the current CUDA
+    device: the variant and, for its first pass (`pass1`) and its dW pass
+    (`dw`), dynamic shared memory, registers and local memory (spills,
+    stack) a thread and resident blocks per SM."""
+    info = (ctypes.c_int * 9)()
+    rc = _bwd_lib().bist_hop1_bwd_resources(G, Lq, Lk, D, h, int(bf16), info)
+    if rc != 0:
+        raise RuntimeError(f"hop1_bwd_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} "
+                           f"D={D} h={h})")
+    keys = ("smem_bytes", "registers", "local_bytes", "blocks_per_sm")
+    return {"variant": HOP1_VARIANTS[info[0]],
+            "pass1": dict(zip(keys, info[1:5])), "dw": dict(zip(keys, info[5:9]))}
 
 
 def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32,
@@ -365,9 +399,35 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
     float32 or bfloat16 and may be a strided view of any alignment; every
     other tensor must be contiguous float32 (mask int32) on kv's device.
     dkv comes back contiguous in kv's dtype.  `hop1_bwd.launches` counts
-    kernel launches."""
+    kernel launches and `hop1_bwd.variants` counts them by kernel
+    (`hop1_bwd_variant`)."""
     if kv.device.type == "cpu":
         return hop1_bwd_plain(q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h)
+    lib = _bwd_lib()
+    return _hop1_bwd_launch(lib.bist_hop1_bwd, None, lib, q_proj, kv, mask, d_concat, dh,
+                            lse, wk, bk, wv, bv, h)
+
+
+def _hop1_bwd_as(variant: str, q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h,
+                 lib: Optional[ctypes.CDLL] = None):
+    """`hop1_bwd` on a CUDA tensor through the named kernel ("tiled" or
+    "whole"), for measurements that hold the two against each other, from
+    `lib` (a library built from csrc/hop1_bwd.cu and bound by `bind_bwd`;
+    default the port's own).  Raises where that kernel does not take the
+    widths."""
+    code = {n: c for c, n in HOP1_VARIANTS.items()}[variant]
+    lib = lib or _bwd_lib()
+    return _hop1_bwd_launch(lambda *a: lib.bist_hop1_bwd_as(code, *a), variant, lib,
+                            q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h)
+
+
+def _hop1_bwd_launch(launch, variant: Optional[str], lib: ctypes.CDLL, q_proj, kv, mask,
+                     d_concat, dh, lse, wk, bk, wv, bv, h):
+    """Check K2's inputs, put them into the padded head layout, allocate the
+    results and the workspace and launch the passes by `launch` (the C
+    entry's arguments after any variant code); counts the launch under
+    `variant` (by default the launcher's choice, `hop1_bwd_variant`); `lib`
+    sizes the workspace."""
     who = "hop1_bwd"
     _check_grid(kv, h, who)
     dev = kv.device
@@ -387,7 +447,7 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
     q_p, dcc_p, wk_p, bk_p, wv_p, bv_p = (_aligned(t) for t in args)
     Dp = q_p.shape[-1]
     wkv_t = _pad_cols4(torch.cat([wk_p.t(), wv_p.t()])).contiguous()   # (2Dp, Do)
-    lib = _bwd_lib()
+    variant = variant or hop1_bwd_variant(Lq, Lk, D, h, _rows_vec4(kv))
     dkv = torch.empty((B, G, Lk, D), device=dev, dtype=kv.dtype)
     dq = torch.empty((B, Lq, Dp), device=dev, dtype=torch.float32)
     wgrad = torch.empty(2 * D * Dp + 2 * Dp, device=dev, dtype=torch.float32)
@@ -395,7 +455,7 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
                      dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bist_hop1_bwd(
+        rc = launch(
             q_p.data_ptr(), kv.data_ptr(), int(kv.dtype == torch.bfloat16),
             kv.stride(0), kv.stride(1), kv.stride(2),
             None if mask is None else mask.data_ptr(),
@@ -406,12 +466,14 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
     if rc != 0:
         raise _launch_failed(who, rc, kv, Lq, h)
     hop1_bwd.launches += 1
+    hop1_bwd.variants[variant] = hop1_bwd.variants.get(variant, 0) + 1
     dwk, dwv = (_unpad_heads(a, h, D) for a in wgrad[:2 * D * Dp].view(2, D, Dp))
     dbk, dbv = (_unpad_heads(a, h, D) for a in wgrad[2 * D * Dp:].view(2, Dp))
     return _unpad_heads(dq, h, D), dkv, dwk, dwv, dbk, dbv
 
 
 hop1_bwd.launches = 0
+hop1_bwd.variants = {}
 
 
 class hop1_trainable(torch.autograd.Function):

@@ -1,5 +1,5 @@
-"""Where the time of K1's "whole" kernel goes on one NVIDIA GPU, and what
-the tensor cores and the TF32 split cost there.
+"""Where the time of K1's and K2's "whole" kernels goes on one NVIDIA GPU,
+and what the tensor cores and the TF32 split cost there.
 
     python -m bist_tpu_torch.tools.hop1_probe
 
@@ -9,7 +9,10 @@ the tensor cores and the TF32 split cost there.
    against the plain version, times it back to back (CUDA events around 20
    calls, the median of 5 runs) and prints each phase's mean microseconds a
    block at the card's maximum SM clock.
-2. A microbenchmark on all SMs: mma.sync m16n8k8 TF32 throughput, its
+2. The same for K2's whole pass 1 (csrc/hop1_bwd.cu, `HOP1_BWD_MARK`) at
+   the training step's two launches, all six gradients held against
+   `hop1_bwd_plain`; the device time is that of all of K2's passes.
+3. A microbenchmark on all SMs: mma.sync m16n8k8 TF32 throughput, its
    latency along a chain of dependent products, and the cost of the TF32
    split by cvt.rna and by bit mask.
 
@@ -41,12 +44,32 @@ CASES = [
     ("one wave t2s", 8, 16, 32, 40, 128, 8, True, True, 21, False),
 ]
 
+# the phases between HOP1_BWD_MARK(k) and HOP1_BWD_MARK(k + 1) in K2's whole pass 1
+BWD_PHASES = ("prologue", "projection", "bias", "attention", "rows out and split", "dkv",
+              "dkv store")
+# K2's launches of the flagship train step (name, B, G, Lq, Lk, D, h, masked,
+# t2s view, seed)
+BWD_CASES = [
+    ("train t2s", 32, 16, 32, 40, 128, 8, True, True, 11),
+    ("train s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
+]
+
 INSTRUMENTED = f"""
 __device__ long long g_marks[{MAX_BLOCKS} * 8];
 #define HOP1_MARK(k) \\
   if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < {MAX_BLOCKS}) \\
     g_marks[blockIdx.x * 8 + (k)] = clock64()
 #include "hop1_fwd.cu"
+extern "C" int probe_marks(long long* host, int n) {{
+  return (int)cudaMemcpyFromSymbol(host, g_marks, n * 8);
+}}
+"""
+
+INSTRUMENTED_BWD = f"""
+__device__ long long g_marks[{MAX_BLOCKS} * 8];
+#define HOP1_BWD_MARK(k) \\
+  if (threadIdx.x == 0 && blockIdx.x < {MAX_BLOCKS}) g_marks[blockIdx.x * 8 + (k)] = clock64()
+#include "hop1_bwd.cu"
 extern "C" int probe_marks(long long* host, int n) {{
   return (int)cudaMemcpyFromSymbol(host, g_marks, n * 8);
 }}
@@ -184,6 +207,7 @@ def main() -> int:
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {"instrumented": nvcc("instrumented", INSTRUMENTED, True),
+             "instrumented_bwd": nvcc("instrumented_bwd", INSTRUMENTED_BWD, True),
              "bench": nvcc("bench", BENCH, False)}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -217,6 +241,36 @@ def main() -> int:
         phases = np.diff(t, axis=1).mean(0) / clock
         print(json.dumps({"case": case, "device_ms": ms,
                           "block_us": dict(zip(PHASES, np.round(phases, 2).tolist())),
+                          "block_total_us": round(float(phases.sum()), 2),
+                          "max_sm_clock_mhz": clock}), flush=True)
+    bwd = K.bind_bwd(ctypes.CDLL(str(OUT / "instrumented_bwd.so")))
+    bwd.probe_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for case, B, G, Lq, Lk, D, h, masked, view, seed in BWD_CASES:
+        p, x, q, kv, mask = inputs(dev, B, G, Lq, Lk, D, h, masked, view, seed)
+        _, concat, lse = K.hop1_plain(x, q, kv, p, h, mask, return_residuals=True)
+        g = torch.tensor(np.random.default_rng(seed).standard_normal(
+            (B, G, Lq, D), dtype=np.float32), device=dev)
+        dcc = (g @ p["wo"]["w"].t()).contiguous()
+        dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
+        args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+                p["wv"]["b"], h)
+        run = lambda: K._hop1_bwd_as("whole", *args, lib=bwd)
+        for n, a, b in zip(("dq", "dkv", "dWk", "dWv", "dbk", "dbv"), run(),
+                           K.hop1_bwd_plain(*args)):
+            if not torch.allclose(a, b, rtol=2e-4, atol=2e-4):
+                raise AssertionError(f"{case} {n}: the instrumented kernel differs from "
+                                     f"the plain version by {(a - b).abs().max().item():.3e}")
+        ms = device_ms(run)
+        run()
+        torch.cuda.synchronize()
+        blocks = min(MAX_BLOCKS, B * -(-G // (2 if Lk <= 16 and G > 1 else 1)))
+        marks = (ctypes.c_longlong * (blocks * 8))()
+        if bwd.probe_marks(marks, blocks * 8) != 0:
+            raise RuntimeError("probe_marks failed")
+        t = np.array(marks, dtype=np.float64).reshape(blocks, 8)
+        phases = np.diff(t, axis=1).mean(0) / clock
+        print(json.dumps({"case": f"hop1_bwd {case}", "device_ms": ms,
+                          "block_us": dict(zip(BWD_PHASES, np.round(phases, 2).tolist())),
                           "block_total_us": round(float(phases.sum()), 2),
                           "max_sm_clock_mhz": clock}), flush=True)
     print(subprocess.run([str(OUT / "bench")], capture_output=True, text=True,

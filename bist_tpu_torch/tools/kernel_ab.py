@@ -1,5 +1,6 @@
-"""The flagship kernel cases of `chip_smoke.py`'s phase 2 from two source
-trees in turns (A, B, B, A), one process each, on one card:
+"""The flagship kernel cases of `chip_smoke.py`'s phase 2, and phase 6's
+train step, from two source trees in turns (A, B, B, A), one process each,
+on one card:
 
     python -m bist_tpu_torch.tools.kernel_ab <tree A> <tree B> [--out file.json]
 
@@ -8,7 +9,9 @@ unpacked with `git archive` into a git-ignored directory); each process
 builds that tree's kernels from its own sources into its own build/
 directory and runs its own `chip_smoke.check_hop1` / `check_hop1_bwd` /
 `check_flash` on the main path's shapes, each held against its plain
-version.  Prints one JSON line per process and, last, the per-case
+version (a tree whose check also times "tiled" beside "whole" reports
+that too), then `phase_train` for 16 flagship steps (ms/step, and the
+device ms/step of all kernels and of the hop-1 kernels).  Prints one JSON line per process and, last, the per-case
 readings of both trees side by side ("ms" by single call, "device_ms" back
 to back; chip_smoke.py's methods).  Compare two versions only inside one
 such run: between runs the host moves the single-call times.
@@ -21,23 +24,30 @@ import json
 import subprocess
 import sys
 
-# (kernel, case, chip_smoke function, its arguments after the device)
+# (kernel, case, chip_smoke function, its arguments after the device, its
+# keyword arguments: a tree whose function does not take one runs without it)
 CASES = [
-    ("hop1_fwd", "t2s", "check_hop1", ("t2s", "whole", 64, 16, 32, 40, 128, 8, True, True, 1)),
-    ("hop1_fwd", "s2t", "check_hop1", ("s2t", "whole", 64, 40, 32, 16, 128, 8, False, False, 2)),
+    ("hop1_fwd", "t2s", "check_hop1", ("t2s", "whole", 64, 16, 32, 40, 128, 8, True, True, 1),
+     {}),
+    ("hop1_fwd", "s2t", "check_hop1",
+     ("s2t", "whole", 64, 40, 32, 16, 128, 8, False, False, 2), {}),
     ("hop1_fwd", "train t2s", "check_hop1",
-     ("train t2s", "whole", 32, 16, 32, 40, 128, 8, True, True, 9, True)),
+     ("train t2s", "whole", 32, 16, 32, 40, 128, 8, True, True, 9, True), {}),
     ("hop1_fwd", "train s2t", "check_hop1",
-     ("train s2t", "whole", 32, 40, 32, 16, 128, 8, False, False, 10, True)),
-    ("hop1_bwd", "t2s", "check_hop1_bwd", ("t2s", 32, 16, 32, 40, 128, 8, True, True, 11)),
-    ("hop1_bwd", "s2t", "check_hop1_bwd", ("s2t", 32, 40, 32, 16, 128, 8, False, False, 12)),
-    ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4)),
+     ("train s2t", "whole", 32, 40, 32, 16, 128, 8, False, False, 10, True), {}),
+    ("hop1_bwd", "t2s", "check_hop1_bwd", ("t2s", 32, 16, 32, 40, 128, 8, True, True, 11),
+     {"variant": "whole", "vs_tiled": True}),
+    ("hop1_bwd", "s2t", "check_hop1_bwd", ("s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
+     {"variant": "whole", "vs_tiled": True}),
+    ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4),
+     {}),
+    ("train", "step", "phase_train", ((), 16), {}),
 ]
 
 # run inside a tree (the working directory): its chip_smoke, its kernels;
 # the cases come as JSON in argv[1]
 CHILD = r"""
-import json, sys
+import inspect, json, sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke
@@ -45,10 +55,17 @@ from bist_tpu_torch.ops import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build()
 dev = torch.device("cuda")
+keys = ("ms", "device_ms", "plain_ms", "max_abs_err", "variant", "tiled_ms",
+        "tiled_device_ms", "ms_per_step")
 out = {}
-for kernel, case, fn, args in json.loads(sys.argv[1]):
-    r = getattr(chip_smoke, fn)(dev, *args)
-    out[f"{kernel} {case}"] = {k: r[k] for k in ("ms", "device_ms", "plain_ms", "max_abs_err")}
+for kernel, case, fn, args, kw in json.loads(sys.argv[1]):
+    f = getattr(chip_smoke, fn)
+    takes = inspect.signature(f).parameters
+    r = f(dev, *args, **{k: v for k, v in kw.items() if k in takes})
+    out[f"{kernel} {case}"] = {k: r[k] for k in keys if k in r}
+    for k in ("device_ms_per_step", "hop1_kernels_ms_per_step"):
+        if r.get("profile"):
+            out[f"{kernel} {case}"][k] = r["profile"][k]
 print(json.dumps(out))
 """
 

@@ -8,7 +8,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA → exit 1;
   1. build the CUDA kernels of bist_tpu_torch/csrc, one nvcc per source, all
      started together (into build/bist_tpu_torch/), with ptxas's report of
-     K1's kernels (registers, stack and spill bytes) printed;
+     K1's and K2's kernels (registers, stack and spill bytes) printed;
   2. each kernel against its plain PyTorch version (float32, TF32 off; an
      element passes when |kernel - plain| <= 2e-4 + 2e-4·|plain|, so K2's
      weight gradients, sums over thousands of kv rows, may pass through the
@@ -19,12 +19,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (the device time plus the wrapper's host work before the launch);
      "device_ms" puts the events around 20 calls made back to back, over
      their number (the median of 5 such runs), so that the host work
-     overlaps the device work of the calls before.  K1's cases name the
-     kernel they must run ("whole" or "tiled", the two of
-     csrc/hop1_fwd.cu); its main-path cases also check and time "tiled",
-     the kernel that held those widths before "whole", at the same inputs.
-     K1 and K2 also run at widths "whole" does not take (D 120, 520 and
-     1024 with 8 heads), K3 at head dim 320;
+     overlaps the device work of the calls before.  K1's and K2's cases
+     name the kernel they must run ("whole" or "tiled", the two of
+     csrc/hop1_fwd.cu and of csrc/hop1_bwd.cu); their main-path cases also
+     check and time "tiled", the kernel that held those widths before
+     "whole", at the same inputs.  K1 and K2 also run at widths "whole" does
+     not take (D 120, 520 and 1024 with 8 heads), K3 at head dim 320;
   3. the main path: the flagship AVSD model (d_model 128, 8 heads, 3/3/3
      blocks, summary caption, pointer generator over query,cap; random
      weights from seed 0) generating for 4 batches of 64 real test turns
@@ -50,10 +50,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      plain path (force_plain): the loss to 5e-4 relative, each gradient to
      5e-4 + 5e-3·|g| (the key biases', analytically zero, to 5e-4).  Then 30
      steps with the launch counts zeroed before and read after: K1 and K2 6
-     times per step each; the loss finite and lower at the end on the same
-     batch; ms/step (median after the first) and examples/s; then 3
-     steps under torch.profiler for the device time per step and the
-     hop-1 kernels' part of it;
+     times per step each, every time through "whole"; the loss finite and
+     lower at the end on the same batch; ms/step (median after the first)
+     and examples/s; then 3 steps under torch.profiler for the device time
+     per step and the hop-1 kernels' part of it;
   7. the train CLI for one epoch on phase 5's tiny dataset without dropout,
      then the generate CLI from its <model>_best.pt; the CSV headers, the
      artifacts and the result JSON checked.
@@ -178,20 +178,23 @@ def hop1_work(B, G, Lq, Lk, D, masked, kv_bytes=4):
     return nbytes, proj_flops, wo_flops, attn_flops
 
 
-def hop1_bwd_work(B, G, Lq, Lk, D, h, masked):
+def hop1_bwd_work(B, G, Lq, Lk, D, h, masked, kv_bytes=4):
     """Bytes that must move and float32 operations of one hop-1 backward
     call (K2): q_proj, kv, d_concat, dh, lse, Wk, bk, Wv, bv (and the mask)
     read once; dq, dkv, dWk, dWv, dbk, dbv written once; the K/V recompute,
-    s and dp, dq, dk and dv, dkv and dW."""
-    nbytes = 4 * (2 * B * Lq * D + 2 * B * G * Lk * D + B * G * Lq * D
-                  + 2 * B * G * Lq * h + 4 * D * D + 4 * D) \
+    s and dp, dq, dk and dv, dkv and dW.  Returns (bytes, operations, the
+    operations of the products with kv as an operand: the K/V recompute
+    and dW)."""
+    nbytes = 4 * (2 * B * Lq * D + B * G * Lq * D + 2 * B * G * Lq * h
+                  + 4 * D * D + 4 * D) + kv_bytes * 2 * B * G * Lk * D \
         + (4 * B * Lk if masked else 0)
-    flops = (2 * 2 * B * G * Lk * D * D        # K and V recomputed
+    kv_flops = (2 * 2 * B * G * Lk * D * D     # K and V recomputed
+                + 2 * 2 * B * G * Lk * D * D)  # dWk, dWv
+    flops = (kv_flops
              + 2 * 2 * B * G * Lq * Lk * D     # s and dp over all heads
              + 3 * 2 * B * G * Lq * Lk * D     # dq, dk and dv
-             + 2 * 2 * B * G * Lk * D * D      # dkv = dk Wkᵀ + dv Wvᵀ
-             + 2 * 2 * B * G * Lk * D * D)     # dWk, dWv
-    return nbytes, flops
+             + 2 * 2 * B * G * Lk * D * D)     # dkv = dk Wkᵀ + dv Wvᵀ
+    return nbytes, flops, kv_flops
 
 
 def flash_work(G, Lq, Lk, d, masked):
@@ -269,16 +272,16 @@ def hop1_inputs(device, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
     return rng, p, x, q, kv, mask
 
 
-def assert_agree(what, got, want):
+def assert_agree(what, got, want, rtol=TOL):
     """Max |diff| of a kernel's result against its plain version; raises
-    beyond the tolerance (TOL abs + TOL rel)."""
+    beyond the tolerance (TOL abs + rtol rel, TOL by default)."""
     import torch
 
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+    if not torch.allclose(got, want, rtol=rtol, atol=TOL):
         raise AssertionError(f"{what}: kernel differs from plain version, "
-                             f"max |diff| {err:.3e} > {TOL}")
+                             f"max |diff| {err:.3e} > {TOL} + {rtol}·|plain|")
     return err
 
 
@@ -353,40 +356,73 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
 
 
 def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
-                   full_row=False):
+                   full_row=False, *, variant=None, vs_tiled=False, bf16=False):
     """One K2 case: the residuals of the plain forward on random inputs, a
     random upstream gradient, d_concat and Dh as `hop1_trainable`'s glue
-    makes them; every gradient held against `hop1_bwd_plain`."""
+    makes them; every gradient held against `hop1_bwd_plain`.  With
+    `variant` the case must run that kernel ("whole" or "tiled", the two of
+    csrc/hop1_bwd.cu); with `vs_tiled` "tiled" is checked and timed at the
+    same inputs too; with `bf16` a bfloat16 grid (dkv then within one
+    bfloat16 step).  The bound counts every product at the rate "whole" runs
+    it: 3xTF32, two passes for the products with a bfloat16 grid as an
+    operand; `bound_f32_ms` counts every operation at the float32 rate (the
+    bound of the FMA kernels)."""
     import torch
 
-    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_bwd_plain, hop1_plain
+    from bist_tpu_torch.ops.bist_kernels import (_hop1_bwd_as, hop1_bwd, hop1_bwd_plain,
+                                                 hop1_bwd_resources, hop1_plain)
 
     rng, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
                                          strided_t2s, seed, full_row)
+    if bf16:
+        kv = kv.to(torch.bfloat16)
     _, concat, lse = hop1_plain(x, q, kv, p, h, mask, return_residuals=True)
     g = torch.tensor(rng.standard_normal((B, G, Lq, D), dtype=np.float32), device=device)
     dcc = (g @ p["wo"]["w"].t()).contiguous()
     dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
     args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
             p["wv"]["b"], h)
+    before = dict(hop1_bwd.variants)
     got = hop1_bwd(*args)
+    ran = [v for v, n in hop1_bwd.variants.items() if n != before.get(v, 0)]
     want = hop1_bwd_plain(*args)
     torch.cuda.synchronize()
+    if len(ran) != 1 or variant not in (None, ran[0]):
+        raise AssertionError(f"hop1_bwd {name}: ran the {ran} kernel, expected {variant}")
     names = ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")
-    err = max(assert_agree(f"hop1_bwd {name} {n}", a, b)
-              for n, a, b in zip(names, got, want))
+
+    def agree(got, what):
+        # a bfloat16 dkv: one rounding of the float32 value, and two values a
+        # hair apart may round one bfloat16 step (2^-7 relative) apart
+        return max(assert_agree(f"hop1_bwd {what} {n}", a, b,
+                                rtol=2 ** -7 if bf16 and n == "dkv" else TOL)
+                   for n, a, b in zip(names, got, want))
+
+    err = agree(got, name)
     rel = {n: rel_beyond_atol(a, b) for n, a, b in zip(names, got, want)}
-    nbytes, flops = hop1_bwd_work(B, G, Lq, Lk, D, h, masked)
-    b_ms, b_by = bound(nbytes, flops)
+    run = lambda: hop1_bwd(*args)
+    plain = lambda: hop1_bwd_plain(*args)
+    extra = {}
+    if vs_tiled:
+        tiled = lambda: _hop1_bwd_as("tiled", *args)
+        extra = {"tiled_max_abs_err": agree(tiled(), f"{name} (tiled)"),
+                 "tiled_ms": time_ms(tiled), "tiled_device_ms": device_time_ms(tiled)}
+    nbytes, flops, kv_flops = hop1_bwd_work(B, G, Lq, Lk, D, h, masked, kv.element_size())
+    if bf16:
+        b_ms, b_by = bound(nbytes, tf32x3_flops=flops - kv_flops, tf32x2_flops=kv_flops)
+    else:
+        b_ms, b_by = bound(nbytes, tf32x3_flops=flops)
+    f32_ms, f32_by = bound(nbytes, flops)
     return {"case": name, "shape": dict(B=B, G=G, Lq=Lq, Lk=Lk, D=D, h=h,
-                                        masked=masked, full_row=full_row),
-            "max_abs_err": err, "max_rel_err_beyond_atol": rel,
-            "ms": time_ms(lambda: hop1_bwd(*args)),
-            "device_ms": device_time_ms(lambda: hop1_bwd(*args)),
-            "plain_ms": time_ms(lambda: hop1_bwd_plain(*args)),
-            "plain_device_ms": device_time_ms(lambda: hop1_bwd_plain(*args)),
+                                        masked=masked, full_row=full_row,
+                                        kv=str(kv.dtype).replace("torch.", "")),
+            "variant": ran[0], "max_abs_err": err, "max_rel_err_beyond_atol": rel,
+            "ms": time_ms(run), "device_ms": device_time_ms(run),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_time_ms(plain), **extra,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+            "bytes": nbytes, "flops": flops, "kv_operand_flops": kv_flops,
+            "resources": hop1_bwd_resources(G, Lq, Lk, D, h, bf16)}
 
 
 def check_flash(device, name, G, Lq, Lk, d, masked, seed):
@@ -463,20 +499,27 @@ def phase_kernels(device):
         check_hop1(device, "t2s D=120 h=8 bf16", "tiled", 8, 16, 32, 40, 120, 8, True,
                    True, 22, bf16=True),
     ]
+    whole = dict(variant="whole", vs_tiled=True)
     hop1_bwd = [
         # the training step's two hop-1 backward launches of each video layer
-        check_hop1_bwd(device, "t2s", 32, 16, 32, 40, 128, 8, True, True, 11),
-        check_hop1_bwd(device, "s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
-        check_hop1_bwd(device, "t2s D=512", 8, 16, 32, 40, 512, 8, True, True, 13),
+        check_hop1_bwd(device, "t2s", 32, 16, 32, 40, 128, 8, True, True, 11, **whole),
+        check_hop1_bwd(device, "s2t", 32, 40, 32, 16, 128, 8, False, False, 12, **whole),
+        check_hop1_bwd(device, "t2s D=512", 8, 16, 32, 40, 512, 8, True, True, 13,
+                       variant="tiled"),
         check_hop1_bwd(device, "t2s, a fully masked row", 32, 16, 32, 40, 128, 8,
-                       True, True, 14, full_row=True),
+                       True, True, 14, full_row=True, **whole),
+        # a bfloat16 grid; rows that fill no MMA tile (query rows, kv rows)
+        check_hop1_bwd(device, "t2s bf16", 32, 16, 32, 40, 128, 8, True, True, 27,
+                       bf16=True, **whole),
+        check_hop1_bwd(device, "ragged Lq5 Lk37", 32, 16, 5, 37, 128, 8, True, True, 28,
+                       full_row=True, **whole),
         # the widths of phase 2's wide K1 cases (D 1024: two head groups)
         check_hop1_bwd(device, "t2s D=120 h=8", 8, 16, 32, 40, 120, 8, True, True, 23,
-                       full_row=True),
+                       full_row=True, variant="tiled"),
         check_hop1_bwd(device, "t2s D=520 h=8", 8, 16, 32, 40, 520, 8, True, True, 24,
-                       full_row=True),
+                       full_row=True, variant="tiled"),
         check_hop1_bwd(device, "t2s D=1024 h=8", 8, 16, 32, 40, 1024, 8, True, True, 25,
-                       full_row=True),
+                       full_row=True, variant="tiled"),
     ]
     flash = [
         # the regime mha sends to the kernel (phase 4's shape)
@@ -903,7 +946,7 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     step = make_train_step(cfg, tcfg, tx)
     sync()
     hop1_fused.launches = hop1_bwd.launches = 0
-    hop1_fused.variants = {}
+    hop1_fused.variants, hop1_bwd.variants = {}, {}
     losses, times = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -913,10 +956,15 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
         losses.append(float(m["loss"]))
     launches = {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches}
     variants = dict(hop1_fused.variants)
+    bwd_variants = dict(hop1_bwd.variants)
     want = 6 * steps if device.type == "cuda" else 0
     if launches != {"hop1_fwd": want, "hop1_bwd": want}:
         raise AssertionError(f"training launched {launches} in {steps} steps, "
                              f"expected {want} each (6 per step)")
+    if device.type == "cuda" and (variants, bwd_variants) != ({"whole": want},
+                                                              {"whole": want}):
+        raise AssertionError(f"training's K1, K2 launches by kernel: {variants}, "
+                             f"{bwd_variants}, expected all {want} on \"whole\"")
     first, last = losses[0], losses[-2 if steps % 2 == 0 else -1]
     if not (all(np.isfinite(losses)) and last < first):
         raise AssertionError(f"training loss did not fall on batch 0: {losses}")
@@ -930,7 +978,7 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
             "profile": profile,
             "examples_per_s": B / ms * 1e3, "first_step_ms": times[0] * 1e3,
             "launches": launches, "hop1_variants": variants,
-            "loss_first": first, "loss_last_same_batch": last,
+            "hop1_bwd_variants": bwd_variants, "loss_first": first, "loss_last_same_batch": last,
             "grad_check": {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
                            "loss_rel_diff": loss_rel, "max_abs_diff": grad_err,
                            "max_abs_grad": grad_max,
@@ -941,8 +989,10 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
 
 def profile_steps(step, state, batches, n, sync):
     """Device time of n train steps from torch.profiler: per step, all
-    kernels and the hop-1 kernels (K1, K2's three passes); None when the
-    profiler records no device time."""
+    kernels and the hop-1 kernels (K1, K2's passes), those also by kernel;
+    None when the profiler records no device time."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -957,10 +1007,16 @@ def profile_steps(step, state, batches, n, sync):
     if not events:
         return None
     total = sum(dev(e) for e in events) / 1e3 / n
-    hop1 = sum(dev(e) for e in events
-               if "hop1_" in e.key or "sum_middle" in e.key) / 1e3 / n
+    hop1_by_kernel = {}
+    for e in events:
+        name = re.search(r"(hop1_\w+|sum_middle)_kernel", e.key)
+        if name:
+            k = name.group(1)
+            hop1_by_kernel[k] = hop1_by_kernel.get(k, 0.0) + dev(e) / 1e3 / n
     top = sorted(events, key=dev, reverse=True)[:8]
-    return {"device_ms_per_step": total, "hop1_kernels_ms_per_step": hop1,
+    return {"device_ms_per_step": total,
+            "hop1_kernels_ms_per_step": sum(hop1_by_kernel.values()),
+            "hop1_kernels_by_name_ms_per_step": hop1_by_kernel,
             "top_kernels_ms_per_step": {e.key[:80]: dev(e) / 1e3 / n for e in top}}
 
 
@@ -1063,9 +1119,9 @@ def main() -> int:
     built = _build.build(ptxas_verbose=True)
     for name, info in built.items():
         log(f"built {name} in {info['seconds']:.1f} s\n{info['log'].strip()}")
-    if "hop1_fwd" in built:
-        for row in ptxas_report(built["hop1_fwd"]["log"]):
-            print(f"ptxas hop1_fwd: {json.dumps(row)}", flush=True)
+    for name in ("hop1_fwd", "hop1_bwd"):
+        for row in ptxas_report(built[name]["log"]) if name in built else ():
+            print(f"ptxas {name}: {json.dumps(row)}", flush=True)
     print(f"build: {len(built)} kernel libraries compiled in "
           f"{time.perf_counter() - t0:.1f} s (wall, in parallel)", flush=True)
 
@@ -1097,12 +1153,14 @@ def main() -> int:
                           main_path["launches"]["hop1_fwd"],
                           f"flagship beam_search, {main_path['batches']} batches "
                           f"of {main_path['batch_size']}"),
+             variants=main_path["hop1_variants"],
              launches_train=train["launches"]["hop1_fwd"]),
-        kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
-                     "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
-                     train["launches"]["hop1_bwd"],
-                     f"flagship train step, {train['steps']} steps of "
-                     f"{train['batch_size']}"),
+        dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
+                          "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
+                          train["launches"]["hop1_bwd"],
+                          f"flagship train step, {train['steps']} steps of "
+                          f"{train['batch_size']}"),
+             variants=train["hop1_bwd_variants"]),
         kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                      "bist_tpu/ops/flash_attention.py:43", flash_cases,
                      mha_flash["launches"],

@@ -158,6 +158,50 @@ def test_hop1_bound_counts_products_at_the_tensor_core_rate(bf16):
     assert f32_by == "operations" and 0.065 < f32_ms < 0.067
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hop1_bwd_bound_counts_products_at_the_tensor_core_rate(bf16):
+    """K2's bound in chip_smoke.py at the flagship t2s training launch (B32
+    G16 Lq32 Lk40 D128 h8): every product at the dense TF32 rate over the
+    passes "whole" runs it in, three (3xTF32), or two for the products with
+    a bfloat16 grid as an operand (the K/V recompute and dW): ~0.0295 and
+    ~0.0241 ms, bound by operations; every operation at the float32 rate,
+    ~0.0726 ms."""
+    nbytes, flops, kv_flops = chip_smoke.hop1_bwd_work(32, 16, 32, 40, 128, 8, True,
+                                                       2 if bf16 else 4)
+    assert flops == 4_865_392_640 and kv_flops == 2_684_354_560
+    if bf16:
+        ms, by = chip_smoke.bound(nbytes, tf32x3_flops=flops - kv_flops,
+                                  tf32x2_flops=kv_flops)
+        assert ms == pytest.approx((3 * (flops - kv_flops) + 2 * kv_flops) / 495e12 * 1e3)
+        assert 0.0240 < ms < 0.0242
+    else:
+        ms, by = chip_smoke.bound(nbytes, tf32x3_flops=flops)
+        assert ms == pytest.approx(3 * flops / 495e12 * 1e3)
+        assert 0.0294 < ms < 0.0296
+    assert by == "operations"
+    f32_ms, f32_by = chip_smoke.bound(nbytes, flops)
+    assert f32_by == "operations" and 0.0725 < f32_ms < 0.0727
+
+
+def test_kernel_ab_cases_bind_to_this_tree_and_the_parents():
+    """kernel_ab calls each tree's chip_smoke check with its positional
+    arguments, and passes a keyword only to a tree whose check takes it: the
+    positional cases must bind to this tree's checks, and the keyword-only
+    arguments K2's cases add (variant, vs_tiled) must not change how the
+    positional ones bind, so that an older tree runs the same cases."""
+    import inspect
+
+    from bist_tpu_torch.tools import kernel_ab
+
+    for kernel, case, fn, args, kw in kernel_ab.CASES:
+        sig = inspect.signature(getattr(chip_smoke, fn))
+        sig.bind(None, *args, **kw)
+        for name in kw:
+            assert sig.parameters[name].kind is inspect.Parameter.KEYWORD_ONLY
+    cases = {(k, c): kw for k, c, _, _, kw in kernel_ab.CASES}
+    assert cases[("hop1_bwd", "t2s")] == {"variant": "whole", "vs_tiled": True}
+
+
 def test_hop1_probe_marks_every_phase_of_the_whole_kernel():
     """The phase marks the probe's instrumented copy of csrc/hop1_fwd.cu
     records: HOP1_MARK(0) .. HOP1_MARK(7) once each, in order, all inside
@@ -177,6 +221,27 @@ def test_hop1_probe_marks_every_phase_of_the_whole_kernel():
     assert "#ifndef HOP1_MARK\n#define HOP1_MARK(k)\n#endif" in src
     probe = hop1_probe.INSTRUMENTED
     assert probe.index("#define HOP1_MARK(k)") < probe.index('#include "hop1_fwd.cu"')
+
+
+def test_hop1_probe_marks_every_phase_of_the_whole_bwd_kernel():
+    """The same for K2's whole pass 1 (csrc/hop1_bwd.cu): HOP1_BWD_MARK(0)
+    .. HOP1_BWD_MARK(7) once each, in order, inside hop1_bwd_whole_kernel,
+    empty unless the probe's source defines them before the include."""
+    import re
+
+    from bist_tpu_torch.ops import _build
+    from bist_tpu_torch.tools import hop1_probe
+
+    src = (_build.SRC_DIR / "hop1_bwd.cu").read_text()
+    marks = [(int(m.group(1)), m.start())
+             for m in re.finditer(r"HOP1_BWD_MARK\((\d)\);", src)]
+    assert [k for k, _ in marks] == list(range(len(hop1_probe.BWD_PHASES) + 1))
+    start = src.index("hop1_bwd_whole_kernel(const float*")
+    end = src.index("// Issue one stage of the whole dW pass")
+    assert all(start < at < end for _, at in marks)
+    assert "#ifndef HOP1_BWD_MARK\n#define HOP1_BWD_MARK(k)\n#endif" in src
+    probe = hop1_probe.INSTRUMENTED_BWD
+    assert probe.index("#define HOP1_BWD_MARK(k)") < probe.index('#include "hop1_bwd.cu"')
 
 
 def test_chip_smoke_phases_on_cpu(monkeypatch):

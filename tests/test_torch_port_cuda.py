@@ -336,11 +336,88 @@ def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_
                     lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"], p["wv"]["b"], h)
 
 
+def bwd_grads_agree(got, want, kv, what):
+    for a, b, n in zip(got, want, ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
+        close(a, b, f"{what} {n}",
+              rtol=BF16_ULP if n == "dkv" and kv.dtype == torch.bfloat16 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,B,G,Lq,Lk,D,h,strided,bf16", [
+    ("whole", 4, 16, 32, 40, 128, 8, True, False),     # flagship t2s (a strided view)
+    ("whole", 4, 40, 32, 16, 128, 8, False, False),    # flagship s2t (two groups a block)
+    ("whole", 4, 16, 32, 40, 128, 8, True, True),      # a bfloat16 grid
+    ("whole", 4, 40, 32, 16, 128, 8, False, True),
+    ("whole", 3, 16, 5, 37, 128, 8, True, False),      # rows that fill no MMA tile
+    ("whole", 3, 7, 37, 1, 128, 8, False, False),      # two query chunks, odd G
+    ("whole", 4, 16, 32, 40, 64, 4, True, False),
+    ("whole", 2, 5, 20, 64, 128, 4, True, False),      # Lk 64, heads 32 wide
+    ("tiled", 2, 5, 33, 23, 96, 4, True, False),       # widths "whole" does not take
+    ("tiled", 2, 9, 17, 9, 32, 4, False, True),
+    ("tiled", 2, 16, 32, 40, 120, 8, True, False),
+])
+def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
+    """K2's two kernels at the training step's widths and around them, batch
+    row 0 fully masked: each case runs the kernel the launcher chooses for
+    it and agrees with `hop1_bwd_plain` on all six gradients."""
+    rng = np.random.default_rng(9)
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(6), h, D).items()}
+    x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
+    kv = (tensor(rng, (B, Lk, G, D), cuda).transpose(1, 2) if strided
+          else tensor(rng, (B, G, Lk, D), cuda))
+    if bf16:
+        kv = kv.to(torch.bfloat16)
+    mask = prefix_mask(rng, B, Lk, cuda)[:, None, :].contiguous()
+    _, concat, lse = K1.hop1_plain(x, q, kv, p, h, mask, return_residuals=True)
+    dcc = (tensor(rng, (B, G, Lq, D), cuda) @ p["wo"]["w"].t()).contiguous()
+    dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
+    args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+            p["wv"]["b"], h)
+    assert K1.hop1_bwd_variant(Lq, Lk, D, h) == variant
+    before = dict(K1.hop1_bwd.variants)
+    got = K1.hop1_bwd(*args)
+    assert got[1].dtype == kv.dtype and got[1].shape == (B, G, Lk, D)
+    bwd_grads_agree(got, K1.hop1_bwd_plain(*args), kv, f"hop1_bwd {variant} {B, G, Lq, Lk, D, h}")
+    assert K1.hop1_bwd.variants[variant] == before.get(variant, 0) + 1
+    assert sum(K1.hop1_bwd.variants.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.cuda
+def test_hop1_bwd_forced_variants_agree(cuda):
+    """The measurement path (`_hop1_bwd_as`): "tiled" takes the flagship
+    widths too and agrees with "whole"; "whole" refuses widths it does not
+    take (Lk 70, D 96, a misaligned grid); both count their launches by
+    kernel."""
+    rng = np.random.default_rng(10)
+    B, G, Lq, Lk, D, h = 2, 16, 32, 40, 128, 8
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda, True)
+    args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+            p["wv"]["b"], h)
+    before = dict(K1.hop1_bwd.variants)
+    bwd_grads_agree(K1._hop1_bwd_as("tiled", *args), K1._hop1_bwd_as("whole", *args), kv,
+                    "tiled vs whole")
+    for v in ("tiled", "whole"):
+        assert K1.hop1_bwd.variants[v] == before.get(v, 0) + 1
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 70, 128, 8), (2, 4, 8, 16, 96, 4)):
+        p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1._hop1_bwd_as("whole", q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
+                            p["wv"]["w"], p["wv"]["b"], h_)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 2, 4, 8, 16, 128, 8, cuda, True)
+    odd = torch.empty(kv.numel() + 1, device=cuda)[1:].view(kv.shape).copy_(kv)
+    assert K1.hop1_bwd_variant(8, 16, 128, 8, K1._rows_vec4(odd)) == "tiled"
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K1._hop1_bwd_as("whole", q, odd, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
+                        p["wv"]["w"], p["wv"]["b"], 8)
+
+
 @pytest.mark.cuda
 def test_flagship_train_step_launches_k1_and_k2_only(cuda, monkeypatch):
     """A flagship-width train step without dropout: hop 1 of every video
-    layer through K1 (with residuals) and K2, 6 launches each, and never
-    their plain versions; the loss falls on a repeated batch."""
+    layer through K1 (with residuals) and K2, 6 launches each, K2 always on
+    "whole", and never their plain versions; the loss falls on a repeated
+    batch."""
     from bist_tpu_torch.config import TrainConfig
     from bist_tpu_torch.train.loop import create_train_state, make_train_step
 
@@ -363,9 +440,11 @@ def test_flagship_train_step_launches_k1_and_k2_only(cuda, monkeypatch):
     state, tx = create_train_state(0, cfg, tcfg, device=cuda)
     step = make_train_step(cfg, tcfg, tx)
     fwd, bwd = K1.hop1_fused.launches, K1.hop1_bwd.launches
+    whole = K1.hop1_bwd.variants.get("whole", 0)
     losses = []
     for _ in range(3):
         state, m = step(state, batch, None)
         losses.append(float(m["loss"]))
     assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (18, 18)
+    assert K1.hop1_bwd.variants.get("whole", 0) - whole == 18     # every K2 on "whole"
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -154,24 +154,42 @@ def tf32(a, rounding):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
-@pytest.mark.parametrize("rows", [40, 16])      # one group's kv rows: t2s, s2t
-def test_3xtf32_split_keeps_float32_accuracy(rows, rounding):
-    """Why K1 splits its tensor-core operands: at the flagship K/V
-    projection (kv rows x 128 standard normal, [Wk | Wv] as mha_init makes
-    them), one TF32 pass is off from the float32 product by more than 2e-4
-    abs + 2e-4 rel (~1e-3), while the 3xTF32 split a·b = lo_a·hi_b +
-    hi_a·lo_b + hi_a·hi_b agrees within it and is as close to the float64
-    product as float32 is.  Products and sums in float64: only the operand
-    rounding is emulated."""
+def split_operands(product):
+    """The float32 operands (a, b) of a product that the hop-1 kernels run as
+    3xTF32: K1's K/V projection of one group's kv rows ("40": t2s, "16":
+    s2t) by [Wk | Wv]; K2's dkv, [dk | dv] (40 x 256) by [Wkᵀ ; Wvᵀ], a
+    2D-deep contraction; K2's dW, kvᵀ dk over B·G·Lk = 20,480 rows at D 128
+    (32 x 16 x 40, the flagship t2s launch).  Standard normal activations,
+    weights as mha_init makes them."""
     p = torch_mha_init(torch.Generator().manual_seed(1), 8, 128)
-    w = torch.cat([p["wk"]["w"], p["wv"]["w"]], 1).numpy()
-    kv = np.random.default_rng(1).standard_normal((rows, 128), dtype=np.float32)
-    f32 = (torch.from_numpy(kv) @ torch.from_numpy(w)).numpy()
-    mm = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)
-    exact = mm(kv, w)
-    a_hi, b_hi = tf32(kv, rounding), tf32(w, rounding)
-    a_lo, b_lo = tf32(kv - a_hi, rounding), tf32(w - b_hi, rounding)
+    wk, wv = p["wk"]["w"].numpy(), p["wv"]["w"].numpy()
+    rng = np.random.default_rng(1)
+    if product == "dkv":
+        return (rng.standard_normal((40, 256), dtype=np.float32),
+                np.concatenate([wk.T, wv.T]))
+    if product == "dW":
+        return (rng.standard_normal((128, 20480), dtype=np.float32),
+                rng.standard_normal((20480, 128), dtype=np.float32))
+    return (rng.standard_normal((int(product), 128), dtype=np.float32),
+            np.concatenate([wk, wv], 1))
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("product", ["40", "16", "dkv", "dW"])
+def test_3xtf32_split_keeps_float32_accuracy(product, rounding):
+    """Why the hop-1 kernels split their tensor-core operands: one TF32
+    pass is off from the float32 product by more than 2e-4 abs + 2e-4 rel
+    (~1e-3 at the flagship K/V projection), while the 3xTF32 split a·b =
+    lo_a·hi_b + hi_a·lo_b + hi_a·hi_b agrees within it and is as close to
+    the float64 product as float32 is, on K1's projection and on K2's dkv
+    and dW products.  Products and sums in float64: only the operand
+    rounding is emulated (K1 splits toward zero, K2 to nearest)."""
+    a, b = split_operands(product)
+    f32 = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy()
+    mm = lambda x, y: x.astype(np.float64) @ y.astype(np.float64)
+    exact = mm(a, b)
+    a_hi, b_hi = tf32(a, rounding), tf32(b, rounding)
+    a_lo, b_lo = tf32(a - a_hi, rounding), tf32(b - b_hi, rounding)
     three = mm(a_lo, b_hi) + mm(a_hi, b_lo) + mm(a_hi, b_hi)
     assert np.allclose(three, f32, rtol=TOL, atol=TOL)
     assert np.abs(three - exact).max() < 2 * np.abs(f32 - exact).max()

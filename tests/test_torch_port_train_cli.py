@@ -37,6 +37,7 @@ def test_chip_smoke_training_phase_on_cpu():
     wrappers run their plain versions (no launches)."""
     out = chip_smoke.phase_train(torch.device("cpu"), steps=3, B=4, model_kw=TINY)
     assert out["launches"] == {"hop1_fwd": 0, "hop1_bwd": 0}
+    assert out["hop1_variants"] == out["hop1_bwd_variants"] == {}
     assert out["grad_check"]["loss_rel_diff"] <= 5e-4
     assert out["loss_last_same_batch"] < out["loss_first"]
 
