@@ -105,6 +105,19 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)
   mma_tf32(d, a_hi, b_hi);
 }
 
+// d += a b in 3xTF32 with kExactA as above and kExactB its counterpart for
+// b (a bfloat16 operand, exact in TF32: b's low half is 0 and its pass is
+// skipped); with both, a single pass.  flash_fwd.cu's q kᵀ and p v.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma_3xtf32_ab(float (&d)[4], const uint32_t (&a_hi)[4],
+                                              const uint32_t (&a_lo)[4],
+                                              const uint32_t (&b_hi)[2],
+                                              const uint32_t (&b_lo)[2]) {
+  if (!kExactA) mma_tf32(d, a_lo, b_hi);
+  if (!kExactB) mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
 // Fragment coordinates of lane l: g = l / 4 (row of A, column of B and D),
 // t = l % 4.  A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
 // B: b0 (t, g), b1 (t + 4, g); D: d0, d1 (g, 2t + {0, 1}), d2, d3 (g + 8, ...).

@@ -2,8 +2,14 @@
 `csrc/flash_fwd.cu` (K3) and its plain PyTorch version.
 
 `models.layers.mha` sends long kv axes here (`ops.dispatch`); the kernel
-never materialises the (G, Lq, Lk) scores.  See the source for its design
-and bound.  Forward only.
+never materialises the (G, Lq, Lk) scores.  One kernel takes every head
+dim: every product on the tensor cores in 3xTF32, 16 query rows a warp, K
+and V streamed through a cp.async ring; up to d 128 the warps split the kv
+rows of a tile, above it d's columns, and above d 1024 the output columns
+go to blocks of up to 1024.  At `mha`'s shape on the H100 (128 head rows
+of 32 queries, kv 32768, d 64) the work is bound by bytes: K and V read
+once, 0.647 ms at 3.35 TB/s, against 0.21 ms of 3xTF32 products (H100 SXM
+data sheet).  See the source for the design.  Forward only.
 """
 
 from __future__ import annotations
@@ -39,15 +45,32 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_fwd")
-    fn = lib.bist_flash_fwd
-    if fn.argtypes is None:
+    if lib.bist_flash_fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
-        fn.restype = ctypes.c_int
-        plan = lib.bist_flash_plan
-        plan.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 2
-        plan.restype = ctypes.c_int
+        for fn, argtypes in (
+                ("bist_flash_fwd", [P] * 8 + [I] * 7 + [ctypes.c_float, P]),
+                ("bist_flash_plan", [I] * 5 + [ctypes.POINTER(I)] * 2),
+                ("bist_flash_resources", [I] * 5 + [P])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def flash_resources(G: int, Lq: int, Lk: int, d: int, bf16: bool = False) -> dict:
+    """What a K3 launch at these widths takes on the current CUDA device:
+    its mode ("kv split" up to head dim 128, "column split" above), dynamic
+    shared memory, registers and local memory (spills, stack) a thread,
+    resident blocks an SM, threads a block, kv rows a tile, query rows a
+    block, ring slots, whether q is staged split, column blocks (above head
+    dim 1024) and the kv split."""
+    info = (ctypes.c_int * 13)()
+    rc = _lib().bist_flash_resources(G, Lq, Lk, d, int(bf16), info)
+    if rc != 0:
+        raise RuntimeError(f"flash_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} d={d})")
+    keys = ("smem_bytes", "registers", "local_bytes", "blocks_per_sm", "threads",
+            "kv_tile", "query_rows", "ring_slots", "q_split", "column_blocks", "split_kv",
+            "splits")
+    return {"mode": "kv split" if info[0] else "column split", **dict(zip(keys, info[1:]))}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On a CUDA tensor it launches the K3 kernel, or raises (other dtypes,
     non-contiguous inputs); on a CPU tensor it runs `attention_plain`.  q,
     k, v: contiguous, one dtype, float32 or bfloat16 (the result has it
-    too), any head dim and alignment; mask: contiguous int32 (G, Lk) or
+    too), any head dim, any alignment; mask: contiguous int32 (G, Lk) or
     None.  `flash_attention.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, sm_scale)
@@ -81,13 +104,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    bf16 = int(q.dtype == torch.bfloat16)
     dev = q.device
     lib = _lib()
     chunk, nsplit = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
-        rc = lib.bist_flash_plan(G, Lq, Lk, d, ctypes.byref(chunk), ctypes.byref(nsplit))
+        rc = lib.bist_flash_plan(G, Lq, Lk, d, bf16, ctypes.byref(chunk),
+                                 ctypes.byref(nsplit))
         if rc != 0:
-            raise RuntimeError(f"flash_attention: planning failed with CUDA error {rc}")
+            raise RuntimeError(f"flash_attention: planning failed with CUDA error {rc} "
+                               f"(G={G} Lq={Lq} Lk={Lk} d={d})")
         chunk, nsplit = chunk.value, nsplit.value
         out = torch.empty_like(q)
         parts = [None] * 3
@@ -100,8 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 None if mask is None else mask.data_ptr(),
                                 out.data_ptr(),
                                 *[None if t is None else t.data_ptr() for t in parts],
-                                int(q.dtype == torch.bfloat16),
-                                G, Lq, Lk, d, chunk, nsplit, sm_scale, stream)
+                                bf16, G, Lq, Lk, d, chunk, nsplit, sm_scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc} (G={G} Lq={Lq} Lk={Lk} d={d} {q.dtype} "

@@ -3,6 +3,7 @@ train step, from two source trees in turns (A, B, B, A), one process each,
 on one card:
 
     python -m bist_tpu_torch.tools.kernel_ab <tree A> <tree B> [--out file.json]
+        [--sass hop1_fwd hop1_bwd]
 
 Each tree is a checkout of this repository (for instance the parent commit
 unpacked with `git archive` into a git-ignored directory); each process
@@ -10,19 +11,27 @@ builds that tree's kernels from its own sources into its own build/
 directory and runs its own `chip_smoke.check_hop1` / `check_hop1_bwd` /
 `check_flash` on the main path's shapes, each held against its plain
 version (a tree whose check also times "tiled" beside "whole" reports
-that too), then `phase_train` for 16 flagship steps (ms/step, and the
-device ms/step of all kernels and of the hop-1 kernels).  Prints one JSON line per process and, last, the per-case
+that too; K3 at head dims 64, 320 and 16, each beside one SDPA call),
+then `phase_train` for 16 flagship steps (ms/step, and the device
+ms/step of all kernels and of the hop-1 kernels).  Prints one JSON line
+per process and, last, the per-case
 readings of both trees side by side ("ms" by single call, "device_ms" back
-to back; chip_smoke.py's methods).  Compare two versions only inside one
-such run: between runs the host moves the single-call times.
+to back; chip_smoke.py's methods; for K3 also "kernel_only_ms", its
+kernels' own device time a call from torch.profiler, which the host's work
+cannot move).  Compare two versions only inside one such run: between runs
+the host moves the single-call times.  With
+`--sass`, the named kernel libraries of both trees' builds are also
+disassembled (cuobjdump -sass) and their instructions compared.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 # (kernel, case, chip_smoke function, its arguments after the device, its
 # keyword arguments: a tree whose function does not take one runs without it)
@@ -41,14 +50,19 @@ CASES = [
      {"variant": "whole", "vs_tiled": True}),
     ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4),
      {}),
+    ("flash_fwd", "kv=32768, d=320", "check_flash",
+     ("kv=32768, d=320", 32, 32, 32768, 320, True, 26), {}),
+    ("flash_fwd", "short kv, d=16", "check_flash", ("short kv, d=16", 4096, 1, 40, 16, True, 5),
+     {}),
     ("train", "step", "phase_train", ((), 16), {}),
 ]
 
 # run inside a tree (the working directory): its chip_smoke, its kernels;
 # the cases come as JSON in argv[1]
 CHILD = r"""
-import inspect, json, sys
+import inspect, json, re, sys
 import torch
+from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
 import chip_smoke
 from bist_tpu_torch.ops import _build
@@ -56,13 +70,23 @@ torch.backends.cuda.matmul.allow_tf32 = False
 _build.build()
 dev = torch.device("cuda")
 keys = ("ms", "device_ms", "plain_ms", "max_abs_err", "variant", "tiled_ms",
-        "tiled_device_ms", "ms_per_step")
+        "tiled_device_ms", "library_ms", "library_device_ms", "bound_ms", "ms_per_step")
 out = {}
 for kernel, case, fn, args, kw in json.loads(sys.argv[1]):
     f = getattr(chip_smoke, fn)
     takes = inspect.signature(f).parameters
     r = f(dev, *args, **{k: v for k, v in kw.items() if k in takes})
     out[f"{kernel} {case}"] = {k: r[k] for k in keys if k in r}
+    if kernel == "flash_fwd":
+        # the K3 kernels' own device time a call (CUPTI), without the host
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            f(dev, *args, **{k: v for k, v in kw.items() if k in takes})
+        ev = [e for e in prof.key_averages() if "pytorch" not in e.key
+              and re.search(r"\bflash_(fwd|fwd_wide|fwd_mma|merge)_kernel<", e.key)]
+        calls = sum(e.count for e in ev if "merge" not in e.key)
+        total = sum(getattr(e, "self_device_time_total", 0.0) or 0.0 for e in ev)
+        if calls:
+            out[f"{kernel} {case}"]["kernel_only_ms"] = total / calls / 1e3
     for k in ("device_ms_per_step", "hop1_kernels_ms_per_step"):
         if r.get("profile"):
             out[f"{kernel} {case}"][k] = r["profile"][k]
@@ -78,11 +102,23 @@ def run_tree(tree: str) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+def sass(tree: str, name: str) -> list:
+    """The instructions of the tree's built kernel library `name`."""
+    from bist_tpu_torch.ops import _build
+
+    so, = (Path(tree) / "build" / "bist_tpu_torch").glob(f"{name}-*.so")
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    return re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+([^;]*;)", text, re.M)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("tree_a")
     p.add_argument("tree_b")
     p.add_argument("--out", default="")
+    p.add_argument("--sass", nargs="*", default=[], metavar="LIBRARY")
     args = p.parse_args(argv)
     runs = []
     for label, tree in (("A", args.tree_a), ("B", args.tree_b), ("B", args.tree_b),
@@ -92,6 +128,11 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": label, "path": tree, "cases": res}), flush=True)
     side = {case: {f"{label}{i}": r[case] for i, (label, r) in enumerate(runs)}
             for case in runs[0][1]}
+    for name in args.sass:
+        a, b = sass(args.tree_a, name), sass(args.tree_b, name)
+        print(json.dumps({"sass": name, "A_instructions": len(a), "B_instructions": len(b),
+                          "differing_positions": sum(x != y for x, y in zip(a, b))
+                          + abs(len(a) - len(b))}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(side, f, indent=1)

@@ -8,7 +8,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA → exit 1;
   1. build the CUDA kernels of bist_tpu_torch/csrc, one nvcc per source, all
      started together (into build/bist_tpu_torch/), with ptxas's report of
-     K1's and K2's kernels (registers, stack and spill bytes) printed;
+     K1's, K2's and K3's kernels (registers, stack and spill bytes) printed;
   2. each kernel against its plain PyTorch version (float32, TF32 off; an
      element passes when |kernel - plain| <= 2e-4 + 2e-4·|plain|, so K2's
      weight gradients, sums over thousands of kv rows, may pass through the
@@ -24,7 +24,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      csrc/hop1_fwd.cu and of csrc/hop1_bwd.cu); their main-path cases also
      check and time "tiled", the kernel that held those widths before
      "whole", at the same inputs.  K1 and K2 also run at widths "whole" does
-     not take (D 120, 520 and 1024 with 8 heads), K3 at head dim 320;
+     not take (D 120, 520 and 1024 with 8 heads).  K3 (one kernel,
+     csrc/flash_fwd.cu) at mha's shape in float32 and on a bfloat16 grid,
+     one query row at d 16 and head dim 320, each beside one SDPA call by
+     both methods;
   3. the main path: the flagship AVSD model (d_model 128, 8 heads, 3/3/3
      blocks, summary caption, pointer generator over query,cap; random
      weights from seed 0) generating for 4 batches of 64 real test turns
@@ -197,15 +200,19 @@ def hop1_bwd_work(B, G, Lq, Lk, D, h, masked, kv_bytes=4):
     return nbytes, flops, kv_flops
 
 
-def flash_work(G, Lq, Lk, d, masked):
-    nbytes = 4 * (2 * G * Lq * d + 2 * G * Lk * d) + (4 * G * Lk if masked else 0)
+def flash_work(G, Lq, Lk, d, masked, elem_bytes=4):
+    """Bytes that must move (q, k, v and the mask read once, the output
+    written once) and the float32 operations (q kᵀ and p v) of one K3 call."""
+    nbytes = elem_bytes * (2 * G * Lq * d + 2 * G * Lk * d) + (4 * G * Lk if masked else 0)
     return nbytes, 4 * G * Lq * Lk * d
 
 
 def ptxas_report(log):
     """Per kernel of an `nvcc -Xptxas -v` log: registers, stack and spill
-    bytes, named by kernel, grid type and, for hop-1 "whole", its template
-    arguments: width D, 16-row kv tiles, groups a block, head width up to."""
+    bytes, named by kernel, grid type and its template arguments: for hop-1
+    "whole" width D, 16-row kv tiles, groups a block, head width up to; for
+    K3 its mode, 8-row kv tiles a scoring warp and output tiles a warp up
+    to."""
     import re
 
     rows, cur = [], None
@@ -220,6 +227,11 @@ def ptxas_report(log):
             if len(args) == 4:
                 cur.update(D=32 * args[0], row_tiles=args[1], groups=args[2],
                            dk_max=8 * args[3])
+            elif cur["kernel"] == "flash_fwd_mma_kernel" and len(args) == 2:
+                kv_split, blocks = re.findall(r"Lb([01])E", mangled)
+                cur.update(mode="kv split" if kv_split == "1" else
+                           "column blocks" if blocks == "1" else "column split",
+                           score_tiles=args[0], out_tiles_max=args[1])
             rows.append(cur)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -425,40 +437,57 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
             "resources": hop1_bwd_resources(G, Lq, Lk, D, h, bf16)}
 
 
-def check_flash(device, name, G, Lq, Lk, d, masked, seed):
+def check_flash(device, name, G, Lq, Lk, d, masked, seed, *, bf16=False):
+    """One K3 case on random inputs (batch row 0 fully masked when
+    `masked`); with `bf16` q, k, v and the result are bfloat16 (the result
+    within one bfloat16 step of the plain version's).  Beside the plain
+    version, one SDPA call on the same inputs by both methods ("library_ms",
+    "library_device_ms").  The bound counts the products at the rate the
+    kernel runs them, 3xTF32 (two passes on a bfloat16 grid);
+    `bound_f32_ms` at the float32 rate outside the tensor cores."""
     import torch
     import torch.nn.functional as F
 
-    from bist_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from bist_tpu_torch.ops.flash_attention import (attention_plain, flash_attention,
+                                                    flash_resources)
 
     rng = np.random.default_rng(seed)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     q, k, v = (torch.tensor(rng.standard_normal(s, dtype=np.float32), device=device)
-               for s in ((G, Lq, d), (G, Lk, d), (G, Lk, d)))
+               .to(dtype) for s in ((G, Lq, d), (G, Lk, d), (G, Lk, d)))
     mask = None
     if masked:
         lengths = rng.integers(1, Lk + 1, size=G)
         m = (np.arange(Lk)[None, :] < lengths[:, None]).astype(np.int32)
         m[0] = 0                                   # one fully masked row
         mask = torch.tensor(m, device=device)
+    before = flash_attention.launches
     got = flash_attention(q, k, v, mask)
     want = attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, rtol=TOL, atol=TOL):
-        raise AssertionError(f"flash {name}: kernel differs from plain version, "
-                             f"max |diff| {err:.3e} > {TOL}")
+    if flash_attention.launches != before + 1:
+        raise AssertionError(f"flash {name}: the kernel was not launched")
+    rtol = 2 ** -7 if bf16 else TOL
+    err = assert_agree(f"flash {name}", got, want, rtol)
+    run = lambda: flash_attention(q, k, v, mask)
+    plain = lambda: attention_plain(q, k, v, mask)
     bool_mask = None if mask is None else (mask != 0)[:, None, :]
-    nbytes, flops = flash_work(G, Lq, Lk, d, masked)
-    b_ms, b_by = bound(nbytes, flops)
-    return {"case": name, "shape": dict(G=G, Lq=Lq, Lk=Lk, d=d, masked=masked),
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bool_mask)
+    nbytes, flops = flash_work(G, Lq, Lk, d, masked, q.element_size())
+    if bf16:
+        b_ms, b_by = bound(nbytes, tf32x2_flops=flops)
+    else:
+        b_ms, b_by = bound(nbytes, tf32x3_flops=flops)
+    f32_ms, f32_by = bound(nbytes, flops)
+    return {"case": name, "shape": dict(G=G, Lq=Lq, Lk=Lk, d=d, masked=masked,
+                                        dtype=str(dtype).replace("torch.", "")),
             "max_abs_err": err,
-            "ms": time_ms(lambda: flash_attention(q, k, v, mask)),
-            "device_ms": device_time_ms(lambda: flash_attention(q, k, v, mask)),
-            "plain_ms": time_ms(lambda: attention_plain(q, k, v, mask)),
-            "plain_device_ms": device_time_ms(lambda: attention_plain(q, k, v, mask)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bool_mask)),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+            "ms": time_ms(run), "device_ms": device_time_ms(run),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_time_ms(plain),
+            "library_ms": time_ms(sdpa), "library_device_ms": device_time_ms(sdpa),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
+            "bound_f32_by": f32_by, "bytes": nbytes, "flops": flops,
+            "resources": flash_resources(G, Lq, Lk, d, bf16)}
 
 
 def phase_kernels(device):
@@ -522,10 +551,13 @@ def phase_kernels(device):
                        full_row=True, variant="tiled"),
     ]
     flash = [
-        # the regime mha sends to the kernel (phase 4's shape)
+        # the regime mha sends to the kernel (phase 4's shape), float32 and
+        # a bfloat16 grid
         check_flash(device, "mha kv=32768", 128, 32, 32768, 64, True, 4),
+        check_flash(device, "mha kv=32768 bf16", 128, 32, 32768, 64, True, 29, bf16=True),
+        # one query row a group against short kv rows
         check_flash(device, "short kv, d=16", 4096, 1, 40, 16, True, 5),
-        # a head dim above the templated kernel's 256 (the wide kernel)
+        # a wide head (the column split)
         check_flash(device, "kv=32768, d=320", 32, 32, 32768, 320, True, 26),
     ]
     return hop1, hop1_bwd, flash
@@ -1092,7 +1124,8 @@ def kernel_entry(name, source, replaces, cases, launches, path):
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            **{k: main[k] for k in ("variant", "bound_f32_ms", "tiled_ms", "tiled_device_ms")
+            **{k: main[k] for k in ("variant", "bound_f32_ms", "tiled_ms", "tiled_device_ms",
+                                    "library_device_ms")
                if k in main},
             "cases": cases}
 
@@ -1119,7 +1152,7 @@ def main() -> int:
     built = _build.build(ptxas_verbose=True)
     for name, info in built.items():
         log(f"built {name} in {info['seconds']:.1f} s\n{info['log'].strip()}")
-    for name in ("hop1_fwd", "hop1_bwd"):
+    for name in ("hop1_fwd", "hop1_bwd", "flash_fwd"):
         for row in ptxas_report(built[name]["log"]) if name in built else ():
             print(f"ptxas {name}: {json.dumps(row)}", flush=True)
     print(f"build: {len(built)} kernel libraries compiled in "
@@ -1161,11 +1194,11 @@ def main() -> int:
                           f"flagship train step, {train['steps']} steps of "
                           f"{train['batch_size']}"),
              variants=train["hop1_bwd_variants"]),
-        kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
-                     "bist_tpu/ops/flash_attention.py:43", flash_cases,
-                     mha_flash["launches"],
-                     "models.layers.mha, d_model 512, 8 heads, kv 32768 "
-                     f"(flagship beam_search: {main_path['launches']['flash_fwd']})"),
+        dict(kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
+                          "bist_tpu/ops/flash_attention.py:43", flash_cases,
+                          mha_flash["launches"],
+                          "models.layers.mha, d_model 512, 8 heads, kv 32768 "
+                          f"(flagship beam_search: {main_path['launches']['flash_fwd']})")),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

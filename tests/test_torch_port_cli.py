@@ -135,6 +135,46 @@ def test_ptxas_report_names_whole_kernel_arguments():
          "spill_loads": 0, "registers": 110}]
 
 
+def test_ptxas_report_names_flash_kernel_arguments():
+    """K3's kernel in chip_smoke.py's reading of a ptxas log: its mode (kv
+    split, column split, column blocks), 8-row kv tiles a scoring warp and
+    most output tiles a warp."""
+    name = ("_ZN12_GLOBAL__N_13mma20flash_fwd_mma_kernelI{}Lb{}ELi{}ELi{}ELb{}EEEvNS0_4Args"
+            "IT_EE")
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name.format(*args)}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers"
+        for args, regs in ((("13__nv_bfloat16", 1, 2, 8, 0), 96), (("f", 0, 1, 8, 0), 117),
+                           (("f", 0, 1, 8, 1), 120)))
+    rows = chip_smoke.ptxas_report(log)
+    assert rows[0] == {"kernel": "flash_fwd_mma_kernel", "kv": "bfloat16", "mode": "kv split",
+                       "score_tiles": 2, "out_tiles_max": 8, "stack": 0, "spill_stores": 0,
+                       "spill_loads": 0, "registers": 96}
+    assert [(r["kv"], r["mode"], r["registers"]) for r in rows[1:]] == [
+        ("float32", "column split", 117), ("float32", "column blocks", 120)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flash_bound_at_the_mha_shape_is_bytes(bf16):
+    """K3's bound in chip_smoke.py at mha's shape (G128 Lq32 Lk32768 d64,
+    masked): q, k, v and the mask read once, 0.647 ms at 3.35 TB/s (0.326
+    ms for a bfloat16 grid), above the 3xTF32 products' 0.21 ms (two
+    passes on a bfloat16 grid: 0.139) and the float32 rate's 0.51 ms."""
+    nbytes, flops = chip_smoke.flash_work(128, 32, 32768, 64, True, 2 if bf16 else 4)
+    assert flops == 34_359_738_368
+    if bf16:
+        ms, by = chip_smoke.bound(nbytes, tf32x2_flops=flops)
+        assert 0.325 < ms < 0.326
+    else:
+        ms, by = chip_smoke.bound(nbytes, tf32x3_flops=flops)
+        assert 0.646 < ms < 0.648
+    assert by == "bytes"
+    assert chip_smoke.bound(0, tf32x3_flops=flops)[0] == pytest.approx(0.2082, abs=1e-4)
+    assert chip_smoke.bound(0, tf32x2_flops=flops)[0] == pytest.approx(0.1388, abs=1e-4)
+    assert chip_smoke.bound(0, flops)[0] == pytest.approx(0.5128, abs=1e-4)
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_hop1_bound_counts_products_at_the_tensor_core_rate(bf16):
     """The hop-1 bound of chip_smoke.py at the flagship t2s launch: every
@@ -200,6 +240,42 @@ def test_kernel_ab_cases_bind_to_this_tree_and_the_parents():
             assert sig.parameters[name].kind is inspect.Parameter.KEYWORD_ONLY
     cases = {(k, c): kw for k, c, _, _, kw in kernel_ab.CASES}
     assert cases[("hop1_bwd", "t2s")] == {"variant": "whole", "vs_tiled": True}
+    # K3 at every head-dim class: mha's 64, one query row at 16, 320 (the
+    # column split)
+    flash = {args[4]: kw for k, _, _, args, kw in kernel_ab.CASES if k == "flash_fwd"}
+    assert flash == {64: {}, 320: {}, 16: {}}
+
+
+def test_flash_sweep_crossover_is_the_shortest_kv_from_which_flash_wins():
+    """tools/flash_sweep.py's reading: the shortest kv length from which the
+    flash branch beats the plain one there and at every longer length
+    measured, None when it does not win at the longest."""
+    from bist_tpu_torch.tools import flash_sweep
+
+    row = lambda d, Lk, k3, plain: {"d": d, "Lk": Lk, "k3_path_ms": k3, "plain_ms": plain}
+    rows = [row(64, 256, 2.0, 1.0), row(64, 1024, 0.9, 1.0), row(64, 4096, 1.1, 1.0),
+            row(64, 16384, 0.5, 1.0), row(64, 32768, 0.4, 1.0),
+            row(16, 256, 0.5, 1.0), row(16, 1024, 0.5, 1.0), row(16, 32768, 2.0, 1.0)]
+    assert flash_sweep.crossover(rows, 64) == 16384
+    assert flash_sweep.crossover(rows, 16) is None
+    assert flash_sweep.crossover([row(8, 256, 0.1, 1.0)], 8) == 256
+
+
+def test_flash_probe_bits_have_hooks_in_the_kernel_source():
+    """tools/flash_probe.py builds csrc/flash_fwd.cu with FLASH_PROBE set:
+    every bit it sets must be read by a hook in the source, which the
+    port's build leaves at 0."""
+    from bist_tpu_torch.ops import _build
+    from bist_tpu_torch.tools import flash_probe
+
+    src = (_build.SRC_DIR / "flash_fwd.cu").read_text()
+    assert "#ifndef FLASH_PROBE\n#define FLASH_PROBE 0\n#endif" in src
+    assert not any("FLASH_PROBE" in f for f in _build.NVCC_FLAGS)
+    assert flash_probe.VARIANTS["kernel"] == 0
+    bits = {b for v in flash_probe.VARIANTS.values() for b in (1, 2, 4, 8) if v & b}
+    assert bits == {1, 2, 4, 8}
+    for b in bits:
+        assert f"FLASH_PROBE & {b}" in src, b
 
 
 def test_hop1_probe_marks_every_phase_of_the_whole_kernel():

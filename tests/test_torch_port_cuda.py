@@ -143,12 +143,25 @@ def test_hop1_forced_variants_agree(cuda):
 @pytest.mark.parametrize("G,Lq,Lk,d", [
     (4, 16, 300, 64), (3, 1, 40, 16), (2, 40, 70, 128), (2, 5, 65, 32),
     (3, 7, 90, 8), (2, 9, 70, 6), (2, 33, 100, 96), (2, 4, 1000, 256),
-    (2, 5, 300, 264), (3, 33, 2000, 320), (2, 3, 70, 600),   # the wide kernel
+    (2, 5, 300, 264), (3, 33, 2000, 320), (2, 3, 70, 600),   # the column split
+    # a partial 16-row query tile (17, 65), a partial kv tile (1001), head
+    # dims 8, 72 and 1024 (16 warps a query tile), kv 32768 at d 320
+    (2, 17, 1001, 72), (2, 65, 300, 8), (1, 5, 50, 1024), (1, 17, 32768, 320),
+    # column blocks: two of 520 columns (one with a kv split), three with a
+    # narrower last one
+    (2, 5, 300, 1032), (1, 17, 4096, 1032), (1, 3, 70, 2100),
 ])
 def test_flash_kernel_matches_plain(cuda, G, Lq, Lk, d):
+    """K3 agrees with `attention_plain` (with a fully masked row, without a
+    mask, and on a bfloat16 grid within its rounding) in the mode its plan
+    gives the head dim (`flash_resources`): kv split up to 128, column
+    split above, column blocks above 1024."""
     rng = np.random.default_rng(1)
     q, k, v = (tensor(rng, s, cuda) for s in ((G, Lq, d), (G, Lk, d), (G, Lk, d)))
     mask = prefix_mask(rng, G, Lk, cuda)
+    info = K3.flash_resources(G, Lq, Lk, d)
+    assert info["mode"] == ("kv split" if d <= 128 else "column split"), info
+    assert (info["column_blocks"] > 1) == (d > 1024), info
     before = K3.flash_attention.launches
     for m in (mask, None):
         close(K3.flash_attention(q, k, v, m), K3.attention_plain(q, k, v, m),
@@ -159,6 +172,34 @@ def test_flash_kernel_matches_plain(cuda, G, Lq, Lk, d):
     close(got, K3.attention_plain(q16.float(), k16.float(), v16.float(), mask),
           f"flash {G, Lq, Lk, d} bf16", rtol=BF16_RTOL)
     assert K3.flash_attention.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_flash_kv_split_alignment_and_column_blocks(cuda):
+    """K3 with and without a kv split (the launcher's plan,
+    `flash_resources`), on grids whose rows are not 16-byte vectors or
+    start off 16 bytes (narrower cp.async, or element loads for a bfloat16
+    grid of odd rows), and above head dim 1024 (column blocks) at mha's
+    query count."""
+    rng = np.random.default_rng(9)
+    for G, Lq, Lk, d, splits in ((2, 32, 4096, 64, True), (512, 32, 128, 64, False),
+                                 (4, 32, 2000, 1032, True)):
+        info = K3.flash_resources(G, Lq, Lk, d)
+        assert (info["splits"] > 1) == splits, info
+        q, k, v = (tensor(rng, s, cuda) for s in ((G, Lq, d), (G, Lk, d), (G, Lk, d)))
+        mask = prefix_mask(rng, G, Lk, cuda)
+        close(K3.flash_attention(q, k, v, mask), K3.attention_plain(q, k, v, mask),
+              f"flash G={G} Lk={Lk} d={d} splits={info['splits']}")
+    for d, dtype in ((6, torch.float32), (72, torch.float32), (7, torch.bfloat16),
+                     (72, torch.bfloat16), (1030, torch.float32), (1033, torch.bfloat16)):
+        G, Lq, Lk = 2, 17, 300
+        raw = tensor(rng, (2 * G * Lk * d + 1,), cuda).to(dtype)
+        k, v = raw[1:G * Lk * d + 1].view(G, Lk, d), raw[G * Lk * d + 1:].view(G, Lk, d)
+        q = tensor(rng, (G, Lq, d), cuda).to(dtype)
+        mask = prefix_mask(rng, G, Lk, cuda)
+        want = K3.attention_plain(q.float(), k.float(), v.float(), mask)
+        close(K3.flash_attention(q, k, v, mask), want, f"flash d={d} {dtype} offset",
+              rtol=BF16_RTOL if dtype == torch.bfloat16 else TOL)
 
 
 @pytest.mark.cuda

@@ -224,7 +224,7 @@ def test_attention_plain_matches_jax(G, Lq, Lk, d, masked, rng):
 def test_attention_plain_any_head_dim_matches_jax(d, rng):
     """Head dims the kernel pads in shared memory only (6: not a multiple
     of 4, 8: below its smallest tile, 96: between two tiles) and one above
-    its templates (320: the wide kernel's column blocks)."""
+    128 (320: the kernel's column split)."""
     q, k, v, mask = attn_inputs(rng, 3, 5, 200, d, True)
     plain = K3.attention_plain(t(q), t(k), t(v), t(mask))
     assert_close(plain, attention_reference(j(q), j(k), j(v), j(mask)), TOL,
@@ -236,6 +236,21 @@ def test_attention_plain_any_head_dim_matches_jax(d, rng):
     want = K3.attention_plain(*(t(a).to(torch.bfloat16).float() for a in (q, k, v)),
                               t(mask))
     assert_close(low, want, 4e-3, f"d={d} bfloat16 in, float32 arithmetic")
+
+
+def test_attention_plain_partial_tiles_and_masked_row_match_jax(rng):
+    """The shapes that leave K3's tiles partial (17 query rows: one
+    row past a 16-row MMA tile; head dim 72: one 8-column tile past 64; kv
+    1001) with a fully masked row: the plain version against
+    `attention_reference` and the Pallas kernel in interpret mode."""
+    q, k, v, mask = attn_inputs(rng, 2, 17, 1001, 72, True)
+    mask[1] = 0
+    plain = K3.attention_plain(t(q), t(k), t(v), t(mask))
+    assert_close(plain, attention_reference(j(q), j(k), j(v), j(mask)), TOL,
+                 "Lq 17 d 72 vs attention_reference")
+    assert_close(plain[0], jax_flash(j(q), j(k), j(v), j(mask), interpret=True)[0],
+                 TOL, "Lq 17 d 72 vs the Pallas kernel (interpret)")
+    assert torch.allclose(plain[1], t(v)[1].mean(0).expand(17, 72), atol=1e-5)
 
 
 def test_attention_fully_masked_row_and_cpu_wrapper(rng):
