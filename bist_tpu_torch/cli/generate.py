@@ -55,12 +55,15 @@ def build_parser():
     p.add_argument("--top-p", default=0.0, type=float)
     p.add_argument("--sample-seed", default=1, type=int)
     p.add_argument("--cache-dtype", default="float32",
-                   choices=["float32", "bfloat16"],
+                   choices=["float32", "bfloat16", "float8_e4m3fn", "float8_e5m2"],
                    help="storage of the decode memory (KV cache, "
-                        "cross-attention K/V, pointer sources)")
-    p.add_argument("--encode-dtype", default="", choices=["", "float32"],
-                   help="context-precompute activation dtype; only the "
-                        "model's own float32 is ported")
+                        "cross-attention K/V, pointer sources); float8 is "
+                        "stored at 1 byte and read as bfloat16 (answers may "
+                        "differ from float32)")
+    p.add_argument("--encode-dtype", default="", choices=["", "float32", "bfloat16"],
+                   help="context-precompute activation dtype ('' = the "
+                        "model's own); bfloat16 gives hop 1 a bfloat16 grid "
+                        "(answers may differ from float32)")
     p.add_argument("--scan-unroll", default=1, type=int,
                    help="accepted for CLI parity; the port's beam loop is a "
                         "Python loop, so there is nothing to unroll")
@@ -164,7 +167,8 @@ def main(argv=None):
                           undisclosed_only=bool(args.undisclosed_only),
                           decode_style=args.decode_style,
                           gen_batch_size=args.gen_batch_size,
-                          cache_dtype=args.cache_dtype)
+                          cache_dtype=args.cache_dtype,
+                          encode_dtype=args.encode_dtype)
 
     logging.info("----------------------- generate --------------------------")
     start_time = time.time()
@@ -189,10 +193,12 @@ def main(argv=None):
                 out = sample_decode(params, cfg, batch, gcfg.maxlen,
                                     mix_seed(args.sample_seed, n_batch),
                                     temperature=args.temperature, top_k=args.top_k,
-                                    top_p=args.top_p, cache_dtype=gcfg.cache_dtype)
+                                    top_p=args.top_p, cache_dtype=gcfg.cache_dtype,
+                                    encode_dtype=gcfg.encode_dtype)
             else:
                 out = greedy_decode(params, cfg, batch, gcfg.maxlen,
-                                    cache_dtype=gcfg.cache_dtype)
+                                    cache_dtype=gcfg.cache_dtype,
+                                    encode_dtype=gcfg.encode_dtype)
             out = out.cpu().numpy()
             for row in range(meta.real_count):
                 answers[meta.qa_ids[row]] = (" ".join(ids2words(out[row], id2word)), None)

@@ -4,10 +4,9 @@ A copy of `bist_tpu.config` (the port imports nothing of the JAX package):
 the same dataclasses, field names and defaults, and the same `.conf` JSON
 format, so a `.conf` written by either package is read by the other.
 
-`GenerateConfig` keeps the knobs of the decode styles this package runs.
-The TPU-only `scan_unroll` is left out (the beam loop here is a Python loop
-over a static-shape step); `compute_dtype`, `encode_dtype` and the sampling
-knobs arrive with the slices that port them.
+`GenerateConfig` has `bist_tpu`'s fields and defaults but `scan_unroll`:
+the beam loop here is a Python loop over a static-shape step, so there is
+nothing to unroll (the CLIs accept `--scan-unroll` and ignore it).
 """
 
 from __future__ import annotations
@@ -166,8 +165,18 @@ class GenerateConfig:
     cache_dtype: str = "float32"     # storage of all decode memory: the
                                      # self-attn KV cache and the precomputed
                                      # cross-attn K/V and pointer sources
+                                     # (float32, bfloat16, float8_e4m3fn,
+                                     # float8_e5m2; float8 is read as bfloat16)
+    compute_dtype: str = "float32"   # the decode step's activations; scores,
+                                     # softmax and the generator stay float32
+    encode_dtype: str = ""           # the context precompute's activations
+                                     # ('' = the model's own dtype)
     early_exit: bool = False         # stop once no future completion can
                                      # beat the kept n-best (exact bound)
+    temperature: float = 1.0         # sampling knobs (decode_style sample)
+    top_k: int = 0
+    top_p: float = 0.0
+    sample_seed: int = 1             # base seed of the per-request streams
 
 
 # ---------------------------------------------------------------------------

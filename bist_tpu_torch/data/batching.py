@@ -77,6 +77,25 @@ def pad_to(seqs: Sequence[np.ndarray], length: int, pad_value: int = PAD,
     return out
 
 
+def pad_features(fts: Sequence[np.ndarray], t_len: int, tail=None,
+                 pad_rows: int = 0, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Stack (Ti, ...) feature arrays into (B + pad_rows, t_len, ...) float32,
+    zero-padded on T (longer ones truncated); the pad_rows extra rows (batch
+    padding to a bucket) are all-zero.  `tail` pins the per-step shape (a
+    server's pinned grid); by default the first array's.  `out`, a float32
+    array of that shape, receives the grid (each element written once)."""
+    tail = tuple(tail) if tail is not None else fts[0].shape[1:]
+    shape = (len(fts) + pad_rows, t_len) + tail
+    if out is None:
+        out = np.empty(shape, dtype=np.float32)
+    for i, f in enumerate(fts):
+        k = min(f.shape[0], t_len)
+        out[i, :k] = f[:k]
+        out[i, k:] = 0.0
+    out[len(fts):] = 0.0
+    return out
+
+
 def pad_tokens(seqs: Sequence[np.ndarray], buckets: Sequence[int],
                n_rows: int = 0) -> np.ndarray:
     """Bucket + pad 1-D token sequences into (max(len(seqs), n_rows), L), L

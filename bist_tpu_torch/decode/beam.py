@@ -16,7 +16,10 @@ does, so the beams equal the JAX package's at float32 — including step 0,
 where beams 1..K-1 are identical NEG copies.  `params` may be a list of
 parameter trees of one configuration: the ensemble sums the models'
 log-probabilities at every step, each model with its own context and KV
-cache, all caches following the same parents.
+cache, all caches following the same parents.  The GenerateConfig knobs
+`cache_dtype`, `encode_dtype` and `compute_dtype` set the precision of the
+decode memory, of the context precompute and of the step
+(`models.model`).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from bist_tpu_torch.config import GenerateConfig, ModelConfig
 from bist_tpu_torch.data.batching import Batch, to_device
 from bist_tpu_torch.models.layers import storage_dtype
 from bist_tpu_torch.models.model import (
-    DecodeCache, decode_step, forward_logprobs, init_cache, precompute_decode_ctx,
+    DecodeCache, decode_step, encode_cfg, forward_logprobs, init_cache,
+    precompute_decode_ctx, step_dtype,
 )
 from bist_tpu_torch.vocab import EOS, PAD, SOS, UNK
 
@@ -82,7 +86,9 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
     B = batch.query.shape[0]
     V = cfg.vocab_size
     cache_dt = storage_dtype(gcfg.cache_dtype)
-    ctxs = [precompute_decode_ctx(p, cfg, batch, dtype=cache_dt) for p in params_list]
+    compute_dt = step_dtype(gcfg.compute_dtype)
+    ecfg = encode_cfg(cfg, gcfg.encode_dtype)
+    ctxs = [precompute_decode_ctx(p, ecfg, batch, dtype=cache_dt) for p in params_list]
     caches = [init_cache(cfg, B * K, maxlen + 1, dtype=cache_dt, device=device)
               for _ in params_list]
 
@@ -103,7 +109,8 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
         cur = tokens[:, :, l].reshape(B * K)
         logp = 0.0
         for m, (p, ctx) in enumerate(zip(params_list, ctxs)):
-            lp_m, caches[m] = decode_step(p, cfg, ctx, caches[m], cur, l, beam=K)
+            lp_m, caches[m] = decode_step(p, cfg, ctx, caches[m], cur, l, beam=K,
+                                          compute_dtype=compute_dt)
             logp = logp + lp_m
         lp = scores[:, :, None] + logp.reshape(B, K, V)           # (B, K, V)
 
@@ -143,19 +150,24 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
 
 @torch.no_grad()
 def greedy_decode(params, cfg: ModelConfig, batch: Batch, maxlen: int,
-                  cache_dtype: str = "float32") -> torch.Tensor:
+                  cache_dtype: str = "float32", encode_dtype: str = "",
+                  compute_dtype: str = "float32") -> torch.Tensor:
     """Argmax decoding over the same cached `decode_step` as beam_search:
     (B, maxlen) int32 token ids, which may hold <eos> (the caller truncates,
-    `vocab.ids2words`).  Ties go to the lower id, as `jnp.argmax`'s do."""
+    `vocab.ids2words`).  Ties go to the lower id, as `jnp.argmax`'s do.  The
+    dtypes are GenerateConfig's knobs (`bist_tpu`'s greedy_decode has no
+    compute_dtype: its step runs in float32, this default)."""
     device, batch = _on_device(params, batch)
     B = batch.query.shape[0]
     dt = storage_dtype(cache_dtype)
-    ctx = precompute_decode_ctx(params, cfg, batch, dtype=dt)
+    compute_dt = step_dtype(compute_dtype)
+    ctx = precompute_decode_ctx(params, encode_cfg(cfg, encode_dtype), batch, dtype=dt)
     cache = init_cache(cfg, B, maxlen + 1, dtype=dt, device=device)
     tok = torch.full((B,), SOS, dtype=torch.int32, device=device)
     out = []
     for l in range(maxlen):
-        logp, cache = decode_step(params, cfg, ctx, cache, tok, l)
+        logp, cache = decode_step(params, cfg, ctx, cache, tok, l,
+                                  compute_dtype=compute_dt)
         tok = torch.argmax(logp, dim=-1).to(torch.int32)
         out.append(tok)
     return torch.stack(out, dim=1)

@@ -30,7 +30,9 @@ from bist_tpu_torch.config import ModelConfig
 from bist_tpu_torch.data.batching import Batch
 from bist_tpu_torch.decode.beam import _on_device
 from bist_tpu_torch.models.layers import storage_dtype
-from bist_tpu_torch.models.model import decode_step, init_cache, precompute_decode_ctx
+from bist_tpu_torch.models.model import (
+    decode_step, encode_cfg, init_cache, precompute_decode_ctx,
+)
 from bist_tpu_torch.vocab import PAD, SOS, UNK
 
 NEG = -1.0e30
@@ -81,16 +83,18 @@ def _uniforms(device: torch.device, seed: int, rows: int, maxlen: int, V: int,
 def sample_decode(params, cfg: ModelConfig, batch: Batch, maxlen: int, seed: int,
                   temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
                   cache_dtype: str = "float32",
-                  row_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+                  row_seeds: Optional[Sequence[int]] = None,
+                  encode_dtype: str = "") -> torch.Tensor:
     """Sampled decoding: (B, maxlen) int32 token ids, which may hold <eos>
     (the caller truncates, as with greedy_decode).  `seed` and, per row,
-    `row_seeds` set the draws (module docstring)."""
+    `row_seeds` set the draws (module docstring); `cache_dtype` and
+    `encode_dtype` are GenerateConfig's knobs."""
     device, batch = _on_device(params, batch)
     B = batch.query.shape[0]
     if row_seeds is not None and len(row_seeds) != B:
         raise ValueError(f"sample_decode: {len(row_seeds)} row seeds for {B} rows")
     dt = storage_dtype(cache_dtype)
-    ctx = precompute_decode_ctx(params, cfg, batch, dtype=dt)
+    ctx = precompute_decode_ctx(params, encode_cfg(cfg, encode_dtype), batch, dtype=dt)
     cache = init_cache(cfg, B, maxlen + 1, dtype=dt, device=device)
     u = _uniforms(device, seed, B, maxlen, cfg.vocab_size, row_seeds)
     gumbel = -torch.log(-torch.log(u))

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from bist_tpu_torch.config import ModelConfig
 from bist_tpu_torch.models.layers import (
     Params, attention_weights, linear, linear_init, matmul, mha_init,
-    split_heads,
+    split_heads, upcast_fp8,
 )
 
 EPS_LOG = 0.0
@@ -103,7 +103,7 @@ def apply_generator_step(p: Params, cfg: ModelConfig, lut: torch.Tensor,
     copy_dists = []
     for idx, src in enumerate(ptr_src):
         Q = split_heads(linear(p["pointer_attn"][idx]["wq"], decoded), 1)
-        attn = attention_weights(Q, src.k.to(Q.dtype), src.mask[:, None],
+        attn = attention_weights(Q, upcast_fp8(src.k), src.mask[:, None],
                                  0.0, None)[:, 0]            # (B, K, L)
         copy_dists.append(torch.matmul(attn.float(), src.onehot.float()))
         gen_vec_parts.append(torch.matmul(attn.to(decoded.dtype),

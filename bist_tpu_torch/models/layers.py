@@ -32,7 +32,13 @@ Params = Dict[str, Any]
 
 NEG_INF = -1e9
 
-STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Decode-memory storage dtypes (GenerateConfig.cache_dtype).  float8 is
+# storage only: every read site takes it through `upcast_fp8` to bfloat16,
+# as `bist_tpu` does; scores, softmax and the generator stay float32.
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float8_e4m3fn": torch.float8_e4m3fn,
+                  "float8_e5m2": torch.float8_e5m2}
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 def storage_dtype(name: str) -> torch.dtype:
@@ -43,6 +49,12 @@ def storage_dtype(name: str) -> torch.dtype:
         raise ValueError(
             f"cache_dtype {name!r}: expected one of {sorted(STORAGE_DTYPES)}"
         ) from None
+
+
+def upcast_fp8(x: torch.Tensor) -> torch.Tensor:
+    """A decode-memory tensor as compute reads it: float8 → bfloat16 (exact),
+    any other dtype unchanged."""
+    return x.to(torch.bfloat16) if x.dtype in FP8_DTYPES else x
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -13,7 +13,10 @@ Incremental decoding: the modality reasoning stack depends only on the
 sources, so `precompute_decode_ctx` runs it once per batch and pre-projects
 every cross-attention K/V; `decode_step` advances one token with a growing
 self-attention KV cache and folds the beam into the cross-attention query
-axis, so the context stays at B rows.
+axis, so the context stays at B rows.  Three precision knobs, as in
+`bist_tpu`: the storage of the decode memory (`precompute_decode_ctx`'s and
+`init_cache`'s dtype, float8 read as bfloat16), the precompute's activations
+(`encode_cfg`) and the step's activations (`decode_step`'s compute_dtype).
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from bist_tpu_torch.models.generator import (
 )
 from bist_tpu_torch.models.layers import (
     Params, add_positional, attention_weights, embed, embedding_init, ffn,
-    layer_norm, layer_norm_init, linear, linear_init, merge_heads,
-    positional_encoding_table, split_heads, subsequent_mask,
+    layer_norm, layer_norm_init, linear, linear_init, matmul, merge_heads,
+    positional_encoding_table, split_heads, subsequent_mask, upcast_fp8,
 )
 from bist_tpu_torch.vocab import PAD
 from bist_tpu_torch.weights import tree_map
@@ -214,6 +217,26 @@ class DecodeCache(NamedTuple):
     v: Tuple[torch.Tensor, ...]
 
 
+def encode_cfg(cfg: ModelConfig, encode_dtype: str) -> ModelConfig:
+    """The configuration of the context precompute for
+    GenerateConfig.encode_dtype: '' (or the model's own dtype) keeps `cfg`;
+    'float32' or 'bfloat16' sets the activation dtype of the precompute only
+    (the decode step has its own knob, compute_dtype)."""
+    if not encode_dtype or encode_dtype == cfg.dtype:
+        return cfg
+    if encode_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"encode_dtype {encode_dtype!r}: expected '' "
+                         "(inherit), 'float32' or 'bfloat16'")
+    return cfg.replace(dtype=encode_dtype)
+
+
+def step_dtype(name: str) -> torch.dtype:
+    """GenerateConfig.compute_dtype → torch dtype."""
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {name!r}: expected 'float32' or 'bfloat16'")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
 def _cross_kv(p_attn: Params, h: int, memory: torch.Tensor):
     return (split_heads(linear(p_attn["wk"], memory), h),
             split_heads(linear(p_attn["wv"], memory), h))
@@ -266,14 +289,16 @@ def init_cache(cfg: ModelConfig, rows: int, max_len: int,
 def _mha_cached_self(p_attn: Params, h: int, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int):
     """Single-position self-attention against the KV cache, which is written
-    in place at `pos`.  x (rows, 1, D) normed; cache (rows, h, Lmax, d_k)."""
+    in place at `pos` (rounded to its storage dtype, and read back so).
+    x (rows, 1, D) normed; cache (rows, h, Lmax, d_k).  Products in the
+    promoted dtype of the activations and the stored values, as jnp's."""
     Q = split_heads(linear(p_attn["wq"], x), h)                   # (rows, h, 1, dk)
     cache_k[:, :, pos:pos + 1] = split_heads(linear(p_attn["wk"], x), h)
     cache_v[:, :, pos:pos + 1] = split_heads(linear(p_attn["wv"], x), h)
     L = pos + 1                        # positions > pos are masked out exactly
-    attn = attention_weights(Q, cache_k[:, :, :L].to(Q.dtype), None, 0.0, None)
+    attn = attention_weights(Q, upcast_fp8(cache_k[:, :, :L]), None, 0.0, None)
     return linear(p_attn["wo"], merge_heads(
-        torch.matmul(attn, cache_v[:, :, :L].to(Q.dtype))))
+        matmul(attn, upcast_fp8(cache_v[:, :, :L]))))
 
 
 def _mha_cross_cached(p_attn: Params, h: int, x: torch.Tensor, KV, mask,
@@ -281,26 +306,30 @@ def _mha_cross_cached(p_attn: Params, h: int, x: torch.Tensor, KV, mask,
     """Cross-attention of `beam` hypothesis rows per batch element against a
     shared precomputed K/V: x (B·beam, 1, D), KV (B, h, Lk, d_k), mask
     (B, 1, Lk).  The beam folds into the query-position axis."""
-    K, V = KV
+    K, V = upcast_fp8(KV[0]), upcast_fp8(KV[1])
     B = K.shape[0]
     q = linear(p_attn["wq"], x.reshape(B, beam, x.shape[-1]))    # (B, beam, D)
     Q = split_heads(q, h)                                         # (B, h, beam, dk)
-    attn = attention_weights(Q, K.to(Q.dtype),
-                             None if mask is None else mask[:, None], 0.0, None)
-    out = linear(p_attn["wo"], merge_heads(torch.matmul(attn, V.to(Q.dtype))))
+    attn = attention_weights(Q, K, None if mask is None else mask[:, None], 0.0, None)
+    out = linear(p_attn["wo"], merge_heads(matmul(attn, V)))
     return out.reshape(x.shape)
 
 
 def decode_step(params: Params, cfg: ModelConfig, ctx: DecodeCtx,
                 cache: DecodeCache, token: torch.Tensor, pos: int,
-                beam: int = 1) -> Tuple[torch.Tensor, DecodeCache]:
+                beam: int = 1, compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, DecodeCache]:
     """Advance one token for B·beam hypothesis rows: token (B·beam,) ids at
     absolute position `pos` (0 = <sos>).  `ctx` stays at B rows; `cache` has
     B·beam rows and receives this position's K/V in place.  Returns
-    (log-probs (B·beam, V), cache).  Eval mode."""
+    (log-probs (B·beam, V), cache).  Eval mode.
+
+    `compute_dtype` (torch.bfloat16) runs the step's activations, and with
+    them the projections, in bfloat16; scores and softmax stay float32 and
+    the generator head takes float32 inputs."""
     pe = _pe(params, cfg)
     x = add_positional(pe, embed(params["embed"], token[:, None], cfg.d_model),
-                       0.0, None, offset=pos)                      # (B·beam, 1, D)
+                       0.0, None, offset=pos).to(compute_dtype)   # (B·beam, 1, D)
     encoded_tgt = x
     dec = params["decoder"]
     slots = bist.mm_layer_cross_slots(cfg)
@@ -333,10 +362,11 @@ def decode_step(params: Params, cfg: ModelConfig, ctx: DecodeCtx,
             i += 1
         x = x + ffn(lp["ff"]["ff"], layer_norm(lp["ff"]["norm"], x), 0.0, None)
 
-    decoded = layer_norm(dec["norm"], x)                          # (B·beam, 1, D)
+    # the generator head in float32, whatever the step's compute dtype
+    decoded = layer_norm(dec["norm"], x).float()                  # (B·beam, 1, D)
     B = decoded.shape[0] // beam
     logp = apply_generator_step(
         params["gen"], cfg, params["embed"]["lut"],
-        decoded.reshape(B, beam, -1), encoded_tgt.reshape(B, beam, -1),
+        decoded.reshape(B, beam, -1), encoded_tgt.float().reshape(B, beam, -1),
         ctx.ptr_src)                                              # (B, beam, V)
     return logp.reshape(B * beam, -1), cache

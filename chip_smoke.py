@@ -13,7 +13,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      element passes when |kernel - plain| <= 2e-4 + 2e-4·|plain|, so K2's
      weight gradients, sums over thousands of kv rows, may pass through the
      relative term, and their largest relative error there is printed) at
-     the shapes the main path gives it, beside the plain version, a library
+     the shapes the main path and serving (phase 9) give it, beside the
+     plain version, a library
      call where one computes the same function, and the card's bound.
      "ms" is the median of 20 single calls with CUDA events around each
      (the device time plus the wrapper's host work before the launch);
@@ -59,7 +60,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      per step and the hop-1 kernels' part of it;
   7. the train CLI for one epoch on phase 5's tiny dataset without dropout,
      then the generate CLI from its <model>_best.pt; the CSV headers, the
-     artifacts and the result JSON checked.
+     artifacts and the result JSON checked;
+  8. serving at one geometry: phase 3's model in a Responder (beam 5,
+     maxlen 12, float32 cache, batch bucket 64, lengths 32/256/64, 40
+     clips of 16 x 2048) answers phase 3's 256 turns (as text, random
+     features from numpy seed 0) by `respond` in 4 groups of 64; then the
+     same requests as base64 .npy POSTs from 64 client threads released
+     together, through a DynamicBatcher (10 ms window, pipeline depth 4)
+     under the HTTP server on port 0.  Required: every served answer equal
+     to its direct answer (a row's arithmetic does not depend on its
+     neighbours at one geometry), no error, fewer batches than requests,
+     and K1 6 times per batch, all "whole";
+  9. serving at the serve CLI's defaults (batch buckets 8-64, its length
+     and time buckets, bfloat16 cache, beam 5, every bucket warmed up): 512
+     requests from 64 closed-loop clients by beam search, then 128 greedily
+     and 128 with a bfloat16 precompute (K1 on a bfloat16 grid): requests/s,
+     latency percentiles, mean batch rows and component seconds, read with
+     no profiler; then 128 more of each under torch.profiler (recording the
+     device only) for the card's busy share; and the host times of one
+     32-row beam-search batch's parts (assembly, the pinned non-blocking
+     copy against a plain blocking one, the decode's launches).  No error
+     and K1 on "whole" 6 times per batch are required; the rest are
+     readings;
+ 10. the serve CLI as a process of its own on phase 5's model (--port 0,
+     the port read from its log): /healthz, /respond with nested-list
+     features and with an int8 upload, a 400 without features, /metrics;
+     then the evaluate CLI on phase 5's greedy result: seven metrics and
+     its .eval.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -517,6 +544,14 @@ def phase_kernels(device):
                    17),
         check_hop1(device, "t2s bf16", "whole", 64, 16, 32, 40, 128, 8, True, True, 18,
                    bf16=True),
+        # serving at the serve defaults (phase 9): batches of 32, clips
+        # bucketed to 48, the precompute on float32 and on bfloat16 grids
+        check_hop1(device, "serve t2s", "whole", 32, 16, 32, 48, 128, 8, True, True, 30),
+        check_hop1(device, "serve s2t", "whole", 32, 48, 32, 16, 128, 8, False, False, 31),
+        check_hop1(device, "serve t2s bf16", "whole", 32, 16, 32, 48, 128, 8, True, True,
+                   32, bf16=True),
+        check_hop1(device, "serve s2t bf16", "whole", 32, 48, 32, 16, 128, 8, False, False,
+                   33, bf16=True),
         # widths "whole" is not built for: d_k 15 (padded to 16 in the
         # kernel), D above 512 with d_k 65, D 1024; a bfloat16 grid
         check_hop1(device, "t2s D=120 h=8", "tiled", 8, 16, 32, 40, 120, 8, True, True,
@@ -885,7 +920,11 @@ def phase_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX)
                             undisclosed=data == test_set,
                             allow_empty=not style.startswith("beam"))
         answers[style] = [t["answer"] for d in result["dialogs"] for t in d["dialog"]]
-    return {"dialogs": len(orig["dialogs"]), "answers": answers}
+        if style == "greedy (default)":             # phase 10 scores it
+            shutil.copy(os.path.join(root, "result.json"),
+                        os.path.join(root, "result_greedy.json"))
+    return {"dialogs": len(orig["dialogs"]), "answers": answers,
+            "greedy_result": os.path.join(root, "result_greedy.json")}
 
 
 def check_result_schema(result, orig, undisclosed=True, allow_empty=False):
@@ -1113,6 +1152,409 @@ def phase_train_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S,
 
 
 # ---------------------------------------------------------------------------
+# phases 8-10: serving and scoring
+
+
+def serving_model(device, model_kw=None, dv=DV):
+    """Phase 3's model: the test set's vocabulary (cutoff 3), the flagship
+    configuration at feature width `dv`, random weights from seed 0."""
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), dv=dv, **(model_kw or {}))
+    return vocab, cfg, init_model(0, cfg, device=device)
+
+
+def serving_requests(n, dv=DV, s=S, t_max=T_MAX, seed=0):
+    """Client fields of n requests: the last (undisclosed) turn of the test
+    set's first n dialogs (phase 3's turns) as text, its earlier turns as
+    history, the summary as caption, and random features of 8..t_max clips
+    of (s, dv) from a numpy seed."""
+    with open(TEST_JSON) as f:
+        dialogs = json.load(f)["dialogs"][:n]
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in dialogs:
+        turns = d["dialog"]
+        t = int(rng.integers(min(8, t_max), t_max + 1))
+        out.append(dict(question=turns[-1]["question"],
+                        history=" ".join(f"{u['question']} {u['answer']}" for u in turns[:-1]),
+                        caption=d["summary"],
+                        features=rng.standard_normal((t, s, dv), dtype=np.float32)))
+    return out
+
+
+def npy_b64(a):
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def http_json(url, body=None, timeout=300):
+    """GET (body None) or POST a JSON body; (status, decoded JSON), an HTTP
+    error's status and body included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes)
+                                      else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def reset_hop1_counts():
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
+
+    hop1_fused.launches = 0
+    hop1_fused.variants = {}
+
+
+def check_hop1_per_batch(device, what, batches):
+    """K1 launched 6 times per served batch (t2s and s2t in each of 3 video
+    layers), every time through "whole", since the counts were reset; on
+    the CPU no launch.  Returns the counts."""
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
+
+    want = 6 * batches if device.type == "cuda" else 0
+    launches, variants = hop1_fused.launches, dict(hop1_fused.variants)
+    if launches != want or (device.type == "cuda" and variants != {"whole": want}):
+        raise AssertionError(f"{what}: K1 launches {launches} by kernel {variants}, "
+                             f"expected {want} on \"whole\" (6 per batch, {batches} batches)")
+    return {"hop1_fwd": launches, "hop1_variants": variants}
+
+
+def phase_serving_exact(device, model, fields, group=64, clients=64, dv=DV, s=S,
+                        t_max=T_MAX):
+    """Serving at one geometry (batch bucket `group`, lengths LQ/LH/LC, t_max
+    clips), beam 5, float32 cache: the requests' reference answers from
+    Responder.respond in groups of `group` in order, then the same requests
+    as base64 .npy POSTs from `clients` threads released together, through
+    a DynamicBatcher (10 ms window, pipeline depth 4) under the HTTP server.
+    Each row's arithmetic is independent of its neighbours at one geometry,
+    so every served answer must be its reference answer."""
+    import threading
+
+    import torch
+
+    from bist_tpu_torch.cli.serve import make_http_server
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.serving import DynamicBatcher, Responder
+
+    vocab, cfg, params = model
+    rsp = Responder(params, cfg, vocab, GenerateConfig(**GEN), max_batch=group,
+                    batch_buckets=(group,), len_buckets={"q": (LQ,), "h": (LH,), "c": (LC,)},
+                    time_buckets=(t_max,), feat_tail=(s, dv))
+    rsp.warmup(feature_shape=(s, dv), t_clips=min(8, t_max))
+    n = len(fields)
+    reqs = [rsp.make_request(**f) for f in fields]
+    for i in range(0, n, group):
+        rsp.respond(reqs[i:i + group])
+    reference = [r._answer for r in reqs]
+    bodies = [json.dumps({"question": f["question"], "history": f["history"],
+                          "caption": f["caption"],
+                          "features_b64": npy_b64(f["features"])}).encode() for f in fields]
+
+    batcher = DynamicBatcher(rsp, max_batch=group, max_wait_ms=10, pipeline_depth=4)
+    batcher.start()
+    httpd = make_http_server("127.0.0.1", 0, batcher, requires_features=True)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/respond"
+    served, errors = [None] * n, []
+    go = threading.Barrier(clients)
+
+    def client(c):
+        go.wait(timeout=120)
+        for i in range(c, n, clients):
+            code, resp = http_json(url, bodies[i])
+            if code == 200:
+                served[i] = resp["answer"]
+            else:
+                errors.append((i, code, resp))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    try:
+        sync()
+        reset_hop1_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        seconds = time.perf_counter() - t0
+        sync()
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serving: a client did not finish within 600 s")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+    stats = dict(batcher.stats)
+    differ = [i for i in range(n) if served[i] != reference[i]]
+    if errors or stats["errors"]:
+        raise AssertionError(f"serving: {len(errors)} requests failed ({errors[:3]}), "
+                             f"batcher errors {stats['errors']}")
+    if differ:
+        raise AssertionError(
+            f"serving: {len(differ)} of {n} served answers differ from the direct "
+            f"respond() answers, e.g. request {differ[0]}: served "
+            f"{served[differ[0]]!r}, direct {reference[differ[0]]!r}")
+    if not stats["batches"] < n:
+        raise AssertionError(f"serving: {stats['batches']} batches for {n} requests: "
+                             f"nothing was coalesced")
+    launches = check_hop1_per_batch(device, "serving", stats["batches"])
+    m = batcher.metrics()
+    return {"requests": n, "identical": n - len(differ), "errors": stats["errors"],
+            "batches": stats["batches"], "mean_batch_rows": m["mean_batch_rows"],
+            "seconds": seconds, "latency_ms": m["latency_ms"], **launches}
+
+
+def device_busy_ms(prof):
+    """Device time of the kernels and copies a torch.profiler run recorded
+    (ms), None when it recorded none.  Sums the trace's device events as
+    recorded: grouping them (key_averages()) takes ~10 s for a run's
+    ~10^5 events."""
+    from torch.autograd import DeviceType
+
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return sum(ns) / 1e6 if ns else None
+
+
+def serve_window(device, rsp, fields, n, clients, profiled):
+    """n requests from `clients` threads through a fresh DynamicBatcher (10
+    ms window, pipeline depth 4), each client sending its next request as
+    soon as the last is answered; returns the readings.  With `profiled`
+    torch.profiler records the device's kernels and copies over the window,
+    for the card's busy share (it slows the host: the window's requests/s
+    and latencies are not the bare ones)."""
+    import contextlib
+    import itertools
+    import threading
+
+    import torch
+
+    from bist_tpu_torch.serving import DynamicBatcher
+
+    batcher = DynamicBatcher(rsp, max_batch=rsp.max_batch, max_wait_ms=10,
+                             pipeline_depth=4)
+    batcher.start()
+    before = dict(rsp.timings)
+    counter, errors = itertools.count(), []
+
+    def client():
+        for i in iter(lambda: next(counter), None):
+            if i >= n:
+                return
+            try:
+                batcher.submit(**fields[i % len(fields)], timeout=300)
+            except Exception as e:   # recorded; the run fails on any error
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    prof = contextlib.nullcontext()
+    if profiled and device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        sync()
+        reset_hop1_counts()
+        with prof:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            sync()
+            seconds = time.perf_counter() - t0
+    finally:
+        batcher.stop()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving load: a client did not finish within 600 s")
+    m = batcher.metrics()
+    if errors or m["errors"]:
+        raise AssertionError(f"serving load: {len(errors)} requests failed: {errors[:3]}")
+    out = {"requests": n, "requests_per_s": n / seconds, "seconds": seconds,
+           "latency_ms": m["latency_ms"], "batches": m["batches"],
+           "mean_batch_rows": m["mean_batch_rows"],
+           "component_seconds": {k: v - before.get(k, 0.0)
+                                 for k, v in m["component_seconds"].items()},
+           **check_hop1_per_batch(device, "serving load", m["batches"])}
+    if profiled:
+        busy = device_busy_ms(prof) if device.type == "cuda" else None
+        out["device_busy_ms"] = busy
+        out["device_busy_share"] = None if busy is None else busy / (seconds * 1e3)
+    return out
+
+
+def ship_breakdown(device, rsp, fields, rows=32, reps=3):
+    """Host milliseconds of one served batch's parts on an idle server (the
+    median of `reps`): assembly (make_batch), the copy to the card from
+    pinned memory without waiting (dispatch's ship), the same batch by a
+    plain blocking .to() from pageable memory, copying the pageable grid
+    into pinned memory (the step that assembling into pinned memory saves),
+    the decode's launches, and the two copies again with the decode of a
+    batch before still running on the card."""
+    import torch
+
+    from bist_tpu_torch.data.batching import to_device
+
+    reqs = [rsp.make_request(**f) for f in fields[:rows]]
+    host = rsp.make_batch(reqs)
+    pageable = host._replace(fts=np.array(host.fts))
+
+    def clock(fn, busy=False):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            if busy:
+                rsp._decode(rsp._to_device(host), None)
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(ms)
+
+    batch = rsp._to_device(host)
+    return {"rows": rows, "grid_mb": host.fts.nbytes / 2 ** 20,
+            "assemble_ms": clock(lambda: rsp.make_batch(reqs)),
+            "ship_pinned_ms": clock(lambda: rsp._to_device(host)),
+            "ship_blocking_ms": clock(lambda: to_device(pageable, device)),
+            "pin_grid_copy_ms": clock(lambda: torch.from_numpy(pageable.fts).pin_memory()),
+            "decode_launch_ms": clock(lambda: rsp._decode(batch, None)),
+            "ship_pinned_behind_decode_ms": clock(lambda: rsp._to_device(host), busy=True),
+            "ship_blocking_behind_decode_ms": clock(lambda: to_device(pageable, device),
+                                                    busy=True)}
+
+
+def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128,
+                       clients=64, dv=DV, s=S):
+    """Serving at the serve CLI's defaults (batch buckets 8-64, its length
+    and time buckets, bfloat16 cache, beam 5, warmup over every batch
+    bucket): n_req requests by beam search, then n_other greedily and
+    n_other by beam search with a bfloat16 precompute (K1 on a bfloat16
+    grid), each read bare; then n_prof more of each under torch.profiler
+    for the card's busy share; on the card, the parts of one beam-search
+    batch (ship_breakdown).  Readings, not gates, apart from no error and K1
+    on "whole" 6 times per batch."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.serving import Responder
+
+    vocab, cfg, params = model
+    runs = {"beam_search": (n_req, {}),
+            "greedy": (n_other, {"decode_style": "greedy"}),
+            "beam_search, encode bfloat16": (n_other, {"encode_dtype": "bfloat16"})}
+    out = {}
+    for name, (n, kw) in runs.items():
+        gcfg = GenerateConfig(maxlen=12, beam=5, penalty=1.0, nbest=1,
+                              cache_dtype="bfloat16", **kw)
+        rsp = Responder(params, cfg, vocab, gcfg)
+        t0 = time.perf_counter()
+        rsp.warmup(feature_shape=(s, dv))
+        warm = time.perf_counter() - t0
+        out[name] = dict(serve_window(device, rsp, fields, n, clients, profiled=False),
+                         warmup_seconds=warm,
+                         profiled=serve_window(device, rsp, fields, n_prof, clients,
+                                               profiled=True))
+        if device.type == "cuda" and name == "beam_search":
+            out[name]["ship_breakdown"] = ship_breakdown(device, rsp, fields)
+        log(f"serving load, {name}: {json.dumps(out[name])}")
+    return out
+
+
+def phase_serve_cli(device, root, result_json, s=S, timeout=600):
+    """The serve CLI (a process of its own, --port 0) on phase 5's model
+    <root>/mtn: /healthz, /respond with nested-list features and with an
+    int8 upload, a 400 without features, /metrics; then the evaluate CLI on
+    `result_json` (phase 5's greedy result): its seven metrics printed and
+    its .eval written."""
+    import re
+    import signal
+
+    from bist_tpu_torch.config import load_conf
+    from bist_tpu_torch.data.batching import quantize_features
+
+    _, cfg, _, _ = load_conf(os.path.join(root, "mtn.conf"))
+    log_path = os.path.join(root, "serve.log")
+    cmd = [sys.executable, "-m", "bist_tpu_torch.cli.serve", "--model",
+           os.path.join(root, "mtn"), "--port", "0", "--device", device.type]
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+
+    def tail():
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        deadline, port = time.monotonic() + timeout, None
+        while port is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve CLI exited {proc.returncode}:\n{tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve CLI did not start in {timeout} s:\n{tail()}")
+            m = re.search(r"serving on [\d.]+:(\d+)", tail())
+            if m:
+                port = int(m.group(1))
+            else:
+                time.sleep(0.2)
+        base = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(5)
+        fts = rng.standard_normal((10, s, cfg.ft_sizes[0]), dtype=np.float32)
+        q8, scale = quantize_features(fts[None])
+        turn = {"question": "what is the man doing ?", "history": "is he inside ? yes",
+                "caption": "a man sits on a couch ."}
+        checks = {
+            "healthz": http_json(f"{base}/healthz"),
+            "respond, lists": http_json(f"{base}/respond", dict(turn, features=fts.tolist())),
+            "respond, int8": http_json(f"{base}/respond", dict(
+                turn, features_b64=npy_b64(q8[0]), features_scale_b64=npy_b64(scale[0]))),
+            "respond, no features": http_json(f"{base}/respond", turn),
+            "metrics": http_json(f"{base}/metrics"),
+        }
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    want = {"healthz": 200, "respond, lists": 200, "respond, int8": 200,
+            "respond, no features": 400, "metrics": 200}
+    codes = {k: c for k, (c, _) in checks.items()}
+    if codes != want or checks["healthz"][1].get("ok") is not True \
+            or not all(isinstance(checks[k][1].get("answer"), str)
+                       for k in ("respond, lists", "respond, int8")) \
+            or checks["metrics"][1].get("requests", 0) < 2:
+        raise AssertionError(f"serve CLI: {checks}\n{tail()}")
+
+    r = subprocess.run([sys.executable, "-m", "bist_tpu_torch.cli.evaluate", result_json],
+                       cwd=HERE, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"evaluate CLI exited {r.returncode}:\n{r.stderr[-3000:]}")
+    summary = r.stdout.split("--- summary ---")[-1]
+    metrics = dict(re.findall(r"^(Bleu_[1-4]|METEOR|ROUGE_L|CIDEr): ([\d.]+)$", summary,
+                              re.M))
+    eval_path = os.path.splitext(result_json)[0] + ".eval"
+    if len(metrics) != 7 or not os.path.exists(eval_path):
+        raise AssertionError(f"evaluate CLI: metrics {metrics}, .eval written: "
+                             f"{os.path.exists(eval_path)}\n{r.stdout[-2000:]}")
+    return {"serve": {k: v for k, v in checks.items() if k != "metrics"},
+            "serve_metrics": {k: checks["metrics"][1][k] for k in ("requests", "batches",
+                                                                    "errors")},
+            "evaluate": {k: float(v) for k, v in metrics.items()}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -1141,6 +1583,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t_start = time.perf_counter()
+    laps = [("start", t_start)]           # (phase, when it ended)
+    lap = lambda name: laps.append((name, time.perf_counter()))
 
     from bist_tpu_torch.ops import _build
 
@@ -1157,28 +1601,51 @@ def main() -> int:
             print(f"ptxas {name}: {json.dumps(row)}", flush=True)
     print(f"build: {len(built)} kernel libraries compiled in "
           f"{time.perf_counter() - t0:.1f} s (wall, in parallel)", flush=True)
+    lap("build")
 
     hop1_cases, bwd_cases, flash_cases = phase_kernels(device)
     for c in hop1_cases + bwd_cases + flash_cases:
         log(f"kernel case {c['case']}: {json.dumps(c)}")
     phase2_ms = [c for c in hop1_cases if c["case"].startswith("train")] + [
         dict(c, case="bwd " + c["case"]) for c in bwd_cases]
+    lap("kernels")
 
     main_path = phase_main_path(device)
     print(f"main path on {card}: {json.dumps(main_path)}", flush=True)
+    lap("main path")
 
     mha_flash = phase_mha_flash(device)
     print(f"mha flash regime on {card}: {json.dumps(mha_flash)}", flush=True)
+    lap("mha flash")
 
     cli = phase_cli(device, os.path.join(HERE, "build", "chip_smoke", "cli"))
     print(f"generate CLI: {json.dumps(cli)}", flush=True)
+    lap("generate CLI")
 
     train = phase_train(device, phase2_ms)
     print(f"training path on {card}: {json.dumps(train)}", flush=True)
+    lap("training")
 
     train_cli = phase_train_cli(device, os.path.join(HERE, "build", "chip_smoke",
                                                      "train_cli"))
     print(f"train CLI: {json.dumps(train_cli)}", flush=True)
+    lap("train CLI")
+
+    model = serving_model(device)
+    fields = serving_requests(256)
+    serving = phase_serving_exact(device, model, fields)
+    print(f"serving at one geometry on {card}: {json.dumps(serving)}", flush=True)
+    lap("serving")
+
+    serving_load = phase_serving_load(device, model, fields)
+    print(f"serving load on {card}: {json.dumps(serving_load)}", flush=True)
+    lap("serving load")
+    del model, fields
+
+    serve_cli = phase_serve_cli(device, os.path.join(HERE, "build", "chip_smoke", "cli"),
+                                cli["greedy_result"])
+    print(f"serve and evaluate CLIs: {json.dumps(serve_cli)}", flush=True)
+    lap("serve and evaluate CLIs")
 
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
@@ -1187,7 +1654,9 @@ def main() -> int:
                           f"flagship beam_search, {main_path['batches']} batches "
                           f"of {main_path['batch_size']}"),
              variants=main_path["hop1_variants"],
-             launches_train=train["launches"]["hop1_fwd"]),
+             launches_train=train["launches"]["hop1_fwd"],
+             launches_serving=serving["hop1_fwd"],
+             launches_serving_load={k: v["hop1_fwd"] for k, v in serving_load.items()}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],
@@ -1200,6 +1669,8 @@ def main() -> int:
                           "models.layers.mha, d_model 512, 8 heads, kv 32768 "
                           f"(flagship beam_search: {main_path['launches']['flash_fwd']})")),
     ]
+    log("seconds by phase: " + json.dumps({name: round(t - laps[i][1], 1)
+                                           for i, (name, t) in enumerate(laps[1:])}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -489,3 +489,121 @@ def test_flagship_train_step_launches_k1_and_k2_only(cuda, monkeypatch):
     assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (18, 18)
     assert K1.hop1_bwd.variants.get("whole", 0) - whole == 18     # every K2 on "whole"
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_hop1_launches_on_the_calling_threads_stream(cuda):
+    """K1's launcher takes the current stream of the thread that calls it (a
+    serving batcher's thread): on a side stream, behind a long sleep and
+    the copy of its input, K1 reads the copied input, not the stale one."""
+    import threading
+
+    rng = np.random.default_rng(7)
+    B, G, Lq, Lk, D, h = 2, 16, 32, 40, 128, 8
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(7), h, D).items()}
+    x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
+    kv = tensor(rng, (B, Lk, G, D), cuda).transpose(1, 2)
+    want = K1.hop1_plain(x, q, kv, p, h, None)
+    torch.cuda.synchronize()
+    got = {}
+
+    def work():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side):
+            stale = torch.zeros_like(x)
+            torch.cuda._sleep(100_000_000)          # keeps the side stream busy
+            stale.copy_(x)
+            got["out"] = K1.hop1_fused(stale, q, kv, p, h, None).cpu()
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    close(got["out"], want.cpu(), "hop1 on a side stream in another thread")
+
+
+@pytest.mark.cuda
+def test_precision_knobs_on_the_card(cuda, monkeypatch):
+    """The decode precision knobs on the card: a bfloat16 precompute gives
+    K1 bfloat16 grids (it launches, never its plain version), and beam
+    search and greedy decoding with each float8 cache and a bfloat16 step
+    give finite first-best scores and in-vocabulary tokens."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search, greedy_decode
+
+    def plain_called(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(K1, "hop1_plain", plain_called)
+    cfg = ModelConfig(vocab_size=60, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2,
+                      d_model=128, att_h=8, dropout=0.0, ft_sizes=(48,),
+                      include_caption="summary", separate_caption=True)
+    params = init_model(0, cfg, device=cuda)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(4, 60, size=(3, 9)).astype(np.int32)
+    toks[:, -2:] = 1
+    fts = rng.standard_normal((3, 10, 16, 48)).astype(np.float32)
+    batch = to_device(Batch(query=toks, his=toks, trg=toks[:, :1], trg_y=toks[:, :1],
+                            cap=toks, fts=fts), cuda)
+    for cache in ("float8_e4m3fn", "float8_e5m2"):
+        before, variants = K1.hop1_fused.launches, dict(K1.hop1_fused.variants)
+        g = GenerateConfig(maxlen=6, beam=3, nbest=2, cache_dtype=cache,
+                           compute_dtype="bfloat16", encode_dtype="bfloat16")
+        res = beam_search(params, cfg, batch, g)
+        out = greedy_decode(params, cfg, batch, 6, cache_dtype=cache, encode_dtype="bfloat16",
+                            compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        assert K1.hop1_fused.launches == before + 8           # 2 decodes x 2 layers x 2
+        assert K1.hop1_fused.variants.get("whole", 0) - variants.get("whole", 0) == 8
+        assert torch.isfinite(res.scores[:, 0]).all() and (res.lengths[:, 0] >= 1).all()
+        assert ((out >= 0) & (out < 60)).all() and ((res.tokens >= 0) & (res.tokens < 60)).all()
+
+
+@pytest.mark.cuda
+def test_served_batches_ship_from_pinned_memory(cuda):
+    """On the card a Responder assembles the feature grid straight into
+    pinned memory and copies every array to the card unchanged; two batches
+    dispatched before either is finished answer as respond() does them one
+    at a time."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.serving import Responder
+    from bist_tpu_torch.vocab import SPECIALS
+
+    vocab = dict(SPECIALS)
+    for i in range(60 - len(vocab)):
+        vocab[f"w{i}"] = len(vocab)
+    cfg = ModelConfig(vocab_size=len(vocab), nb_blocks=2, nb_venc_blocks=2,
+                      nb_cenc_blocks=2, d_model=128, att_h=8, dropout=0.0, ft_sizes=(48,),
+                      include_caption="summary", separate_caption=True)
+    rsp = Responder(init_model(0, cfg, device=cuda), cfg, vocab,
+                    GenerateConfig(maxlen=6, beam=3, nbest=2), max_batch=8,
+                    time_buckets=(8, 16), feat_tail=(16, 48))
+    rng = np.random.default_rng(9)
+    words = list(vocab)[len(SPECIALS):]
+
+    def text(n):
+        return " ".join(rng.choice(words, size=n))
+
+    def group(n):
+        return [dict(question=text(5), history=text(9), caption=text(4),
+                     features=rng.standard_normal((int(rng.integers(3, 16)), 16, 48))
+                     .astype(np.float32)) for _ in range(n)]
+
+    groups = [group(5), group(8)]
+    host = rsp.make_batch([rsp.make_request(**f) for f in groups[0]])
+    assert torch.from_numpy(host.fts).is_pinned()
+    dev = rsp._to_device(host)
+    for h, d in zip(host, dev):
+        if h is not None:
+            assert d.device.type == "cuda" and np.array_equal(d.cpu().numpy(), h)
+    direct = []
+    for g in groups:
+        reqs = [rsp.make_request(**f) for f in g]
+        rsp.respond(reqs)
+        direct.append([r._answer for r in reqs])
+    served = [[rsp.make_request(**f) for f in g] for g in groups]
+    pending = [rsp.dispatch(reqs) for reqs in served]
+    for p in pending:
+        rsp.finish(p)
+    assert [[r._answer for r in reqs] for reqs in served] == direct
