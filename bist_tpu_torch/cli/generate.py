@@ -15,7 +15,10 @@ The decode styles are those of `bist_tpu`: greedy (the default), beam_search
 (with --ensemble <prefix> ... for a sum of several models' log-probs),
 oracle (teacher-forced argmax; needs labeled turns, so not with
 --undisclosed-only) and sample (--temperature, --top-k, --top-p,
---sample-seed).  Reference-format (.pth.tar) checkpoints are not read yet.
+--sample-seed).  Each style runs as one CUDA graph per batch geometry
+(`decode.compiled.DecodeProgram`), captured the first time the geometry
+comes; on the CPU the same program runs eagerly.  Reference-format
+(.pth.tar) checkpoints are not read yet.
 """
 
 from __future__ import annotations
@@ -107,12 +110,12 @@ def main(argv=None):
     from bist_tpu_torch import resolve_device
     from bist_tpu_torch.config import GenerateConfig, default_conf_for, load_conf
     from bist_tpu_torch.data.avsd import load_avsd
-    from bist_tpu_torch.data.batching import quantize_features, to_device
+    from bist_tpu_torch.data.batching import quantize_features
     from bist_tpu_torch.data.features import build_stores
     from bist_tpu_torch.data.loader import AVSDLoader
-    from bist_tpu_torch.decode.beam import (beam_search, extract_hyps, greedy_decode,
-                                            oracle_decode)
-    from bist_tpu_torch.decode.sample import mix_seed, sample_decode
+    from bist_tpu_torch.decode.beam import extract_hyps
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.decode.sample import mix_seed
     from bist_tpu_torch.vocab import ids2words, make_id2word
     from bist_tpu_torch.weights import load_params
 
@@ -168,7 +171,12 @@ def main(argv=None):
                           decode_style=args.decode_style,
                           gen_batch_size=args.gen_batch_size,
                           cache_dtype=args.cache_dtype,
-                          encode_dtype=args.encode_dtype)
+                          encode_dtype=args.encode_dtype,
+                          temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, sample_seed=args.sample_seed)
+    # the decode style as one CUDA graph per batch geometry, captured the
+    # first time the geometry comes (as bist_tpu jits each style)
+    program = DecodeProgram(params, cfg, gcfg)
 
     logging.info("----------------------- generate --------------------------")
     start_time = time.time()
@@ -178,34 +186,22 @@ def main(argv=None):
         if args.feat_int8 and batch.fts is not None:
             q8, scale = quantize_features(batch.fts)
             batch = batch._replace(fts=q8, fts_scale=scale)
-        batch = to_device(batch, device)
         if gcfg.decode_style == "beam_search":
-            result = beam_search(params, cfg, batch, gcfg)
+            result = program(batch)
             for row in range(meta.real_count):
                 hyps = extract_hyps(result, id2word, row, gcfg.nbest)
                 answers[meta.qa_ids[row]] = (" ".join(hyps[0][0]) if hyps else "", hyps)
         else:
-            if gcfg.decode_style == "oracle":
-                out = oracle_decode(params, cfg, batch)
-            elif gcfg.decode_style == "sample":
-                # the batch counter folded into the seed: rows of different
-                # batches draw independent noise
-                out = sample_decode(params, cfg, batch, gcfg.maxlen,
-                                    mix_seed(args.sample_seed, n_batch),
-                                    temperature=args.temperature, top_k=args.top_k,
-                                    top_p=args.top_p, cache_dtype=gcfg.cache_dtype,
-                                    encode_dtype=gcfg.encode_dtype)
-            else:
-                out = greedy_decode(params, cfg, batch, gcfg.maxlen,
-                                    cache_dtype=gcfg.cache_dtype,
-                                    encode_dtype=gcfg.encode_dtype)
-            out = out.cpu().numpy()
+            # sampling: the batch counter folded into the seed, so rows of
+            # different batches draw independent noise
+            out = program(batch, seed=mix_seed(args.sample_seed, n_batch)).cpu().numpy()
             for row in range(meta.real_count):
                 answers[meta.qa_ids[row]] = (" ".join(ids2words(out[row], id2word)), None)
         n_done += meta.real_count
-        logging.info("decoded %d/%d turns (%.1f turns/s)", n_done,
-                     len(test_data.examples),
-                     n_done / max(time.time() - start_time, 1e-9))
+        logging.info("decoded %d/%d turns (%.1f turns/s; %d geometries captured "
+                     "in %.2f s)", n_done, len(test_data.examples),
+                     n_done / max(time.time() - start_time, 1e-9), program.captures,
+                     program.capture_seconds)
 
     # reassemble the result JSON in original order (generate.py:30-71)
     result_dialogs = []

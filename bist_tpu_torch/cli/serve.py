@@ -16,7 +16,8 @@ responder (`bist_tpu_torch.serving`), the API of `bist_tpu.cli.serve`.
     GET /metrics    → counters, latency percentiles, component seconds
 
 It reads <model>.conf (JSON, either package's) and the port checkpoint
-<model>.pt (or <model>_best.pt), runs every batch bucket once (warmup) and
+<model>.pt (or <model>_best.pt), captures every batch bucket's decode as a
+CUDA graph (warmup; on the CPU it runs each once) and
 logs "serving on <host>:<port>" with the port it bound (--port 0 picks a
 free one).  It runs on CUDA unless --device cpu is given, and raises
 without CUDA otherwise.  Concurrent requests are coalesced into batches
@@ -147,6 +148,9 @@ def main(argv=None):
     logging.info("warmup: every batch bucket %s", responder.batch_buckets)
     responder.warmup(feature_shape=((args.feat_s, cfg.ft_sizes[0])
                                     if args.feat_s and cfg.has_video else None))
+    prog = responder.program.stats()
+    logging.info("warmup: %d geometries captured in %.2f s (graph pool %.1f MB)",
+                 prog["captures"], prog["capture_seconds"], prog["pool_bytes"] / 2 ** 20)
     batcher = DynamicBatcher(responder, max_batch=args.max_batch,
                              max_wait_ms=args.max_wait_ms,
                              pipeline_depth=args.pipeline_depth)

@@ -9,8 +9,11 @@ Scoring parity with the reference `beam_search_decode` (model/decode.py:53-104):
   * <unk> always banned from expansion, <eos> banned unless dec_eos;
   * returned hypotheses exclude <sos>/<eos>.
 
-The search is a Python loop of `maxlen` steps over static shapes: each step
-advances the B·beam cached decoder rows (`models.model.decode_step`).  Both
+The search is a Python loop of `maxlen` static-shape steps (`_start`,
+`_step`, `_result`): each step advances the B·beam cached decoder rows
+(`models.model.decode_step`) with no host sync, so that
+`decode.compiled.DecodeProgram` can capture the whole search, or each step,
+in a CUDA graph.  Both
 top-k selections break ties towards the lower index, as `jax.lax.top_k`
 does, so the beams equal the JAX package's at float32 — including step 0,
 where beams 1..K-1 are identical NEG copies.  `params` may be a list of
@@ -74,21 +77,30 @@ def _on_device(params, batch: Batch) -> Tuple[torch.device, Batch]:
     return device, batch
 
 
-@torch.no_grad()
-def beam_search(params, cfg: ModelConfig, batch: Batch,
-                gcfg: GenerateConfig) -> BeamResult:
-    """Beam search for every row of `batch` at once; `params` is one
-    parameter tree or a list of them (an ensemble of one configuration).  A
-    host batch (numpy arrays) moves to the parameters' device."""
-    params_list = list(params) if isinstance(params, (list, tuple)) else [params]
-    device, batch = _on_device(params_list[0], batch)
+class _Search(NamedTuple):
+    """Beam search's state between two steps (`_start`, `_step`): the
+    models' contexts and caches, the live beams and the kept completions."""
+    ctxs: tuple
+    caches: list
+    tokens: torch.Tensor         # (B, K, maxlen + 1) int32, <sos> first
+    scores: torch.Tensor         # (B, K) float32
+    comp_tokens: torch.Tensor    # (B, nbest, maxlen) int32
+    comp_scores: torch.Tensor    # (B, nbest) float32
+    comp_lens: torch.Tensor      # (B, nbest) int32
+    pos_range: torch.Tensor      # (maxlen,)
+    rows: torch.Tensor           # (B, 1)
+
+
+def _start(params_list, cfg: ModelConfig, batch: Batch,
+           gcfg: GenerateConfig) -> _Search:
+    """The search before step 0: each model's context and empty cache, beam
+    0 live at score 0 (a device batch)."""
+    device = params_list[0]["embed"]["lut"].device
     K, maxlen, nbest = gcfg.beam, gcfg.maxlen, gcfg.nbest
     B = batch.query.shape[0]
-    V = cfg.vocab_size
     cache_dt = storage_dtype(gcfg.cache_dtype)
-    compute_dt = step_dtype(gcfg.compute_dtype)
     ecfg = encode_cfg(cfg, gcfg.encode_dtype)
-    ctxs = [precompute_decode_ctx(p, ecfg, batch, dtype=cache_dt) for p in params_list]
+    ctxs = tuple(precompute_decode_ctx(p, ecfg, batch, dtype=cache_dt) for p in params_list)
     caches = [init_cache(cfg, B * K, maxlen + 1, dtype=cache_dt, device=device)
               for _ in params_list]
 
@@ -97,55 +109,88 @@ def beam_search(params, cfg: ModelConfig, batch: Batch,
     tokens[:, :, 0] = SOS
     scores = torch.full((B, K), NEG, dtype=torch.float32, device=device)
     scores[:, 0] = 0.0
-    comp_tokens = torch.full((B, nbest, maxlen), PAD, **i32)
-    comp_scores = torch.full((B, nbest), NEG, dtype=torch.float32, device=device)
-    comp_lens = torch.zeros((B, nbest), **i32)
-    pos_range = torch.arange(maxlen, device=device)
-    rows = torch.arange(B, device=device)[:, None]
+    return _Search(
+        ctxs=ctxs, caches=caches, tokens=tokens, scores=scores,
+        comp_tokens=torch.full((B, nbest, maxlen), PAD, **i32),
+        comp_scores=torch.full((B, nbest), NEG, dtype=torch.float32, device=device),
+        comp_lens=torch.zeros((B, nbest), **i32),
+        pos_range=torch.arange(maxlen, device=device),
+        rows=torch.arange(B, device=device)[:, None])
 
-    for l in range(maxlen):
-        if gcfg.early_exit and _converged(scores, comp_scores, l, gcfg):
+
+def _step(params_list, cfg: ModelConfig, gcfg: GenerateConfig, s: _Search,
+          l: int) -> _Search:
+    """Step l of the search: every model advances the B·K beams one token,
+    the completions at l are ranked in, the top K continuations kept.  `l`
+    and the `l >= min_len` branch are Python values (static in a CUDA graph
+    of the step)."""
+    K, V = gcfg.beam, cfg.vocab_size
+    B = s.tokens.shape[0]
+    rows = s.rows
+    compute_dt = step_dtype(gcfg.compute_dtype)
+    cur = s.tokens[:, :, l].reshape(B * K)
+    caches = list(s.caches)
+    logp = 0.0
+    for m, (p, ctx) in enumerate(zip(params_list, s.ctxs)):
+        lp_m, caches[m] = decode_step(p, cfg, ctx, caches[m], cur, l, beam=K,
+                                      compute_dtype=compute_dt)
+        logp = logp + lp_m
+    lp = s.scores[:, :, None] + logp.reshape(B, K, V)             # (B, K, V)
+
+    # completion candidates (decode.py:73-77); the bonus is an f32
+    # product, as in the JAX package
+    if l >= gcfg.min_len:
+        bonus = float(np.float32(gcfg.penalty) * np.float32(l + 1))
+        cand_score = lp[:, :, EOS] + bonus
+    else:
+        cand_score = torch.full((B, K), NEG, dtype=torch.float32, device=lp.device)
+    cand_tok = torch.where(s.pos_range < l, s.tokens[:, :, 1:], PAD)
+    all_scores = torch.cat([s.comp_scores, cand_score], dim=1)
+    all_tokens = torch.cat([s.comp_tokens, cand_tok], dim=1)
+    all_lens = torch.cat([s.comp_lens, torch.full((B, K), l, dtype=torch.int32,
+                                                   device=lp.device)], dim=1)
+    comp_scores, top = stable_topk(all_scores, gcfg.nbest)
+    comp_tokens = all_tokens[rows, top]
+    comp_lens = all_lens[rows, top]
+
+    # expansion (decode.py:79-97): top-K over the K·V continuations
+    lp[:, :, UNK] = NEG
+    if not gcfg.dec_eos:
+        lp[:, :, EOS] = NEG
+    scores, flat_idx = stable_topk(lp.reshape(B, K * V), K)
+    parent = flat_idx // V                                        # (B, K)
+    tokens = s.tokens[rows, parent]
+    tokens[:, :, l + 1] = (flat_idx % V).to(torch.int32)
+
+    # the KV cache rows follow their parents
+    def regroup(a: torch.Tensor) -> torch.Tensor:
+        return a.reshape((B, K) + a.shape[1:])[rows, parent].reshape(a.shape)
+
+    caches = [DecodeCache(k=tuple(regroup(a) for a in c.k),
+                          v=tuple(regroup(a) for a in c.v)) for c in caches]
+    return s._replace(caches=caches, tokens=tokens, scores=scores,
+                      comp_tokens=comp_tokens, comp_scores=comp_scores,
+                      comp_lens=comp_lens)
+
+
+def _result(s: _Search) -> BeamResult:
+    return BeamResult(tokens=s.comp_tokens, scores=s.comp_scores, lengths=s.comp_lens)
+
+
+@torch.no_grad()
+def beam_search(params, cfg: ModelConfig, batch: Batch,
+                gcfg: GenerateConfig) -> BeamResult:
+    """Beam search for every row of `batch` at once; `params` is one
+    parameter tree or a list of them (an ensemble of one configuration).  A
+    host batch (numpy arrays) moves to the parameters' device."""
+    params_list = list(params) if isinstance(params, (list, tuple)) else [params]
+    _, batch = _on_device(params_list[0], batch)
+    s = _start(params_list, cfg, batch, gcfg)
+    for l in range(gcfg.maxlen):
+        if gcfg.early_exit and _converged(s.scores, s.comp_scores, l, gcfg):
             break
-        cur = tokens[:, :, l].reshape(B * K)
-        logp = 0.0
-        for m, (p, ctx) in enumerate(zip(params_list, ctxs)):
-            lp_m, caches[m] = decode_step(p, cfg, ctx, caches[m], cur, l, beam=K,
-                                          compute_dtype=compute_dt)
-            logp = logp + lp_m
-        lp = scores[:, :, None] + logp.reshape(B, K, V)           # (B, K, V)
-
-        # completion candidates (decode.py:73-77); the bonus is an f32
-        # product, as in the JAX package
-        if l >= gcfg.min_len:
-            bonus = float(np.float32(gcfg.penalty) * np.float32(l + 1))
-            cand_score = lp[:, :, EOS] + bonus
-        else:
-            cand_score = torch.full((B, K), NEG, dtype=torch.float32, device=device)
-        cand_tok = torch.where(pos_range < l, tokens[:, :, 1:], PAD)
-        all_scores = torch.cat([comp_scores, cand_score], dim=1)
-        all_tokens = torch.cat([comp_tokens, cand_tok], dim=1)
-        all_lens = torch.cat([comp_lens, torch.full((B, K), l, **i32)], dim=1)
-        comp_scores, top = stable_topk(all_scores, nbest)
-        comp_tokens = all_tokens[rows, top]
-        comp_lens = all_lens[rows, top]
-
-        # expansion (decode.py:79-97): top-K over the K·V continuations
-        lp[:, :, UNK] = NEG
-        if not gcfg.dec_eos:
-            lp[:, :, EOS] = NEG
-        scores, flat_idx = stable_topk(lp.reshape(B, K * V), K)
-        parent = flat_idx // V                                    # (B, K)
-        tokens = tokens[rows, parent]
-        tokens[:, :, l + 1] = (flat_idx % V).to(torch.int32)
-
-        # the KV cache rows follow their parents
-        def regroup(a: torch.Tensor) -> torch.Tensor:
-            return a.reshape((B, K) + a.shape[1:])[rows, parent] \
-                .reshape(a.shape)
-
-        caches = [DecodeCache(k=tuple(regroup(a) for a in c.k),
-                              v=tuple(regroup(a) for a in c.v)) for c in caches]
-    return BeamResult(tokens=comp_tokens, scores=comp_scores, lengths=comp_lens)
+        s = _step(params_list, cfg, gcfg, s, l)
+    return _result(s)
 
 
 @torch.no_grad()

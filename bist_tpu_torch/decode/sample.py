@@ -66,17 +66,20 @@ def mix_seed(*parts: int) -> int:
 
 
 def _uniforms(device: torch.device, seed: int, rows: int, maxlen: int, V: int,
-              row_seeds: Optional[Sequence[int]]) -> torch.Tensor:
+              row_seeds: Optional[Sequence[int]],
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(rows, maxlen, V) uniforms in [0, 1): one stream for the batch, or one
-    per row from (seed, row_seeds[i])."""
+    per row from (seed, row_seeds[i]); written into `out` when given (a
+    compiled program's static input, `decode.compiled`)."""
+    if out is None:
+        out = torch.empty((rows, maxlen, V), device=device)
     if row_seeds is None:
         gen = torch.Generator(device=device).manual_seed(mix_seed(seed))
-        return torch.rand((rows, maxlen, V), generator=gen, device=device)
-    out = []
-    for s in row_seeds:
+        return torch.rand((rows, maxlen, V), generator=gen, device=device, out=out)
+    for i, s in enumerate(row_seeds):
         gen = torch.Generator(device=device).manual_seed(mix_seed(seed, s))
-        out.append(torch.rand((maxlen, V), generator=gen, device=device))
-    return torch.stack(out)
+        torch.rand((maxlen, V), generator=gen, device=device, out=out[i])
+    return out
 
 
 @torch.no_grad()
@@ -91,20 +94,36 @@ def sample_decode(params, cfg: ModelConfig, batch: Batch, maxlen: int, seed: int
     `encode_dtype` are GenerateConfig's knobs."""
     device, batch = _on_device(params, batch)
     B = batch.query.shape[0]
-    if row_seeds is not None and len(row_seeds) != B:
-        raise ValueError(f"sample_decode: {len(row_seeds)} row seeds for {B} rows")
+    check_row_seeds(row_seeds, B)
+    u = _uniforms(device, seed, B, maxlen, cfg.vocab_size, row_seeds)
+    return _sample(params, cfg, batch, u, temperature, top_k, top_p, cache_dtype,
+                   encode_dtype)
+
+
+def check_row_seeds(row_seeds: Optional[Sequence[int]], rows: int) -> None:
+    if row_seeds is not None and len(row_seeds) != rows:
+        raise ValueError(f"sample_decode: {len(row_seeds)} row seeds for {rows} rows")
+
+
+def _sample(params, cfg: ModelConfig, batch: Batch, u: torch.Tensor,
+            temperature: float, top_k: int, top_p: float, cache_dtype: str,
+            encode_dtype: str) -> torch.Tensor:
+    """The decode of `sample_decode` from its uniforms `u` (B, maxlen, V)
+    on a device batch: no draw and no host sync, so a CUDA graph can hold
+    it (the banned ids are set one by one, not by a host index list)."""
+    B, maxlen = u.shape[:2]
     dt = storage_dtype(cache_dtype)
     ctx = precompute_decode_ctx(params, encode_cfg(cfg, encode_dtype), batch, dtype=dt)
-    cache = init_cache(cfg, B, maxlen + 1, dtype=dt, device=device)
-    u = _uniforms(device, seed, B, maxlen, cfg.vocab_size, row_seeds)
+    cache = init_cache(cfg, B, maxlen + 1, dtype=dt, device=u.device)
     gumbel = -torch.log(-torch.log(u))
     temp = max(float(temperature), 1e-4)
-    tok = torch.full((B,), SOS, dtype=torch.int32, device=device)
+    tok = torch.full((B,), SOS, dtype=torch.int32, device=u.device)
     out = []
     for l in range(maxlen):
         logp, cache = decode_step(params, cfg, ctx, cache, tok, l)
         logits = logp.float().clone()
-        logits[:, [UNK, PAD, SOS]] = NEG
+        for banned in (UNK, PAD, SOS):
+            logits[:, banned] = NEG
         logits = filter_logits(logits / temp, top_k=top_k, top_p=top_p)
         tok = torch.argmax(logits + gumbel[:, l], dim=-1).to(torch.int32)
         out.append(tok)

@@ -315,8 +315,11 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
     any alignment (the t2s direction passes the grid with T and S swapped);
     x, q_proj, the weights and the mask must be float32 (mask int32), on
     kv's device, and contiguous.  The results are float32.
-    `hop1_fused.launches` counts kernel launches and `hop1_fused.variants`
-    counts them by kernel (`hop1_variant`)."""
+    `hop1_fused.launches` counts the launches this wrapper issues and
+    `hop1_fused.variants` counts them by kernel (`hop1_variant`), a launch
+    recorded into a CUDA graph's capture included; a graph's replay does not
+    pass through the wrapper, so its K1 kernels are counted from a
+    profiler's trace by kernel name."""
     if kv.device.type == "cpu":
         return hop1_plain(x, q_proj, kv, attn_params, h, mask, return_residuals)
     return _hop1_launch(_fwd_lib().bist_hop1_fwd, None, x, q_proj, kv, attn_params, h,

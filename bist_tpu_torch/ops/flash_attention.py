@@ -83,7 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     non-contiguous inputs); on a CPU tensor it runs `attention_plain`.  q,
     k, v: contiguous, one dtype, float32 or bfloat16 (the result has it
     too), any head dim, any alignment; mask: contiguous int32 (G, Lk) or
-    None.  `flash_attention.launches` counts kernel launches."""
+    None.  `flash_attention.launches` counts the launches this wrapper
+    issues, a launch recorded into a CUDA graph's capture included (a
+    replay does not pass through the wrapper)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, sm_scale)
     if q.device.type != "cuda":

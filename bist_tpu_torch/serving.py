@@ -9,19 +9,22 @@ batches of a few fixed geometries and hands them to the Responder.
     it (`default_batch_buckets`), each token field to its length bucket and
     the clips to a time bucket; padding rows are all-PAD and masked
     everywhere, so a row's answer does not depend on its neighbours;
-  * `warmup()` runs every batch bucket once before traffic, so the kernels
-    are built and loaded and the allocator holds its blocks;
+  * one compiled program per (batch, shape-bucket) geometry: one CUDA
+    graph of the decode (`decode.compiled.DecodeProgram`), captured at
+    startup (`warmup()`), so no request group of a warmed geometry ever
+    runs an eager decode; a geometry first seen at serve time is captured
+    then, as `jax.jit` compiles at first use;
   * the batcher collects up to `max_batch` requests or waits `max_wait_ms`,
     whichever comes first.
 
-PyTorch runs eagerly, so a geometry is not a compiled program here.
 `Responder.dispatch()` assembles the host batch (on a CUDA server the
-feature grid straight into pinned memory), copies it to the device without
-waiting, and enqueues the decode; it returns while the device works.  `Responder.finish()` is where the host waits for
-the results (`device_wait_s`) and extracts the answers.  Under a backlog
-the batcher keeps up to `pipeline_depth` batches dispatched, so batch N+1's
-assembly and launches overlap batch N's device work, as far as the host's
-launching of the decode's small kernels stays ahead of the device.
+feature grid straight into pinned memory), copies it into the geometry's
+static inputs without waiting, replays the graph and copies its outputs
+out on the stream; it returns while the device works.
+`Responder.finish()` is where the host waits for the results
+(`device_wait_s`) and extracts the answers.  Under a backlog the batcher
+keeps up to `pipeline_depth` batches dispatched, so batch N+1's assembly
+and replay overlap batch N's device work.
 
 One device: the parameters' device is the serving device.  Serving over
 several GPUs, AOT bundles (`bist_tpu`'s `beam_fn` and
@@ -51,9 +54,9 @@ import torch
 
 from bist_tpu_torch.config import GenerateConfig, ModelConfig
 from bist_tpu_torch.data.batching import (Batch, bucket_len, pad_features, pad_tokens,
-                                          quantize_features, to_device)
-from bist_tpu_torch.decode.beam import BeamResult, beam_search, extract_hyps, greedy_decode
-from bist_tpu_torch.decode.sample import sample_decode
+                                          quantize_features)
+from bist_tpu_torch.decode.beam import BeamResult, extract_hyps
+from bist_tpu_torch.decode.compiled import DecodeProgram
 from bist_tpu_torch.vocab import EOS, PAD, SOS, ids2words, make_id2word, words2ids
 
 log = logging.getLogger(__name__)
@@ -152,9 +155,12 @@ class Responder:
         if self.batch_buckets[-1] != max_batch:
             raise ValueError(f"the largest batch bucket {self.batch_buckets[-1]} "
                              f"must be max_batch {max_batch}")
+        # the decode: one CUDA graph per geometry (on the CPU, the same
+        # stages run eagerly on its static buffers)
+        self.program = DecodeProgram(params, cfg, gcfg)
         # cumulative seconds of each batch's parts, read through
         # DynamicBatcher.metrics()["component_seconds"]: host assembly,
-        # the copy to the device and the decode's launches, the host's wait
+        # the copy to the device and the graph's replay, the host's wait
         # for the device, token extraction
         self.timings = {"assemble_s": 0.0, "ship_s": 0.0,
                         "device_wait_s": 0.0, "extract_s": 0.0}
@@ -245,42 +251,22 @@ class Responder:
             return None
         return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
 
-    def _to_device(self, host: Batch) -> Batch:
-        """The host batch on the serving device.  On the card each array is
-        copied from pinned memory without the host waiting (the grids are
-        pinned already, the small token arrays are pinned here): a blocking
-        copy would wait for the batches still decoding on the stream."""
-        if self.device.type != "cuda":
-            return to_device(host, self.device)
-
-        def move(x):
+    def _pinned(self, host: Batch) -> Batch:
+        """The host batch as CPU tensors; on a CUDA server in pinned memory
+        (the grids are pinned already, the small token arrays are pinned
+        here), so that the program copies them to the card without the host
+        waiting: a blocking copy would wait for the batches still decoding
+        on the stream."""
+        def pin(x):
             t = torch.from_numpy(x)
-            if not t.is_pinned():
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
+            return t if self.device.type != "cuda" or t.is_pinned() else t.pin_memory()
 
-        return Batch(*[None if x is None else move(x) for x in host])
-
-    def _decode(self, batch: Batch, seeds):
-        """Enqueue the decode of a device batch; the results are device
-        tensors, not waited for."""
-        g, cfg = self.gcfg, self.cfg
-        if self._style == "beam_search":
-            return beam_search(self.params, cfg, batch, g)
-        if self._style == "greedy":
-            return greedy_decode(self.params, cfg, batch, g.maxlen,
-                                 cache_dtype=g.cache_dtype, encode_dtype=g.encode_dtype,
-                                 compute_dtype=g.compute_dtype)
-        # row i draws from (sample_seed, seeds[i]): reproducible per request
-        # and independent of the batch it lands in
-        return sample_decode(self.params, cfg, batch, g.maxlen, g.sample_seed,
-                             temperature=g.temperature, top_k=g.top_k, top_p=g.top_p,
-                             cache_dtype=g.cache_dtype, row_seeds=seeds,
-                             encode_dtype=g.encode_dtype)
+        return Batch(*[None if x is None else pin(x) for x in host])
 
     def dispatch(self, reqs: List[Request]):
-        """Assemble the batch, ship it and enqueue its decode; returns a
-        pending handle without waiting for the device.  finish() the
+        """Assemble the batch, copy it in and replay its geometry's graph
+        (captured here if the geometry is new); returns a pending handle
+        without waiting for the device.  finish() the
         handles in dispatch order."""
         t0 = time.perf_counter()
         host_batch = self.make_batch(reqs)
@@ -289,8 +275,9 @@ class Responder:
             seeds = [r.seed if r.seed is not None else next(self._auto_seed)
                      for r in reqs] + [0] * (len(host_batch.query) - len(reqs))
         t1 = time.perf_counter()
-        batch = self._to_device(host_batch)
-        out = self._decode(batch, seeds)
+        # copy in and replay (row i samples from (sample_seed, seeds[i]):
+        # reproducible per request and independent of the batch it lands in)
+        out = self.program(self._pinned(host_batch), row_seeds=seeds)
         t2 = time.perf_counter()
         self.timings["assemble_s"] += t1 - t0
         self.timings["ship_s"] += t2 - t1
@@ -332,9 +319,10 @@ class Responder:
 
     def warmup(self, feature_shape: Optional[Tuple[int, ...]] = None,
                lens=(16,), t_clips=16, all_batch_buckets: bool = True) -> None:
-        """Run the serving geometries once before taking traffic: every batch
-        bucket (or only the smallest), each at the token lengths `lens`
-        (question, history and caption all of length L) and `t_clips` clips.
+        """Capture the serving geometries before taking traffic (one CUDA
+        graph each, `DecodeProgram`): every batch bucket (or only the
+        smallest), each at the token lengths `lens` (question, history and
+        caption all of length L) and `t_clips` clips.
         `feature_shape` (S, Dv) pins the served grid; without it a server
         takes whatever grid its first requests bring."""
         if self.cfg.has_video and self.feat_tail is None and feature_shape is not None:

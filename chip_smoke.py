@@ -33,12 +33,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      blocks, summary caption, pointer generator over query,cap; random
      weights from seed 0) generating for 4 batches of 64 real test turns
      (random features, 8-40 clips of 16 x 2048) by beam search (beam 5,
-     maxlen 12, nbest 5, float32 cache).  Kernel launch counts are zeroed
-     just before and read just after; hop 1 must have gone through its
-     kernel 6 times per batch, every time through "whole".  Then greedy
-     decoding of the same batches, counted the same way.  The same batches
-     then run with the kernels forced off: every precomputed context tensor
-     must agree to 2e-4 and the greedy tokens must be identical;
+     maxlen 12, nbest 5, float32 cache), eager and through its compiled
+     program (decode.compiled.DecodeProgram: one CUDA graph per geometry)
+     in one call.  Eager: a warm-up, then the 4 batches timed with the
+     kernels' launch counts zeroed just before and read just after (K1 6
+     times per batch, all "whole").  Program: a capture pass (each new
+     geometry warmed up eagerly and captured: 12 K1 launches through the
+     wrapper each), a timed pass of replays (no launch through the
+     wrappers: nothing eager) and a pass of replays under torch.profiler in
+     which K1's kernels are counted by name (6 per batch, all "whole";
+     this is the "launches" of the kernels line).  Every replayed output
+     must equal the eager one.  Then greedy decoding of the same batches
+     the same way, and, replayed against eager, beam search and greedy on
+     a bfloat16 cache and sampling with per-row seeds on float32 and
+     bfloat16 caches.  The same batches then run with the kernels forced
+     off: every precomputed context tensor must agree to 2e-4 and the
+     greedy tokens must be identical;
   4. the flash kernel through models.layers.mha in the regime that sends it
      there (d_model 512, 8 heads, 32 queries, 32768 keys, key-padding mask),
      counts zeroed and read around it, held against the plain path;
@@ -63,25 +73,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      artifacts and the result JSON checked;
   8. serving at one geometry: phase 3's model in a Responder (beam 5,
      maxlen 12, float32 cache, batch bucket 64, lengths 32/256/64, 40
-     clips of 16 x 2048) answers phase 3's 256 turns (as text, random
-     features from numpy seed 0) by `respond` in 4 groups of 64; then the
-     same requests as base64 .npy POSTs from 64 client threads released
-     together, through a DynamicBatcher (10 ms window, pipeline depth 4)
-     under the HTTP server on port 0.  Required: every served answer equal
-     to its direct answer (a row's arithmetic does not depend on its
-     neighbours at one geometry), no error, fewer batches than requests,
-     and K1 6 times per batch, all "whole";
+     clips of 16 x 2048; its decode one CUDA graph, captured in warmup())
+     answers phase 3's 256 turns (as text, random features from numpy seed
+     0) by `respond` in 4 groups of 64, each equal to the eager
+     `beam_search` answer for the same rows; then the same requests as
+     base64 .npy POSTs from 64 client threads released together, through a
+     DynamicBatcher (10 ms window, pipeline depth 4) under the HTTP server
+     on port 0, under torch.profiler.  Required: every served answer equal
+     to its eager answer (a row's arithmetic does not depend on its
+     neighbours at one geometry), no error, fewer batches than requests, no
+     eager decode but a capture's warm-up, and K1 6 times per batch in the
+     replays, all "whole", counted by kernel name;
   9. serving at the serve CLI's defaults (batch buckets 8-64, its length
-     and time buckets, bfloat16 cache, beam 5, every bucket warmed up): 512
-     requests from 64 closed-loop clients by beam search, then 128 greedily
-     and 128 with a bfloat16 precompute (K1 on a bfloat16 grid): requests/s,
-     latency percentiles, mean batch rows and component seconds, read with
-     no profiler; then 128 more of each under torch.profiler (recording the
-     device only) for the card's busy share; and the host times of one
-     32-row beam-search batch's parts (assembly, the pinned non-blocking
-     copy against a plain blocking one, the decode's launches).  No error
-     and K1 on "whole" 6 times per batch are required; the rest are
-     readings;
+     and time buckets, bfloat16 cache, beam 5, every bucket captured in
+     warmup(), then the traffic's geometries by serving its 256 requests
+     once): 512 requests from 64 closed-loop clients by beam search,
+     then 128 greedily and 128 with a bfloat16 precompute (K1 on a bfloat16
+     grid): requests/s, latency percentiles, mean batch rows and component
+     seconds, read with no profiler; then 128 more of each under
+     torch.profiler (recording the device only) for the card's busy share
+     and K1's kernels by name; each run's captured geometries, capture
+     seconds, graph pool and reserved device memory; and the host times of
+     one 32-row beam-search batch's parts (assembly, pinning, the replay's
+     ship, a blocking copy, the eager decode's launches).  No error, no
+     eager decode but a capture's warm-up (eager runs equal captures) and
+     K1 on "whole" 6 times per batch in the profiled replays are required;
+     the rest are readings;
  10. the serve CLI as a process of its own on phase 5's model (--port 0,
      the port read from its log): /healthz, /respond with nested-list
      features and with an int8 upload, a 400 without features, /metrics;
@@ -649,18 +666,134 @@ def ctx_tensors(ctx):
     return out
 
 
+def k1_ran(prof):
+    """K1 kernels the card ran in a torch.profiler window, by kernel ("whole",
+    "tiled"), from the trace's kernel names: a graph replay's kernels are
+    recorded there, where the wrappers' Python counts see only their eager
+    launches and captures."""
+    from torch.autograd import DeviceType
+
+    out = {"whole": 0, "tiled": 0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            if "hop1_fwd_whole_kernel" in name:
+                out["whole"] += 1
+            elif "hop1_fwd_tiles_kernel" in name:
+                out["tiled"] += 1
+    return out
+
+
+def profiler_window(device):
+    """torch.profiler recording the card's kernels and copies, or a null
+    context on the CPU."""
+    import contextlib
+
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def same_outputs(a, b):
+    """Whether two decodes' outputs (a BeamResult or token ids) are equal
+    element for element."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def eager_and_replayed(device, name, eager_fn, program, batches, extra=None):
+    """One decode style eager and replayed on the same batches, in one call:
+    the eager function timed (after a warm-up, the wrappers' counts zeroed
+    before and read after: K1 6 times per batch), then the program's
+    capture pass (each new geometry warmed up eagerly and captured; counted
+    the same way: 12 K1 launches per capture), a timed pass of replays
+    (which must launch nothing through the wrappers) and a pass of replays
+    under torch.profiler, whose K1 kernels are counted by name (6 per
+    batch, all "whole").  Every replayed output must equal the eager one."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
+
+    extra = extra or [{}] * len(batches)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n, rows = len(batches), sum(b.query.shape[0] for b in batches)
+
+    def counts():
+        return hop1_fused.launches, dict(hop1_fused.variants)
+
+    eager_fn(batches[0], **extra[0])                                   # warm-up
+    sync()
+    reset_hop1_counts()
+    t0 = time.perf_counter()
+    eager = [eager_fn(b, **kw) for b, kw in zip(batches, extra)]
+    sync()
+    eager_s = time.perf_counter() - t0
+    eager_counts = counts()
+    if cuda and eager_counts != (6 * n, {"whole": 6 * n}):
+        raise AssertionError(f"{name}, eager: K1 launches {eager_counts}, expected "
+                             f"{6 * n} on \"whole\" (6 per batch)")
+
+    reset_hop1_counts()
+    before = program.stats()
+    first = [program(b, **kw) for b, kw in zip(batches, extra)]
+    sync()
+    caps = program.captures - before["captures"]
+    if cuda and (counts() != (12 * caps, {"whole": 12 * caps})
+                 or program.eager_runs - before["eager_runs"] != caps):
+        raise AssertionError(f"{name}, capture pass: K1 launches {counts()} for {caps} "
+                             f"captures, expected 12 each (the warm-up and the capture)")
+    reset_hop1_counts()
+    t0 = time.perf_counter()
+    replayed = [program(b, **kw) for b, kw in zip(batches, extra)]
+    sync()
+    replay_s = time.perf_counter() - t0
+    if counts()[0] or program.captures != before["captures"] + caps:
+        raise AssertionError(f"{name}: the replay pass launched K1 {counts()} through the "
+                             f"wrappers or captured again: it decoded eagerly")
+    prof = profiler_window(device)
+    with prof:
+        again = [program(b, **kw) for b, kw in zip(batches, extra)]
+        sync()
+    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+    if cuda and ran != {"whole": 6 * n, "tiled": 0}:
+        raise AssertionError(f"{name}: K1 kernels in {n} replays by name {ran}, expected "
+                             f"{6 * n} \"whole\" (6 per batch)")
+    differ = [i for i, (e, a, b, c) in enumerate(zip(eager, first, replayed, again))
+              if not (same_outputs(e, a) and same_outputs(e, b) and same_outputs(e, c))]
+    if differ:
+        raise AssertionError(f"{name}: the replayed outputs of batches {differ} differ from "
+                             f"the eager ones")
+    stats = program.stats()
+    out = {"eager_responses_per_s": rows / eager_s, "replayed_responses_per_s": rows / replay_s,
+           "eager_seconds": eager_s, "replayed_seconds": replay_s,
+           "geometries_captured": stats["captures"],
+           "capture_seconds": stats["capture_seconds"],
+           "graph_pool_mb": stats["pool_bytes"] / 2 ** 20,
+           "eager_launches": {"hop1_fwd": eager_counts[0], "hop1_variants": eager_counts[1]},
+           "replayed_k1_by_name": ran, "identical_batches": n}
+    log(f"main path, {name}: {json.dumps(out)}")
+    return eager, out
+
+
 def phase_main_path(device, n_batches=4, B=64):
-    """Beam-search and greedy generation at the flagship width; returns a
-    summary."""
+    """Beam-search and greedy generation at the flagship width, each eager
+    and through its program (one CUDA graph per geometry); sampling and a
+    bfloat16 cache replayed against eager too; returns a summary."""
     import torch
 
     from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import to_device
     from bist_tpu_torch.decode.beam import NEG, beam_search, greedy_decode
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.decode.sample import sample_decode
     from bist_tpu_torch.models.model import init_model, precompute_decode_ctx
     from bist_tpu_torch.ops import dispatch
-    from bist_tpu_torch.ops.bist_kernels import hop1_fused
     from bist_tpu_torch.ops.flash_attention import flash_attention
     from bist_tpu_torch.vocab import get_vocabulary
 
@@ -676,20 +809,12 @@ def phase_main_path(device, n_batches=4, B=64):
     log(f"main path: {n_batches} batches of {B}, vocab {len(vocab)}, grids "
         f"{[tuple(b.fts.shape) for b in batches]}, set-up "
         f"{time.perf_counter() - t0:.1f} s")
-    beam_search(params, cfg, batches[0], gcfg)          # warm-up
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
-    sync()
-    hop1_fused.launches = flash_attention.launches = 0
-    hop1_fused.variants = {}
-    t0 = time.perf_counter()
-    results = [beam_search(params, cfg, b, gcfg) for b in batches]
-    sync()
-    seconds = time.perf_counter() - t0
-    launches = {"hop1_fwd": hop1_fused.launches,
-                "flash_fwd": flash_attention.launches}
-    variants = dict(hop1_fused.variants)
-
+    flash_attention.launches = 0
+    results, beam = eager_and_replayed(
+        device, "beam_search", lambda b: beam_search(params, cfg, b, gcfg),
+        DecodeProgram(params, cfg, gcfg), batches)
     K = gcfg.nbest
     for r in results:
         if tuple(r.tokens.shape) != (B, K, gcfg.maxlen):
@@ -699,36 +824,41 @@ def phase_main_path(device, n_batches=4, B=64):
                 and (r.lengths[:, 0] >= 1).all()):
             raise AssertionError("beam search left a row without a finite "
                                  "first-best hypothesis")
-    want = 6 * n_batches if device.type == "cuda" else 0
-    if launches["hop1_fwd"] != want:
-        raise AssertionError(f"hop-1 kernel launched {launches['hop1_fwd']} "
-                             f"times on the main path, expected {want} "
-                             f"(6 per batch)")
-    if device.type == "cuda" and variants != {"whole": want}:
-        raise AssertionError(f"hop-1 launches on the main path by kernel: "
-                             f"{variants}, expected all {want} on \"whole\"")
 
     # greedy decoding of the same batches (the generate CLI's default style)
-    greedy_decode(params, cfg, batches[0], gcfg.maxlen)          # warm-up
-    sync()
-    hop1_fused.launches = flash_attention.launches = 0
-    hop1_fused.variants = {}
-    t0 = time.perf_counter()
-    greedy = [greedy_decode(params, cfg, b, gcfg.maxlen) for b in batches]
-    sync()
-    greedy_seconds = time.perf_counter() - t0
-    greedy_launches = {"hop1_fwd": hop1_fused.launches,
-                       "flash_fwd": flash_attention.launches}
-    greedy_variants = dict(hop1_fused.variants)
+    greedy_cfg = GenerateConfig(**dict(GEN, decode_style="greedy"))
+    greedy, greedy_run = eager_and_replayed(
+        device, "greedy", lambda b: greedy_decode(params, cfg, b, gcfg.maxlen),
+        DecodeProgram(params, cfg, greedy_cfg), batches)
     for g in greedy:
         if tuple(g.shape) != (B, gcfg.maxlen) or not ((g >= 0) & (g < len(vocab))).all():
             raise AssertionError(f"greedy tokens: shape {tuple(g.shape)} or ids out "
                                  f"of the vocabulary")
-    if greedy_launches["hop1_fwd"] != want or (
-            device.type == "cuda" and greedy_variants != {"whole": want}):
-        raise AssertionError(f"greedy: hop-1 kernel launches {greedy_variants} "
-                             f"({greedy_launches['hop1_fwd']}), expected {want} "
-                             f"on \"whole\"")
+    flash_launches = flash_attention.launches
+
+    # a bfloat16 cache (beam, greedy) and sampling with per-row seeds (float32
+    # and bfloat16 caches): replayed outputs equal to eager ones
+    others = {}
+    bf16 = GenerateConfig(**dict(GEN, cache_dtype="bfloat16"))
+    _, others["beam_search, bfloat16 cache"] = eager_and_replayed(
+        device, "beam_search, bfloat16 cache", lambda b: beam_search(params, cfg, b, bf16),
+        DecodeProgram(params, cfg, bf16), batches)
+    _, others["greedy, bfloat16 cache"] = eager_and_replayed(
+        device, "greedy, bfloat16 cache",
+        lambda b: greedy_decode(params, cfg, b, gcfg.maxlen, cache_dtype="bfloat16"),
+        DecodeProgram(params, cfg, GenerateConfig(**dict(GEN, cache_dtype="bfloat16",
+                                                        decode_style="greedy"))), batches)
+    seeds = [{"row_seeds": list(range(i * B, (i + 1) * B))} for i in range(n_batches)]
+    for cache in ("float32", "bfloat16"):
+        sg = GenerateConfig(**dict(GEN, cache_dtype=cache, decode_style="sample",
+                                   temperature=0.8, top_k=20, top_p=0.9, sample_seed=3))
+        _, others[f"sample, {cache} cache"] = eager_and_replayed(
+            device, f"sample, {cache} cache",
+            lambda b, row_seeds: sample_decode(
+                params, cfg, b, sg.maxlen, sg.sample_seed, temperature=sg.temperature,
+                top_k=sg.top_k, top_p=sg.top_p, cache_dtype=sg.cache_dtype,
+                row_seeds=row_seeds),
+            DecodeProgram(params, cfg, sg), batches, extra=seeds)
 
     # the context precompute alone (encode + the BiST stack, where K1 runs)
     sync()
@@ -768,16 +898,19 @@ def phase_main_path(device, n_batches=4, B=64):
             same += int(n == int(pr.lengths[row, 0]) and torch.equal(
                 r.tokens[row, 0, :n], pr.tokens[row, 0, :n]))
             total += 1
+    ran = beam["replayed_k1_by_name"]
     return {"batches": n_batches, "batch_size": B,
-            "responses_per_s": n_batches * B / seconds, "seconds": seconds,
+            "responses_per_s": beam["replayed_responses_per_s"],
+            "seconds": beam["replayed_seconds"],
             "precompute_seconds": precompute_seconds,
-            "launches": launches, "hop1_variants": variants,
+            # K1 in the replayed beam-search pass, by kernel name (profiler)
+            "launches": {"hop1_fwd": sum(ran.values()), "flash_fwd": flash_launches},
+            "hop1_variants": {k: v for k, v in ran.items() if v},
+            "beam_search": beam,
             "ctx_max_abs_diff": worst,
             "first_best_identical_share": same / total,
-            "greedy": {"responses_per_s": n_batches * B / greedy_seconds,
-                       "seconds": greedy_seconds, "launches": greedy_launches,
-                       "hop1_variants": greedy_variants,
-                       "identical_share": greedy_same / (n_batches * B)}}
+            "greedy": dict(greedy_run, identical_share=greedy_same / (n_batches * B)),
+            "replayed_against_eager": others}
 
 
 # ---------------------------------------------------------------------------
@@ -1217,47 +1350,83 @@ def reset_hop1_counts():
     hop1_fused.variants = {}
 
 
-def check_hop1_per_batch(device, what, batches):
-    """K1 launched 6 times per served batch (t2s and s2t in each of 3 video
-    layers), every time through "whole", since the counts were reset; on
-    the CPU no launch.  Returns the counts."""
+def check_k1_window(device, what, batches, program, before, prof=None):
+    """A served window's decodes went through the Responder's program: every
+    eager run was a capture's warm-up, the wrappers launched K1 only for the
+    window's captures (6 in the warm-up, 6 captured), and, with a profiler
+    window `prof`, the card ran K1 6 times per batch and per warm-up (t2s
+    and s2t in each of 3 video layers), all "whole", counted by kernel name
+    in the trace.  On the CPU nothing is captured or launched.  Returns the
+    wrappers' counts ("hop1_fwd") and the trace's ("hop1_fwd_ran")."""
     from bist_tpu_torch.ops.bist_kernels import hop1_fused
 
-    want = 6 * batches if device.type == "cuda" else 0
-    launches, variants = hop1_fused.launches, dict(hop1_fused.variants)
-    if launches != want or (device.type == "cuda" and variants != {"whole": want}):
-        raise AssertionError(f"{what}: K1 launches {launches} by kernel {variants}, "
-                             f"expected {want} on \"whole\" (6 per batch, {batches} batches)")
-    return {"hop1_fwd": launches, "hop1_variants": variants}
+    cuda = device.type == "cuda"
+    stats = program.stats()
+    caps = stats["captures"] - before["captures"]
+    warm = stats["eager_runs"] - before["eager_runs"]
+    out = {"hop1_fwd": hop1_fused.launches, "hop1_variants": dict(hop1_fused.variants),
+           "captures": caps}
+    if stats["eager_runs"] != stats["captures"] or warm != caps:
+        raise AssertionError(f"{what}: {stats['eager_runs']} eager runs for "
+                             f"{stats['captures']} captures: the Responder decoded eagerly")
+    want = 12 * caps if cuda else 0
+    if hop1_fused.launches != want or (cuda and want and hop1_fused.variants != {"whole": want}):
+        raise AssertionError(f"{what}: K1 wrapper launches {hop1_fused.launches} "
+                             f"{hop1_fused.variants}, expected {want} for {caps} captures")
+    if prof is not None:
+        ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+        want = 6 * (batches + warm) if cuda else 0
+        if ran != {"whole": want, "tiled": 0}:
+            raise AssertionError(f"{what}: K1 kernels by name {ran}, expected {want} "
+                                 f"\"whole\" (6 per batch, {batches} batches, {warm} warm-ups)")
+        out.update(hop1_fwd_ran=sum(ran.values()),
+                   hop1_ran_variants={k: v for k, v in ran.items() if v})
+    return out
 
 
 def phase_serving_exact(device, model, fields, group=64, clients=64, dv=DV, s=S,
                         t_max=T_MAX):
     """Serving at one geometry (batch bucket `group`, lengths LQ/LH/LC, t_max
-    clips), beam 5, float32 cache: the requests' reference answers from
-    Responder.respond in groups of `group` in order, then the same requests
-    as base64 .npy POSTs from `clients` threads released together, through
-    a DynamicBatcher (10 ms window, pipeline depth 4) under the HTTP server.
-    Each row's arithmetic is independent of its neighbours at one geometry,
-    so every served answer must be its reference answer."""
+    clips), beam 5, float32 cache: the requests' reference answers from the
+    eager `beam_search` on their batches in groups of `group` in order,
+    which Responder.respond (a replay of the warmed geometry) must give too;
+    then the same requests as base64 .npy POSTs from `clients` threads
+    released together, through a DynamicBatcher (10 ms window, pipeline
+    depth 4) under the HTTP server, with torch.profiler counting K1's
+    kernels in the replays.  Each row's arithmetic is independent of its
+    neighbours at one geometry, so every served answer must be its
+    reference answer."""
     import threading
 
     import torch
 
     from bist_tpu_torch.cli.serve import make_http_server
     from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search, extract_hyps
     from bist_tpu_torch.serving import DynamicBatcher, Responder
 
     vocab, cfg, params = model
-    rsp = Responder(params, cfg, vocab, GenerateConfig(**GEN), max_batch=group,
+    gcfg = GenerateConfig(**GEN)
+    rsp = Responder(params, cfg, vocab, gcfg, max_batch=group,
                     batch_buckets=(group,), len_buckets={"q": (LQ,), "h": (LH,), "c": (LC,)},
                     time_buckets=(t_max,), feat_tail=(s, dv))
     rsp.warmup(feature_shape=(s, dv), t_clips=min(8, t_max))
     n = len(fields)
     reqs = [rsp.make_request(**f) for f in fields]
+    reference = []
     for i in range(0, n, group):
-        rsp.respond(reqs[i:i + group])
-    reference = [r._answer for r in reqs]
+        part = reqs[i:i + group]
+        eager = beam_search(params, cfg, rsp.make_batch(part), gcfg)
+        for row in range(len(part)):
+            hyps = extract_hyps(eager, rsp.id2word, row, gcfg.nbest)
+            reference.append(" ".join(hyps[0][0]) if hyps else "")
+        rsp.respond(part)
+    replayed = [r._answer for r in reqs]
+    if replayed != reference:
+        bad = [i for i in range(n) if replayed[i] != reference[i]]
+        raise AssertionError(f"serving: {len(bad)} of {n} respond() answers (replays) differ "
+                             f"from the eager beam_search ones, e.g. request {bad[0]}: "
+                             f"{replayed[bad[0]]!r} against {reference[bad[0]]!r}")
     bodies = [json.dumps({"question": f["question"], "history": f["history"],
                           "caption": f["caption"],
                           "features_b64": npy_b64(f["features"])}).encode() for f in fields]
@@ -1282,16 +1451,19 @@ def phase_serving_exact(device, model, fields, group=64, clients=64, dv=DV, s=S,
 
     threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    prof = profiler_window(device)
     try:
         sync()
         reset_hop1_counts()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        seconds = time.perf_counter() - t0
-        sync()
+        before = rsp.program.stats()
+        with prof:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            seconds = time.perf_counter() - t0
+            sync()
         if any(t.is_alive() for t in threads):
             raise AssertionError("serving: a client did not finish within 600 s")
     finally:
@@ -1305,13 +1477,13 @@ def phase_serving_exact(device, model, fields, group=64, clients=64, dv=DV, s=S,
                              f"batcher errors {stats['errors']}")
     if differ:
         raise AssertionError(
-            f"serving: {len(differ)} of {n} served answers differ from the direct "
-            f"respond() answers, e.g. request {differ[0]}: served "
+            f"serving: {len(differ)} of {n} served answers differ from the eager "
+            f"beam_search answers, e.g. request {differ[0]}: served "
             f"{served[differ[0]]!r}, direct {reference[differ[0]]!r}")
     if not stats["batches"] < n:
         raise AssertionError(f"serving: {stats['batches']} batches for {n} requests: "
                              f"nothing was coalesced")
-    launches = check_hop1_per_batch(device, "serving", stats["batches"])
+    launches = check_k1_window(device, "serving", stats["batches"], rsp.program, before, prof)
     m = batcher.metrics()
     return {"requests": n, "identical": n - len(differ), "errors": stats["errors"],
             "batches": stats["batches"], "mean_batch_rows": m["mean_batch_rows"],
@@ -1335,8 +1507,8 @@ def serve_window(device, rsp, fields, n, clients, profiled):
     ms window, pipeline depth 4), each client sending its next request as
     soon as the last is answered; returns the readings.  With `profiled`
     torch.profiler records the device's kernels and copies over the window,
-    for the card's busy share (it slows the host: the window's requests/s
-    and latencies are not the bare ones)."""
+    for the card's busy share and K1's kernels by name (it slows the host:
+    the window's requests/s and latencies are not the bare ones)."""
     import contextlib
     import itertools
     import threading
@@ -1348,7 +1520,7 @@ def serve_window(device, rsp, fields, n, clients, profiled):
     batcher = DynamicBatcher(rsp, max_batch=rsp.max_batch, max_wait_ms=10,
                              pipeline_depth=4)
     batcher.start()
-    before = dict(rsp.timings)
+    timings = dict(rsp.timings)
     counter, errors = itertools.count(), []
 
     def client():
@@ -1362,13 +1534,11 @@ def serve_window(device, rsp, fields, n, clients, profiled):
 
     threads = [threading.Thread(target=client) for _ in range(clients)]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    prof = contextlib.nullcontext()
-    if profiled and device.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CUDA])
+    prof = profiler_window(device) if profiled else contextlib.nullcontext()
     try:
         sync()
         reset_hop1_counts()
+        before = rsp.program.stats()
         with prof:
             t0 = time.perf_counter()
             for t in threads:
@@ -1387,9 +1557,10 @@ def serve_window(device, rsp, fields, n, clients, profiled):
     out = {"requests": n, "requests_per_s": n / seconds, "seconds": seconds,
            "latency_ms": m["latency_ms"], "batches": m["batches"],
            "mean_batch_rows": m["mean_batch_rows"],
-           "component_seconds": {k: v - before.get(k, 0.0)
+           "component_seconds": {k: v - timings.get(k, 0.0)
                                  for k, v in m["component_seconds"].items()},
-           **check_hop1_per_batch(device, "serving load", m["batches"])}
+           **check_k1_window(device, "serving load", m["batches"], rsp.program, before,
+                             prof if profiled else None)}
     if profiled:
         busy = device_busy_ms(prof) if device.type == "cuda" else None
         out["device_busy_ms"] = busy
@@ -1399,54 +1570,56 @@ def serve_window(device, rsp, fields, n, clients, profiled):
 
 def ship_breakdown(device, rsp, fields, rows=32, reps=3):
     """Host milliseconds of one served batch's parts on an idle server (the
-    median of `reps`): assembly (make_batch), the copy to the card from
-    pinned memory without waiting (dispatch's ship), the same batch by a
-    plain blocking .to() from pageable memory, copying the pageable grid
-    into pinned memory (the step that assembling into pinned memory saves),
-    the decode's launches, and the two copies again with the decode of a
-    batch before still running on the card."""
+    median of `reps`): assembly (make_batch), pinning the token arrays,
+    dispatch's ship (the program's copy into the static inputs without
+    waiting, the graph's replay and the copy-out, enqueued), the same batch
+    by a plain blocking .to() from pageable memory, and the eager
+    beam_search's launches on the device batch (what an eager dispatch
+    would ship), each followed by a synchronize outside the clock."""
     import torch
 
     from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.decode.beam import beam_search
 
     reqs = [rsp.make_request(**f) for f in fields[:rows]]
     host = rsp.make_batch(reqs)
     pageable = host._replace(fts=np.array(host.fts))
+    pinned = rsp._pinned(host)
+    batch = to_device(pageable, device)
 
-    def clock(fn, busy=False):
+    def clock(fn):
         ms = []
         for _ in range(reps):
             torch.cuda.synchronize()
-            if busy:
-                rsp._decode(rsp._to_device(host), None)
             t0 = time.perf_counter()
             fn()
             ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
         return statistics.median(ms)
 
-    batch = rsp._to_device(host)
+    rsp.program(pinned)                         # the geometry captured, if new
     return {"rows": rows, "grid_mb": host.fts.nbytes / 2 ** 20,
             "assemble_ms": clock(lambda: rsp.make_batch(reqs)),
-            "ship_pinned_ms": clock(lambda: rsp._to_device(host)),
+            "pin_tokens_ms": clock(lambda: rsp._pinned(host)),
+            "replay_ship_ms": clock(lambda: rsp.program(pinned)),
             "ship_blocking_ms": clock(lambda: to_device(pageable, device)),
-            "pin_grid_copy_ms": clock(lambda: torch.from_numpy(pageable.fts).pin_memory()),
-            "decode_launch_ms": clock(lambda: rsp._decode(batch, None)),
-            "ship_pinned_behind_decode_ms": clock(lambda: rsp._to_device(host), busy=True),
-            "ship_blocking_behind_decode_ms": clock(lambda: to_device(pageable, device),
-                                                    busy=True)}
+            "eager_decode_launch_ms": clock(lambda: beam_search(rsp.params, rsp.cfg, batch,
+                                                                rsp.gcfg))}
 
 
 def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128,
                        clients=64, dv=DV, s=S):
     """Serving at the serve CLI's defaults (batch buckets 8-64, its length
     and time buckets, bfloat16 cache, beam 5, warmup over every batch
-    bucket): n_req requests by beam search, then n_other greedily and
-    n_other by beam search with a bfloat16 precompute (K1 on a bfloat16
-    grid), each read bare; then n_prof more of each under torch.profiler
+    bucket, then the requests of `fields` once, so that the geometries of
+    their traffic are captured before the windows): n_req requests by beam
+    search, then n_other greedily and n_other by beam search with a
+    bfloat16 precompute (K1 on a bfloat16 grid), each read bare; then n_prof more of each under torch.profiler
     for the card's busy share; on the card, the parts of one beam-search
-    batch (ship_breakdown).  Readings, not gates, apart from no error and K1
-    on "whole" 6 times per batch."""
+    batch (ship_breakdown); each run's captured geometries, capture seconds
+    and graph pool, and the device memory reserved at its end.  Readings,
+    not gates, apart from no error, no eager decode but a capture's warm-up,
+    and K1 on "whole" 6 times per batch in the profiled replays."""
     from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.serving import Responder
 
@@ -1462,13 +1635,32 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
         t0 = time.perf_counter()
         rsp.warmup(feature_shape=(s, dv))
         warm = time.perf_counter() - t0
+        at_warmup = rsp.program.stats()
+        # the traffic's own geometries (warmup() takes one length and time
+        # bucket a batch bucket) captured before the windows are read
+        traffic = serve_window(device, rsp, fields, len(fields), clients, profiled=False)
+        at_traffic = rsp.program.stats()
         out[name] = dict(serve_window(device, rsp, fields, n, clients, profiled=False),
-                         warmup_seconds=warm,
+                         warmup_seconds=warm, warmup_captures=at_warmup["captures"],
+                         warmup_capture_seconds=at_warmup["capture_seconds"],
+                         traffic_warmup={
+                             "requests": traffic["requests"], "seconds": traffic["seconds"],
+                             "captures": traffic["captures"],
+                             "capture_seconds": at_traffic["capture_seconds"]
+                             - at_warmup["capture_seconds"]},
                          profiled=serve_window(device, rsp, fields, n_prof, clients,
                                                profiled=True))
         if device.type == "cuda" and name == "beam_search":
             out[name]["ship_breakdown"] = ship_breakdown(device, rsp, fields)
+        prog = rsp.program.stats()
+        out[name].update(geometries_captured=prog["captures"],
+                         capture_seconds=prog["capture_seconds"],
+                         graph_pool_mb=prog["pool_bytes"] / 2 ** 20)
+        if device.type == "cuda":
+            import torch
+            out[name]["device_memory_reserved_mb"] = torch.cuda.memory_reserved() / 2 ** 20
         log(f"serving load, {name}: {json.dumps(out[name])}")
+        del rsp
     return out
 
 
@@ -1651,12 +1843,15 @@ def main() -> int:
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
                           main_path["launches"]["hop1_fwd"],
-                          f"flagship beam_search, {main_path['batches']} batches "
-                          f"of {main_path['batch_size']}"),
+                          f"flagship beam_search replayed (one CUDA graph a geometry), "
+                          f"{main_path['batches']} batches of {main_path['batch_size']}, "
+                          f"counted by kernel name"),
              variants=main_path["hop1_variants"],
              launches_train=train["launches"]["hop1_fwd"],
-             launches_serving=serving["hop1_fwd"],
-             launches_serving_load={k: v["hop1_fwd"] for k, v in serving_load.items()}),
+             # K1 kernels the card ran in the replays, by name (profiler)
+             launches_serving=serving["hop1_fwd_ran"],
+             launches_serving_load={k: v["profiled"]["hop1_fwd_ran"]
+                                    for k, v in serving_load.items()}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],

@@ -563,9 +563,9 @@ def test_precision_knobs_on_the_card(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_served_batches_ship_from_pinned_memory(cuda):
     """On the card a Responder assembles the feature grid straight into
-    pinned memory and copies every array to the card unchanged; two batches
-    dispatched before either is finished answer as respond() does them one
-    at a time."""
+    pinned memory and hands every array to its program pinned and unchanged;
+    two batches dispatched before either is finished answer as respond()
+    does them one at a time."""
     from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.serving import Responder
     from bist_tpu_torch.vocab import SPECIALS
@@ -593,10 +593,10 @@ def test_served_batches_ship_from_pinned_memory(cuda):
     groups = [group(5), group(8)]
     host = rsp.make_batch([rsp.make_request(**f) for f in groups[0]])
     assert torch.from_numpy(host.fts).is_pinned()
-    dev = rsp._to_device(host)
-    for h, d in zip(host, dev):
+    pinned = rsp._pinned(host)
+    for h, d in zip(host, pinned):
         if h is not None:
-            assert d.device.type == "cuda" and np.array_equal(d.cpu().numpy(), h)
+            assert d.is_pinned() and np.array_equal(d.numpy(), h)
     direct = []
     for g in groups:
         reqs = [rsp.make_request(**f) for f in g]
@@ -607,3 +607,277 @@ def test_served_batches_ship_from_pinned_memory(cuda):
     for p in pending:
         rsp.finish(p)
     assert [[r._answer for r in reqs] for reqs in served] == direct
+
+
+# ---------------------------------------------------------------------------
+# compiled decoding: one CUDA graph per geometry (decode.compiled)
+
+
+def small_model(cuda, seed=0):
+    """A 60-word vocabulary and a model at the flagship's head width (d_model
+    128, 8 heads: K1 "whole"), 2 blocks, 16 x 48 features."""
+    from bist_tpu_torch.vocab import SPECIALS
+
+    vocab = dict(SPECIALS)
+    for i in range(60 - len(vocab)):
+        vocab[f"w{i}"] = len(vocab)
+    cfg = ModelConfig(vocab_size=len(vocab), nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2,
+                      d_model=128, att_h=8, dropout=0.0, ft_sizes=(48,),
+                      include_caption="summary", separate_caption=True)
+    return vocab, cfg, init_model(seed, cfg, device=cuda)
+
+
+def host_batch(rng, B=4, L=9, T=10):
+    toks = rng.integers(4, 60, size=(B, L)).astype(np.int32)
+    toks[:, -2:] = 1
+    fts = rng.standard_normal((B, T, 16, 48)).astype(np.float32)
+    fts[0, T // 2:] = 0.0
+    return Batch(query=toks, his=toks[:, ::-1].copy(), trg=toks[:, :1], trg_y=toks[:, :1],
+                 cap=toks[:, :6].copy(), fts=fts)
+
+
+def same(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_graph_replays_equal_eager(cuda, cache_dtype):
+    """Beam search, greedy and sampling (same row seeds) replayed from one
+    graph on two alternating batches of one geometry: each result identical
+    to the eager function's on the same batch (a value frozen into the graph
+    at capture would show on the second batch); one capture each, one eager
+    warm-up each, nothing eager after."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search, greedy_decode
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.decode.sample import sample_decode
+
+    _, cfg, params = small_model(cuda)
+    rng = np.random.default_rng(3)
+    batches = [host_batch(rng), host_batch(rng)]
+    g = GenerateConfig(maxlen=6, beam=3, nbest=2, cache_dtype=cache_dtype,
+                       temperature=0.8, top_k=20, top_p=0.9, sample_seed=5)
+    seeds = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    eager = {
+        "beam_search": lambda b, i: beam_search(params, cfg, b, g),
+        "greedy": lambda b, i: greedy_decode(params, cfg, b, g.maxlen, cache_dtype=cache_dtype),
+        "sample": lambda b, i: sample_decode(params, cfg, b, g.maxlen, g.sample_seed,
+                                             temperature=g.temperature, top_k=g.top_k,
+                                             top_p=g.top_p, cache_dtype=cache_dtype,
+                                             row_seeds=seeds[i]),
+    }
+    for style, fn in eager.items():
+        prog = DecodeProgram(params, cfg, GenerateConfig(**dict(vars(g), decode_style=style)))
+        for i in (0, 1, 0, 1):
+            kw = {"row_seeds": seeds[i]} if style == "sample" else {}
+            got = prog(batches[i], **kw)
+            torch.cuda.synchronize()
+            assert same(got, fn(to_device(batches[i], cuda), i)), (style, i)
+        stats = prog.stats()
+        assert stats["captures"] == stats["eager_runs"] == stats["geometries"] == 1
+        assert stats["pool_bytes"] > 0
+    early = GenerateConfig(**dict(vars(g), early_exit=True, penalty=-1.0, maxlen=10))
+    prog = DecodeProgram(params, cfg, early)
+    for i in (0, 1, 0):
+        got = prog(batches[i])
+        assert same(got, beam_search(params, cfg, to_device(batches[i], cuda), early))
+
+
+@pytest.mark.cuda
+def test_k1_runs_inside_replays(cuda):
+    """K1 is captured inside the graph: a replay launches nothing through the
+    wrapper (its count means launches issued by the wrapper, captures
+    included) while the profiler's trace shows K1's "whole" kernel 4 times
+    a replay (2 layers, t2s and s2t)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+
+    _, cfg, params = small_model(cuda)
+    rng = np.random.default_rng(4)
+    prog = DecodeProgram(params, cfg, GenerateConfig(maxlen=5, beam=3, nbest=2))
+    batch = host_batch(rng)
+    before = K1.hop1_fused.launches
+    prog(batch)                          # warm-up (4 launches) and capture (4)
+    torch.cuda.synchronize()
+    assert K1.hop1_fused.launches == before + 8
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            prog(batch)
+        torch.cuda.synchronize()
+    assert K1.hop1_fused.launches == before + 8
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("hop1_fwd_whole_kernel" in n for n in names) == 12, names[:40]
+    assert not any("hop1_fwd_tiles_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_k3_captured_through_mha(cuda, monkeypatch):
+    """K3 inside a CUDA graph through `mha` at phase 4's shape (d_model 512, 8
+    heads, 32 queries, 32768 keys, a key-padding mask): replays on two
+    inputs copied into the static ones agree with eager calls within 2e-4."""
+    rng = np.random.default_rng(6)
+    B, Lq, Lk, D, h = 16, 32, 32768, 512, 8
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(6), h, D).items()}
+
+    def inputs():
+        lengths = rng.integers(Lk // 2, Lk + 1, size=B)
+        mask = (np.arange(Lk)[None, None, :] < lengths[:, None, None]).astype(np.int32)
+        return (tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lk, D), cuda),
+                torch.tensor(mask, device=cuda))
+
+    static = inputs()
+    run = lambda q, k, m: mha(p, h, q, k, k, m, drop_rate=0.0)
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(*static)                                 # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        before = K3.flash_attention.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = run(*static)
+        assert K3.flash_attention.launches == before + 1
+        for _ in range(2):
+            new = inputs()
+            for dst, src in zip(static, new):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            close(out, run(*new), "mha through K3, replayed against eager")
+    assert K3.flash_attention.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_capture_in_the_batchers_thread_while_clients_post(cuda):
+    """A geometry first seen at serve time is captured in the batcher's
+    thread while client threads submit and another thread allocates pinned
+    memory and queries events on its own stream (thread-local capture): no
+    error, and every answer equal to the eager beam_search answer."""
+    import threading
+
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search, extract_hyps
+    from bist_tpu_torch.serving import DynamicBatcher, Responder
+
+    vocab, cfg, params = small_model(cuda)
+    g = GenerateConfig(maxlen=6, beam=3, nbest=2)
+    rsp = Responder(params, cfg, vocab, g, max_batch=8, batch_buckets=(8,),
+                    len_buckets=(16,), time_buckets=(16,), feat_tail=(16, 48))
+    rng = np.random.default_rng(10)
+    words = [w for w in vocab if w.startswith("w")]
+    fields = [dict(question=" ".join(rng.choice(words, 5)), history=" ".join(rng.choice(words, 9)),
+                   caption=" ".join(rng.choice(words, 4)),
+                   features=rng.standard_normal((int(rng.integers(3, 16)), 16, 48))
+                   .astype(np.float32)) for _ in range(24)]
+    batcher = DynamicBatcher(rsp, max_batch=8, max_wait_ms=20)
+    batcher.start()
+    stop, answers, errors = threading.Event(), {}, []
+
+    def noise():
+        s = torch.cuda.Stream()
+        while not stop.is_set():
+            with torch.cuda.stream(s):
+                x = torch.empty(1 << 16, pin_memory=True)
+                e = torch.cuda.Event()
+                x.to(cuda, non_blocking=True)
+                e.record(s)
+                e.query()
+
+    def client(c):
+        for i in range(c, len(fields), 6):
+            try:
+                answers[i] = batcher.submit(**fields[i], timeout=300)
+            except Exception as e:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=noise)] + [
+        threading.Thread(target=client, args=(c,)) for c in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads[1:]:
+            t.join(timeout=300)
+    finally:
+        stop.set()
+        threads[0].join(timeout=60)
+        batcher.stop()
+    assert not errors and len(answers) == len(fields)
+    stats = rsp.program.stats()
+    assert stats["captures"] >= 1 and stats["eager_runs"] == stats["captures"]
+    for i, f in enumerate(fields):
+        reqs = [rsp.make_request(**f)]
+        res = beam_search(params, cfg, rsp.make_batch(reqs), g)
+        hyps = extract_hyps(res, rsp.id2word, 0, g.nbest)
+        assert answers[i] == (" ".join(hyps[0][0]) if hyps else ""), i
+
+
+@pytest.mark.cuda
+def test_decode_paths_do_not_sync_the_host(cuda):
+    """No host sync in the eager decode functions on a device batch (a
+    graph cannot hold one), nor in a replay's copy-in, replay and copy-out:
+    each runs under torch.cuda.set_sync_debug_mode("error")."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search, greedy_decode, oracle_decode
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.decode.sample import sample_decode
+
+    _, cfg, params = small_model(cuda)
+    rng = np.random.default_rng(11)
+    host = host_batch(rng)
+    batch = to_device(host, cuda)
+    g = GenerateConfig(maxlen=5, beam=3, nbest=2, cache_dtype="bfloat16")
+    prog = DecodeProgram(params, cfg, g)
+    pinned = Batch(*[None if x is None else torch.from_numpy(x).pin_memory() for x in host])
+    prog(pinned)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        beam_search(params, cfg, batch, g)
+        greedy_decode(params, cfg, batch, 5)
+        oracle_decode(params, cfg, batch)
+        sample_decode(params, cfg, batch, 5, 1, top_k=5, top_p=0.9, row_seeds=[1, 2, 3, 4])
+        prog(pinned)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A decode that syncs the host cannot be captured: the program raises,
+    naming the geometry, and runs nothing eagerly in its place; the card
+    works on after it."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode import beam
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+
+    _, cfg, params = small_model(cuda)
+    rng = np.random.default_rng(12)
+    host = host_batch(rng)
+    g = GenerateConfig(maxlen=4, beam=3, nbest=2)
+    step = beam.decode_step
+
+    def syncing_step(*a, **kw):
+        logp, cache = step(*a, **kw)
+        float(logp.sum())                               # a host sync
+        return logp, cache
+
+    monkeypatch.setattr(beam, "decode_step", syncing_step)
+    prog = DecodeProgram(params, cfg, g)
+    with pytest.raises(RuntimeError, match=r"capturing the beam_search decode at geometry "
+                                           r"beam_search: query \(4, 9\) int32"):
+        prog(host)
+    assert prog.captures == 0 and prog.stats()["geometries"] == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    want = beam.beam_search(params, cfg, to_device(host, cuda), g)
+    assert same(DecodeProgram(params, cfg, g)(host), want)
