@@ -72,7 +72,8 @@ def build_parser():
                         "Python loop, so there is nothing to unroll")
     p.add_argument("--undisclosed-only", default=0, type=int)
     p.add_argument("--labeled-test", default=None, type=str)
-    p.add_argument("--num-workers", default=0, type=int)
+    p.add_argument("--num-workers", default=0, type=int,
+                   help="threads of each feature store's prefetch pool (at least 1)")
     p.add_argument("--gen-batch-size", default=32, type=int)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
@@ -110,9 +111,9 @@ def main(argv=None):
     from bist_tpu_torch import resolve_device
     from bist_tpu_torch.config import GenerateConfig, default_conf_for, load_conf
     from bist_tpu_torch.data.avsd import load_avsd
-    from bist_tpu_torch.data.batching import quantize_features
+    from bist_tpu_torch.data.batching import pinned, quantize_features
     from bist_tpu_torch.data.features import build_stores
-    from bist_tpu_torch.data.loader import AVSDLoader
+    from bist_tpu_torch.data.loader import AVSDLoader, device_prefetch
     from bist_tpu_torch.decode.beam import extract_hyps
     from bist_tpu_torch.decode.compiled import DecodeProgram
     from bist_tpu_torch.decode.sample import mix_seed
@@ -151,11 +152,12 @@ def main(argv=None):
                           merge_source=tcfg.merge_source,
                           undisclosed_only=bool(args.undisclosed_only))
     vis_stores, aud_stores = build_stores(fea_type, args.test_path,
-                                          test_data.vid_set, skip=tcfg.skip)
+                                          test_data.vid_set, skip=tcfg.skip,
+                                          workers=args.num_workers)
     loader = AVSDLoader(test_data, visual_stores=vis_stores,
                         audio_stores=aud_stores, batch_size=args.gen_batch_size,
                         shuffle=False, cut_a=False, len_buckets=tcfg.len_buckets,
-                        time_buckets=tcfg.time_buckets)
+                        time_buckets=tcfg.time_buckets, pin_memory=device.type == "cuda")
     logging.info("#test sample = %d  #test batch = %d",
                  len(test_data.examples), len(loader))
 
@@ -182,19 +184,26 @@ def main(argv=None):
     start_time = time.time()
     answers = {}     # qa_id -> (answer string, nbest hypotheses or None)
     n_done = 0
-    for n_batch, (batch, meta) in enumerate(loader):
+
+    def prepare(batch):
+        """Loader-thread work for the upcoming batches: int8 quantisation and
+        the arrays pinned, so that the program copies them in without
+        blocking."""
         if args.feat_int8 and batch.fts is not None:
             q8, scale = quantize_features(batch.fts)
             batch = batch._replace(fts=q8, fts_scale=scale)
+        return pinned(batch, device)
+
+    def drain(out, meta):
+        """The answers of a decoded batch (reading them waits for its decode;
+        the next batch is queued on the card by then)."""
+        nonlocal n_done
         if gcfg.decode_style == "beam_search":
-            result = program(batch)
             for row in range(meta.real_count):
-                hyps = extract_hyps(result, id2word, row, gcfg.nbest)
+                hyps = extract_hyps(out, id2word, row, gcfg.nbest)
                 answers[meta.qa_ids[row]] = (" ".join(hyps[0][0]) if hyps else "", hyps)
         else:
-            # sampling: the batch counter folded into the seed, so rows of
-            # different batches draw independent noise
-            out = program(batch, seed=mix_seed(args.sample_seed, n_batch)).cpu().numpy()
+            out = out.cpu().numpy()
             for row in range(meta.real_count):
                 answers[meta.qa_ids[row]] = (" ".join(ids2words(out[row], id2word)), None)
         n_done += meta.real_count
@@ -202,6 +211,20 @@ def main(argv=None):
                      "in %.2f s)", n_done, len(test_data.examples),
                      n_done / max(time.time() - start_time, 1e-9), program.captures,
                      program.capture_seconds)
+
+    pending = None
+    for n_batch, (batch, meta) in enumerate(device_prefetch(iter(loader), prepare)):
+        if gcfg.decode_style == "beam_search":
+            out = program(batch)
+        else:
+            # sampling: the batch counter folded into the seed, so rows of
+            # different batches draw independent noise
+            out = program(batch, seed=mix_seed(args.sample_seed, n_batch))
+        if pending is not None:
+            drain(*pending)
+        pending = (out, meta)
+    if pending is not None:
+        drain(*pending)
 
     # reassemble the result JSON in original order (generate.py:30-71)
     result_dialogs = []

@@ -12,16 +12,25 @@ reference columns, the best checkpoint <model>_best.pt (<model>_<N>.pt per
 epoch with --save-all), and --resume (a checkpoint, or 'auto').  It runs on
 CUDA unless --device cpu is given.
 
-With --dropout 0 and --attn-dropout 0, hop 1 of every video layer trains
-through the hand-written kernels (K1 forward with residuals, K2 backward);
-with dropout it takes the plain path, as `bist_tpu` does.  Not ported yet:
-data parallelism over several cards (--num-devices > 1, ROADMAP queue 1 item
-15) and --init-from-ref (reference checkpoints, item 12).
+The train and eval steps run as programs of `train.compiled`: one CUDA
+graph per batch geometry, captured the first time the geometry comes (as
+`bist_tpu` jits both steps); the log reports the geometries captured and
+the capture seconds at each epoch's end, and each epoch's examples/s end to
+end and its wait on the loader.  --remat 1 with dropout cannot be captured:
+the CLI then logs why and steps eagerly.  The feature batches are assembled
+by the native loader (`native/`), and --num-workers sizes each feature
+store's prefetch pool.  With --dropout 0 and --attn-dropout 0, hop 1 of
+every video layer trains through the hand-written kernels (K1 forward with
+residuals, K2 backward); with dropout it takes the plain path, as
+`bist_tpu` does.  Not ported yet: data parallelism over several cards
+(--num-devices > 1, ROADMAP queue 1 item 10) and --init-from-ref
+(reference checkpoints, item 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import time
@@ -48,7 +57,8 @@ def build_parser():
     p.add_argument("--model", default=None, type=str)
     p.add_argument("--cutoff", default=5, type=int)
     p.add_argument("--skip", default=1, type=int)
-    p.add_argument("--num-workers", default=0, type=int)
+    p.add_argument("--num-workers", default=0, type=int,
+                   help="threads of each feature store's prefetch pool (at least 1)")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
     # Model
@@ -105,7 +115,7 @@ def build_parser():
     p.add_argument("--verbose", "-v", default=0, type=int)
     p.add_argument("--init-from-ref", default="", type=str,
                    help="reference-format checkpoints are not read by the "
-                        "port yet (ROADMAP queue 1 item 12); must stay empty")
+                        "port yet (ROADMAP queue 1 item 7); must stay empty")
     p.add_argument("--reference-root", default="", type=str,
                    help="for --init-from-ref; must stay empty")
     p.add_argument("--resume", default="", type=str,
@@ -114,7 +124,7 @@ def build_parser():
                         "checkpoint for --model (fresh start if none)")
     p.add_argument("--num-devices", default=0, type=int,
                    help="0 or 1: the port trains on one card (data "
-                        "parallelism is ROADMAP queue 1 item 15)")
+                        "parallelism is ROADMAP queue 1 item 10)")
     p.add_argument("--bf16", default=0, type=int, help="bfloat16 activations")
     p.add_argument("--remat", default=0, type=int,
                    help="gradient checkpointing per decoder round")
@@ -130,25 +140,25 @@ def main(argv=None):
         print(f"{k}={getattr(args, k)}")
     if args.num_devices > 1:
         raise SystemExit("--num-devices > 1: data-parallel training is not "
-                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 15)")
+                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 10)")
     if args.init_from_ref or args.reference_root:
         raise SystemExit("--init-from-ref: reference-format checkpoints are not "
-                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 12)")
+                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 7)")
 
     import torch
 
     from bist_tpu_torch import resolve_device
     from bist_tpu_torch.config import ModelConfig, TrainConfig, save_conf
     from bist_tpu_torch.data.avsd import load_avsd
-    from bist_tpu_torch.data.batching import quantize_features, to_device
+    from bist_tpu_torch.data.batching import pinned, quantize_features
     from bist_tpu_torch.data.features import build_stores, feature_shape
     from bist_tpu_torch.data.loader import AVSDLoader
     from bist_tpu_torch.train.checkpoint import (AsyncSaver, find_latest_checkpoint,
                                                  restore_train_state, save_checkpoint)
+    from bist_tpu_torch.train.compiled import EvalProgram, TrainProgram
     from bist_tpu_torch.train.loop import (append_trace, create_train_state,
                                            dropout_generator, init_csv_logs,
-                                           make_eval_step, make_train_step,
-                                           run_epoch)
+                                           make_train_step, run_epoch)
     from bist_tpu_torch.vocab import get_vocabulary
 
     device = resolve_device(args.device)
@@ -170,7 +180,8 @@ def main(argv=None):
     valid_data = load_avsd(args.valid_set, vocab, **data_kw)
 
     vis_stores, aud_stores = build_stores(args.fea_type, args.train_path,
-                                          train_data.vid_set, skip=args.skip)
+                                          train_data.vid_set, skip=args.skip,
+                                          workers=args.num_workers)
     for s in vis_stores + aud_stores:
         s.register(valid_data.vid_set)
     ft_sizes = tuple(feature_shape(vis_stores) + feature_shape(aud_stores))
@@ -203,10 +214,13 @@ def main(argv=None):
                          f"--grad-accum {args.grad_accum}")
 
     def prepare(batch):              # runs on the prefetch thread
+        """int8 quantisation, then the arrays pinned (the feature grids are
+        assembled in pinned memory), so that the programs copy them to the
+        card without blocking."""
         if args.feat_int8 and batch.fts is not None and batch.fts_scale is None:
             q8, scale = quantize_features(batch.fts)
             batch = batch._replace(fts=q8, fts_scale=scale)
-        return to_device(batch, device)
+        return pinned(batch, device)
 
     # the tail batch is padded to a multiple of the microbatch count (padded
     # rows are all-PAD: zero tokens, zero loss; real_count excludes them)
@@ -214,7 +228,8 @@ def main(argv=None):
         data, visual_stores=vis_stores, audio_stores=aud_stores,
         batch_size=args.batch_size, shuffle=shuffle, cut_a=cut_a,
         seed=args.rand_seed, len_buckets=tcfg.len_buckets,
-        time_buckets=tcfg.time_buckets, pad_batch_multiple=pad_mult)
+        time_buckets=tcfg.time_buckets, pad_batch_multiple=pad_mult,
+        pin_memory=device.type == "cuda")
     train_loader = mk_loader(train_data, True, bool(args.cut_a), max(args.grad_accum, 1))
     valid_loader = mk_loader(valid_data, False, False, 1)
     logging.info("#train sample = %d  #train batch = %d",
@@ -243,8 +258,18 @@ def main(argv=None):
         for k in vars(args):
             f.write(f"{k}={getattr(args, k)}\n")
 
-    train_step = make_train_step(cfg, tcfg, tx, grad_accum=args.grad_accum)
-    eval_step = make_eval_step(cfg, tcfg)
+    holder = [state]
+    gen = dropout_generator(cfg, device)
+    programs = {"eval": EvalProgram(state.params, cfg, tcfg)}
+    try:
+        programs["train"] = TrainProgram(state, cfg, tcfg, tx,
+                                         grad_accum=args.grad_accum, gen=gen)
+    except ValueError as e:
+        # what a graph cannot hold (remat with dropout) steps eagerly, and says so
+        logging.warning("the train step runs eagerly, not as a CUDA graph: %s", e)
+    train_step = programs.get("train") or make_train_step(cfg, tcfg, tx,
+                                                          grad_accum=args.grad_accum)
+    eval_step = programs["eval"]
     train_log, trace_log = init_csv_logs(args.model, resume=bool(resume_path),
                                          start_epoch=start_epoch)
     logging.info("Saving training results to %s", train_log)
@@ -253,8 +278,6 @@ def main(argv=None):
                  if device.type == "cuda" else "cpu")
     logging.info("----------------")
     bestmodel_num = 0
-    holder = [state]
-    gen = dropout_generator(cfg, device)
     saver = AsyncSaver() if args.async_ckpt else None
     save_fn = saver.save if saver is not None else save_checkpoint
     try:
@@ -275,6 +298,9 @@ def main(argv=None):
             logging.info("epoch: %d valid loss: %s aeTemporalLoss %s aeSpatialLoss %s",
                          epoch + 1, valid_losses["out"],
                          valid_losses["temporal_ae"], valid_losses["spatial_ae"])
+            for name, prog in programs.items():
+                logging.info("epoch %d %s program: %s", epoch + 1, name,
+                             json.dumps(prog.stats()))
             append_trace(trace_log, epoch, "train", train_losses)
             append_trace(trace_log, epoch, "val", valid_losses)
 

@@ -39,6 +39,17 @@ def to_device(batch: Batch, device) -> Batch:
                    for x in batch])
 
 
+def pinned(batch: Batch, device) -> Batch:
+    """Every array of `batch` as a CPU tensor, for a CUDA `device` in pinned
+    memory (an array pinned already is kept), so that a copy to the card
+    does not make the host wait for the work queued on the stream."""
+    def pin(x):
+        t = torch.as_tensor(x)
+        return t if torch.device(device).type != "cuda" or t.is_pinned() else t.pin_memory()
+
+    return Batch(*[None if x is None else pin(x) for x in batch])
+
+
 def quantize_features(fts: np.ndarray):
     """Symmetric per-position int8 quantisation of a (B, T, S, D) grid:
     (int8 grid, (B, T, S, 1) f32 scale); zero rows stay exactly zero, so the

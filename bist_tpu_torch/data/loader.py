@@ -9,7 +9,11 @@ copy of `bist_tpu.data.loader`).
     (reference Dataset.__getitem__, dataset.py:33-38);
   * one numpy `default_rng(seed)` drives the shuffle and the cuts in the
     JAX package's order of draws, so both packages give the same batches for
-    the same seed.
+    the same seed;
+  * the next batch's feature files are prefetched while the current batch
+    is assembled (features.FeatureStore.prefetch);
+  * with `pin_memory` the feature grids are assembled straight into pinned
+    host memory, which a copy to the card reads without blocking.
 
 `device_prefetch` moves upcoming batches to the device on a background
 thread while the current step runs.
@@ -20,6 +24,7 @@ from __future__ import annotations
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from bist_tpu_torch.data.avsd import AVSDData, Example, cut_answer
 from bist_tpu_torch.data.batching import Batch, BatchMeta, bucket_len, make_batch
@@ -37,7 +42,7 @@ class AVSDLoader:
                  cut_a: bool = False, seed: int = 1,
                  len_buckets: Sequence[int] = (16, 32, 64, 128, 256),
                  time_buckets: Sequence[int] = (16, 32, 48, 64),
-                 pad_batch_multiple: int = 1):
+                 pad_batch_multiple: int = 1, pin_memory: bool = False):
         self.data = data
         self.visual_stores = list(visual_stores)
         self.audio_stores = list(audio_stores)
@@ -48,6 +53,7 @@ class AVSDLoader:
         self.len_buckets = tuple(len_buckets)
         self.time_buckets = tuple(time_buckets)
         self.pad_batch_multiple = max(1, pad_batch_multiple)
+        self.pin_memory = pin_memory
 
     def __len__(self) -> int:
         n = len(self.data.examples)
@@ -73,9 +79,14 @@ class AVSDLoader:
 
     def __iter__(self) -> Iterator[Tuple[Batch, BatchMeta]]:
         order = self._epoch_order()
-        for s in range(0, len(order), self.batch_size):
-            yield self._assemble([self.data.examples[i]
-                                  for i in order[s:s + self.batch_size]])
+        bs = self.batch_size
+        for s in range(0, len(order), bs):
+            # the next batch's files load on the stores' pools while this
+            # batch is assembled
+            nxt = [self.data.examples[i].vid for i in order[s + bs:s + 2 * bs]]
+            for store in self.visual_stores + self.audio_stores:
+                store.prefetch(nxt)
+            yield self._assemble([self.data.examples[i] for i in order[s:s + bs]])
 
     def _assemble(self, exs: List[Example]) -> Tuple[Batch, BatchMeta]:
         ans_in, ans_out = [], []
@@ -89,10 +100,12 @@ class AVSDLoader:
         n_rows = (len(exs) + m - 1) // m * m
 
         def _features(store):
-            arr = store.get_batch(vids, bucket_len(store.max_t(vids), self.time_buckets))
-            if n_rows > len(exs):
-                arr = np.concatenate(
-                    [arr, np.zeros((n_rows - len(exs),) + arr.shape[1:], np.float32)])
+            t_pad = bucket_len(store.max_t(vids), self.time_buckets)
+            shape = (n_rows, t_pad) + tuple(store.shape_of(vids[0])[1:])
+            arr = (torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+                   if self.pin_memory else np.empty(shape, np.float32))
+            store.get_batch(vids, t_pad, out=arr[:len(exs)])
+            arr[len(exs):] = 0.0
             return arr
 
         batch = make_batch(

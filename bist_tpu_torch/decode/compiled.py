@@ -60,6 +60,14 @@ def describe(key) -> str:
         for name, shape, dtype in key[1:])
 
 
+def pool_bytes(pool) -> int:
+    """Device bytes a graph memory pool holds (0 for None, on the CPU)."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 class _Entry:
     """One geometry: its static inputs (stage 0's input), its graphs (none
     on the CPU) and each graph's static outputs."""
@@ -236,13 +244,6 @@ class DecodeProgram:
 
     # -- reports --------------------------------------------------------
 
-    def pool_bytes(self) -> int:
-        """Device bytes the graphs' shared memory pool holds (0 on the CPU)."""
-        if self._pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == tuple(self._pool))
-
     def stats(self) -> Dict[str, object]:
         """Geometries seen, captured, eager warm-up runs, capture seconds and
         the pool's bytes."""
@@ -250,4 +251,4 @@ class DecodeProgram:
             n = len(self._entries)
         return {"geometries": n, "captures": self.captures,
                 "eager_runs": self.eager_runs, "capture_seconds": self.capture_seconds,
-                "pool_bytes": self.pool_bytes()}
+                "pool_bytes": pool_bytes(self._pool)}

@@ -10,8 +10,9 @@ The library name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as built.  `build()` starts
 one `nvcc` per missing library, all at once, and raises if any fails.
-Nothing here runs at import: a kernel's library is built the first time its
-wrapper launches it (or when a caller asks, as `chip_smoke.py` does).
+Nothing here runs at import: the kernels' libraries are built the first
+time a wrapper launches a kernel (or when a caller asks, as `chip_smoke.py`
+does).
 """
 
 from __future__ import annotations
@@ -88,10 +89,14 @@ def build(names: Optional[Iterable[str]] = None,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source `name`, built first if needed."""
+    """The loaded library of kernel source `name`, built first if needed,
+    together with every other kernel source not built yet, all in parallel:
+    a process that launches one kernel (a train step's K1) soon launches
+    another (its K2), and one build after the other would add up inside
+    that first step."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build()
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

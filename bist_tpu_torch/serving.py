@@ -54,7 +54,7 @@ import torch
 
 from bist_tpu_torch.config import GenerateConfig, ModelConfig
 from bist_tpu_torch.data.batching import (Batch, bucket_len, pad_features, pad_tokens,
-                                          quantize_features)
+                                          pinned, quantize_features)
 from bist_tpu_torch.decode.beam import BeamResult, extract_hyps
 from bist_tpu_torch.decode.compiled import DecodeProgram
 from bist_tpu_torch.vocab import EOS, PAD, SOS, ids2words, make_id2word, words2ids
@@ -257,11 +257,7 @@ class Responder:
         here), so that the program copies them to the card without the host
         waiting: a blocking copy would wait for the batches still decoding
         on the stream."""
-        def pin(x):
-            t = torch.from_numpy(x)
-            return t if self.device.type != "cuda" or t.is_pinned() else t.pin_memory()
-
-        return Batch(*[None if x is None else pin(x) for x in host])
+        return pinned(host, self.device)
 
     def dispatch(self, reqs: List[Request]):
         """Assemble the batch, copy it in and replay its geometry's graph

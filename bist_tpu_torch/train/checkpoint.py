@@ -33,7 +33,8 @@ def checkpoint_file(path: str) -> str:
 def _payload(state, epoch: int, best_valid_loss: float,
              extra: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """The state as CPU copies: the caller may update its tensors as soon
-    as this returns."""
+    as this returns.  The count is saved as an int (one sync for a count on
+    the device)."""
     host = lambda t: t.detach().to("cpu", copy=True)
     opt = state.opt_state
     return {"params": tree_map(host, state.params),
@@ -116,21 +117,30 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def restore_train_state(path: str, template_state) -> Tuple[Any, Dict[str, Any]]:
-    """The TrainState saved at `path`, on the template's device and with its
-    tree (parameters that require grad), and the checkpoint's meta."""
+    """The TrainState saved at `path` and the checkpoint's meta.  The saved
+    values are copied into the template's own tensors (its parameters, and
+    its optimizer state's `mu`, `nu` and tensor `count`), so a train
+    program built on the template steps the restored state.  A count saved
+    as an int (every checkpoint, those written before the count lived on
+    the device included) fills a tensor count."""
     payload = load_checkpoint(path)
     leaves = tree_leaves(template_state.params)
     saved = tree_leaves(payload["params"])
     if len(saved) != len(leaves):
         raise ValueError(f"checkpoint {path}: {len(saved)} parameters, the model "
                          f"has {len(leaves)}")
+    opt, tmpl = payload["opt_state"], template_state.opt_state
     with torch.no_grad():
         for t, s in zip(leaves, saved):
             t.copy_(s)
-    dev = leaves[0].device
-    opt = payload["opt_state"]
-    opt_state = {"count": int(opt["count"]),
-                 "mu": [t.to(dev) for t in opt["mu"]],
-                 "nu": [t.to(dev) for t in opt["nu"]]}
+        for name in ("mu", "nu"):
+            for t, s in zip(tmpl[name], opt[name]):
+                t.copy_(s)
+        count = tmpl["count"]
+        if isinstance(count, torch.Tensor):
+            count.fill_(int(opt["count"]))
+        else:
+            count = int(opt["count"])
+    opt_state = dict(tmpl, count=count)
     return (type(template_state)(template_state.params, opt_state,
                                  int(payload["step"])), payload.get("meta", {}))

@@ -10,19 +10,24 @@ best-checkpoint logic).  As in the JAX package:
   * CSV artifacts keep the reference's file names and column layout
     (train.py:121-128,151-155).
 
-What differs: PyTorch runs eagerly, so there is no jit; parameters are leaf
-tensors (`requires_grad`) updated in place by the optimizer, as the JAX step
-donates its state; dropout draws from an explicit `torch.Generator`,
-re-seeded every step from (seed, step) as the JAX loop folds the step into
-its key, so a resumed run draws what an uninterrupted one would.  Its bits
-differ from JAX's: with dropout the two packages agree only in distribution.
+What differs: the steps here run eagerly, and `train.compiled` captures
+each into one CUDA graph per batch geometry (the counterpart of the jit);
+parameters are leaf tensors (`requires_grad`) updated in place by the
+optimizer, as the JAX step donates its state; dropout draws from an
+explicit `torch.Generator`, re-seeded every step from (seed, step) as the
+JAX loop folds the step into its key, so a resumed run draws what an
+uninterrupted one would.  Its bits differ from JAX's: with dropout the two
+packages agree only in distribution.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import logging
 import math
 import os
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -171,18 +176,35 @@ def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
               prepare: Optional[Callable] = None,
               state_holder: Optional[list] = None,
               device=None) -> Dict[str, float]:
-    """One pass over the loader.  For train=True, state_holder is a
-    1-element list holding the TrainState (replaced after every step, so the
-    caller sees updates), and `gen`, if not None, is re-seeded from (seed,
-    step) before every step.  `prepare` (e.g. the move to the device) runs on
-    a background thread for the upcoming batches (data.loader.device_prefetch)."""
+    """One pass over the loader.  `step_fn` is an eager step
+    (`make_train_step`, `make_eval_step`) or a program of `train.compiled`
+    (`TrainProgram`, `EvalProgram`), which take the same arguments.  For
+    train=True, state_holder is a 1-element list holding the TrainState
+    (replaced after every step, so the caller sees updates), and `gen`, if
+    not None, is re-seeded from (seed, step) before every step (the step a
+    Python int on the host, so the loop never waits on the device).
+    `prepare` (e.g. the move to the device) runs on a background thread for
+    the upcoming batches (data.loader.device_prefetch).
+
+    Besides the step rate (`StepTimer`, the steps alone) it logs the
+    epoch's examples/s end to end and the seconds it waited on the loader,
+    as one JSON object on an "epoch feed" line."""
     from bist_tpu_torch.data.loader import device_prefetch
     from bist_tpu_torch.utils.profiling import StepTimer
 
     stats = EpochStats()
     timer = StepTimer(warmup=1, device=device)
-    it = loader if prepare is None else device_prefetch(iter(loader), prepare=prepare)
-    for j, (batch, meta) in enumerate(it):
+    it = iter(loader) if prepare is None else device_prefetch(iter(loader), prepare=prepare)
+    t_start = time.perf_counter()
+    loader_wait, examples = 0.0, 0
+    for j in itertools.count():
+        t0 = time.perf_counter()
+        item = next(it, None)
+        loader_wait += time.perf_counter() - t0
+        if item is None:
+            break
+        batch, meta = item
+        examples += meta.real_count
         with timer.step(items=meta.real_count):
             if train:
                 state = state_holder[0]
@@ -212,14 +234,20 @@ def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
                         epoch + 1, j + 1, float(metrics["out"]) / nt,
                         float(metrics["temporal_ae"]) / qt,
                         float(metrics["spatial_ae"]) / qt))
+    summary = stats.summary()            # reads the sums: waits for the last step
+    seconds = time.perf_counter() - t_start
+    split = "train" if train else "eval"
     t = timer.summary()
     if t["steps"] > 0:
         # the timer wraps step_fn only: the wait on the loader is not in it
         log.info("%s step rate: %.0f examples/s (%.1f ms/step over %d steps, "
-                 "loader wait excluded)",
-                 "train" if train else "eval", t["items_per_s"],
+                 "loader wait excluded)", split, t["items_per_s"],
                  t["mean_s"] * 1e3, t["steps"])
-    return stats.summary()
+    log.info("%s epoch feed: %s", split, json.dumps({
+        "epoch": epoch + 1, "steps": j, "examples": examples, "seconds": seconds,
+        "examples_per_s": examples / seconds if seconds > 0 else 0.0,
+        "loader_wait_seconds": loader_wait}))
+    return summary
 
 
 def init_csv_logs(model_prefix: str, resume: bool = False,

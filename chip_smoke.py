@@ -67,10 +67,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      times per step each, every time through "whole"; the loss finite and
      lower at the end on the same batch; ms/step (median after the first)
      and examples/s; then 3 steps under torch.profiler for the device time
-     per step and the hop-1 kernels' part of it;
-  7. the train CLI for one epoch on phase 5's tiny dataset without dropout,
-     then the generate CLI from its <model>_best.pt; the CSV headers, the
-     artifacts and the result JSON checked;
+     per step and the hop-1 kernels' part of it.  Then the compiled steps
+     (train.compiled: one CUDA graph per batch geometry), each from a copy
+     of the same start state: a TrainProgram's first 11 calls (the first
+     the geometry's eager warm-up) held against the first 11 eager steps
+     (loss and metrics to 5e-4 relative, parameters after them to 5e-4 +
+     5e-3·|p|, the key biases to 5e-4 + 2·Σlr), 30 replays timed beside the
+     eager ms/step, 3 under torch.profiler (K1 and K2 6 times a step each
+     by kernel name, all "whole"; device ms and busy share); the flagship
+     as it trains (dropout 0.2) eager and replayed, 8 steps each at the
+     same seeds, held to each other; grad_accum 2, one replay held against
+     the eager step; an EvalProgram against make_eval_step (5e-4), its K1
+     counted by name;
+  7. the train CLI for one epoch on phase 5's tiny dataset without dropout
+     and with --num-workers 4 (its train and eval steps through their
+     programs, its batches by the native assembler: no fallback line in its
+     log; its epoch feed and program stats read from the log), then the
+     generate CLI from its <model>_best.pt; the CSV headers, the artifacts
+     and the result JSON checked;
   8. serving at one geometry: phase 3's model in a Responder (beam 5,
      maxlen 12, float32 cache, batch bucket 64, lengths 32/256/64, 40
      clips of 16 x 2048; its decode one CUDA graph, captured in warmup())
@@ -93,8 +107,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      seconds, read with no profiler; then 128 more of each under
      torch.profiler (recording the device only) for the card's busy share
      and K1's kernels by name; each run's captured geometries, capture
-     seconds, graph pool and reserved device memory; and the host times of
-     one 32-row beam-search batch's parts (assembly, pinning, the replay's
+     seconds, graph pool and reserved device memory (a window that captured
+     a geometry read again, up to 3 reads, and the read that captured
+     nothing reported); and the host times of one 32-row beam-search
+     batch's parts (assembly, pinning, the replay's
      ship, a blocking copy, the eager decode's launches).  No error, no
      eager decode but a capture's warm-up (eager runs equal captures) and
      K1 on "whole" 6 times per batch in the profiled replays are required;
@@ -1082,11 +1098,14 @@ def check_result_schema(result, orig, undisclosed=True, allow_empty=False):
 # phases 6 and 7: the training path and the train CLI
 
 
-def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=None):
+def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=None,
+                check=11):
     """Noam-Adam steps of the flagship model without dropout (hop 1 through
     K1 with residuals and K2) over 2 cycled batches of B real training
     turns; returns a summary.  One step's gradients are first held against
-    the plain path (force_plain)."""
+    the plain path (force_plain).  Then the train and eval programs
+    (`train_programs`), the first `check` program calls held against the
+    first `check` eager steps."""
     import torch
 
     from bist_tpu_torch.config import TrainConfig
@@ -1109,6 +1128,7 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     batches = [to_device(b, device) for b in
                make_batches(data, 2, B, seed=1, answers=True)]
     state, tx = create_train_state(0, cfg, tcfg, device=device)
+    start = copy_state(state)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     # one step's gradients, kernels against the plain path
@@ -1151,13 +1171,18 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     sync()
     hop1_fused.launches = hop1_bwd.launches = 0
     hop1_fused.variants, hop1_bwd.variants = {}, {}
-    losses, times = [], []
+    losses, times, eager_metrics, eager_params = [], [], [], None
+    check = min(check, steps)
     for i in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, batches[i % 2], None)
         sync()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+        if i < check:             # what phase 6's program is held against
+            eager_metrics.append(m)
+            if i == check - 1:
+                eager_params = copy_state(state).params
     launches = {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches}
     variants = dict(hop1_fused.variants)
     bwd_variants = dict(hop1_bwd.variants)
@@ -1178,8 +1203,11 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     kernel_ms = 3 * sum(per_layer) if all(v is not None for v in per_layer) else None
     profile = profile_steps(step, state, batches, 3, sync) if device.type == "cuda" \
         else None
+    del state
+    compiled = train_programs(device, cfg, tcfg, tx, batches, start, eager_metrics,
+                              eager_params, names, steps, ms, model_kw)
     return {"steps": steps, "batch_size": B, "ms_per_step": ms,
-            "profile": profile,
+            "profile": profile, "compiled": compiled,
             "examples_per_s": B / ms * 1e3, "first_step_ms": times[0] * 1e3,
             "launches": launches, "hop1_variants": variants,
             "hop1_bwd_variants": bwd_variants, "loss_first": first, "loss_last_same_batch": last,
@@ -1224,6 +1252,224 @@ def profile_steps(step, state, batches, n, sync):
             "top_kernels_ms_per_step": {e.key[:80]: dev(e) / 1e3 / n for e in top}}
 
 
+def copy_state(state):
+    """A TrainState of copies of `state`'s tensors (parameters that require
+    grad, Adam's count, mu and nu)."""
+    from bist_tpu_torch.train.loop import trainable
+
+    opt = state.opt_state
+    return state._replace(params=trainable(state.params),
+                          opt_state={"count": opt["count"].clone(),
+                                     "mu": [t.clone() for t in opt["mu"]],
+                                     "nu": [t.clone() for t in opt["nu"]]})
+
+
+def hop1_ran(prof):
+    """K1's and K2's kernels the card ran in a torch.profiler window, each by
+    kernel ("whole", "tiled"), from the trace's kernel names: K1 as
+    `k1_ran`, K2 by its first pass (a launch of K2 "whole" also runs its dW
+    pass, one of "tiled" its dkv and dW passes)."""
+    from torch.autograd import DeviceType
+
+    k2 = {"whole": 0, "tiled": 0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            if "hop1_bwd_whole_kernel" in name:
+                k2["whole"] += 1
+            elif "hop1_bwd_kernel" in name:
+                k2["tiled"] += 1
+    return {"k1": k1_ran(prof), "k2": k2}
+
+
+def metrics_agree(what, got, want, rtol=5e-4):
+    """Each metric of each step within rtol relative (of the larger
+    magnitude) of the eager step's; returns the largest relative error."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"{what}, step {i}: metrics {sorted(g)} against {sorted(w)}")
+        for k in w:
+            a, b = float(g[k]), float(w[k])
+            rel = abs(a - b) / max(abs(a), abs(b), 1e-30)
+            worst = max(worst, rel)
+            if not (np.isfinite(a) and rel <= rtol):
+                raise AssertionError(f"{what}, step {i}: {k} {a} against the eager {b}")
+    return worst
+
+
+def params_agree(what, got, want, names, lr_sum):
+    """Parameters after the same steps within 5e-4 + 5e-3·|p|.  The key
+    biases' gradient is analytically zero (a bias added to every key of a
+    row shifts its scores by one constant), so Adam turns its round-off
+    residue's sign into ±lr a step: theirs are held to 5e-4 + 2·Σlr, and the
+    forward does not read them.  Returns the largest difference."""
+    import torch
+
+    from bist_tpu_torch.weights import tree_leaves
+
+    worst = 0.0
+    for name, a, b in zip(names, tree_leaves(got), tree_leaves(want)):
+        err = (a - b).abs().max().item()
+        if name.endswith("wk.b"):
+            ok = err <= 5e-4 + 2 * lr_sum
+        else:
+            worst = max(worst, err)
+            ok = torch.allclose(a, b, rtol=5e-3, atol=5e-4)
+        if not ok:
+            raise AssertionError(f"{what}: parameter {name} differs from the eager "
+                                 f"step's by {err:.3e}")
+    return worst
+
+
+def train_programs(device, cfg, tcfg, tx, batches, start, eager_metrics, eager_params,
+                   names, steps, eager_ms, model_kw):
+    """Phase 6's compiled steps (`train.compiled`), each from a copy of the
+    start state and against the eager step in this call:
+
+      * a TrainProgram: its first len(eager_metrics) calls (the first a
+        geometry's eager warm-up, then replays) held against the eager
+        steps (loss and metrics to 5e-4 relative, parameters after them by
+        `params_agree`); the wrappers launch K1 and K2 12 times a capture
+        (the warm-up and the capture) and never in a replay; `steps`
+        replays timed (median after the first) beside the eager ms/step;
+        3 replays under torch.profiler: K1 and K2 6 times a step each by
+        kernel name, all "whole", and the device ms and busy share a step;
+      * the flagship as it trains (dropout 0.2, attention dropout 0.1; hop 1
+        has no kernel there), 8 steps eager and 8 through a program from
+        the same start at the same seeds, timed and held to each other;
+      * grad_accum 2: 2 eager steps and 2 program calls (one replay);
+      * an EvalProgram over the batches, held against make_eval_step to
+        5e-4, its K1 counted by name in the replays (6 a batch, "whole").
+    Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.compiled import EvalProgram, TrainProgram
+    from bist_tpu_torch.train.loop import (create_train_state, dropout_generator,
+                                           make_eval_step, make_train_step, seed_for_step)
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    check = len(eager_metrics)
+    lr_sum = sum(tx.schedule(i) for i in range(check))
+
+    def counts():
+        return (hop1_fused.launches, dict(hop1_fused.variants), hop1_bwd.launches,
+                dict(hop1_bwd.variants))
+
+    def run(step, state, n, gen=None, seed=0, timed=False):
+        out, times = [], []
+        for i in range(n):
+            if gen is not None:
+                gen.manual_seed(seed_for_step(seed, state.step))
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i % len(batches)], gen)
+            if timed:
+                sync()
+                times.append(time.perf_counter() - t0)
+            out.append(m)
+        sync()
+        return state, out, times
+
+    # the step without dropout: K1 with residuals and K2 inside the graph
+    state = copy_state(start)
+    prog = TrainProgram(state, cfg, tcfg, tx)
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    state, got, _ = run(prog, state, check)
+    caps = prog.captures
+    want = 12 * caps if cuda else 0
+    if counts() != (want, {"whole": want} if want else {}, want,
+                    {"whole": want} if want else {}):
+        raise AssertionError(f"train program: wrapper launches {counts()} for {caps} "
+                             f"captures, expected {want} K1 and K2 (12 a capture)")
+    rel = metrics_agree("train program", got, eager_metrics)
+    perr = params_agree("train program", state.params, eager_params, names, lr_sum)
+    state, _, times = run(prog, state, steps, timed=True)
+    if counts()[0] != want or prog.captures != caps:
+        raise AssertionError("train program: a replay launched K1 through the wrapper "
+                             "or captured again: it stepped eagerly")
+    replayed_ms = statistics.median(times[1:]) * 1e3
+    out = {"eager_ms_per_step": eager_ms, "replayed_ms_per_step": replayed_ms,
+           "calls_held": check, "metrics_max_rel_err": rel, "params_max_abs_err": perr,
+           "stats": prog.stats()}
+    if cuda:
+        with profiler_window(device) as prof:
+            t0 = time.perf_counter()
+            state, _, _ = run(prog, state, 3)
+            wall = time.perf_counter() - t0
+        ran = hop1_ran(prof)
+        if ran != {"k1": {"whole": 18, "tiled": 0}, "k2": {"whole": 18, "tiled": 0}}:
+            raise AssertionError(f"train program: K1, K2 kernels in 3 replays by name "
+                                 f"{ran}, expected 18 \"whole\" each (6 a step)")
+        busy = device_busy_ms(prof) / 3
+        out.update(replayed_by_name=ran, device_ms_per_step=busy,
+                   busy_share=busy / replayed_ms, busy_share_profiled=busy * 3 / (wall * 1e3))
+    log(f"train program on the flagship, no dropout: eager {eager_ms:.2f} ms/step, "
+        f"replayed {replayed_ms:.2f} ms/step: {json.dumps(out)}")
+    del prog, state
+
+    # the flagship as it trains: dropout 0.2 (hop 1 takes its plain path)
+    dcfg = flagship_cfg(cfg.vocab_size, dv=cfg.ft_sizes[0], **(model_kw or {}))
+    dstart, dtx = create_train_state(0, dcfg, tcfg, device=device)
+    gen = dropout_generator(dcfg, device)
+    n = 8
+    estate, eager, eager_t = run(make_train_step(dcfg, tcfg, dtx), copy_state(dstart), n,
+                                 gen, seed=7, timed=True)
+    dstate = copy_state(dstart)
+    dprog = TrainProgram(dstate, dcfg, tcfg, dtx, gen=gen)
+    dstate, got, prog_t = run(dprog, dstate, n, gen, seed=7, timed=True)
+    dropout = {"dropout": dcfg.dropout, "attn_dropout": dcfg.attn_dropout, "steps": n,
+               "eager_ms_per_step": statistics.median(eager_t[1:]) * 1e3,
+               "replayed_ms_per_step": statistics.median(prog_t[1:]) * 1e3,
+               "metrics_max_rel_err": metrics_agree("train program with dropout", got, eager),
+               "params_max_abs_err": params_agree("train program with dropout",
+                                                  dstate.params, estate.params, names,
+                                                  sum(dtx.schedule(i) for i in range(n))),
+               "stats": dprog.stats()}
+    log(f"train program on the flagship, dropout {dcfg.dropout}: {json.dumps(dropout)}")
+    del dprog, dstate, estate, dstart
+
+    # grad_accum 2: the microbatch loop inside one graph
+    astate = copy_state(start)
+    aprog = TrainProgram(astate, cfg, tcfg, tx, grad_accum=2)
+    astate, got, _ = run(aprog, astate, 2)
+    estate, eager, _ = run(make_train_step(cfg, tcfg, tx, grad_accum=2), copy_state(start), 2)
+    accum = {"grad_accum": 2, "calls_held": 2,
+             "metrics_max_rel_err": metrics_agree("train program, grad_accum 2", got, eager),
+             "params_max_abs_err": params_agree("train program, grad_accum 2", astate.params,
+                                                estate.params, names,
+                                                sum(tx.schedule(i) for i in range(2))),
+             "stats": aprog.stats()}
+    log(f"train program, grad_accum 2: {json.dumps(accum)}")
+    del aprog, astate
+
+    # the eval step on the trained parameters
+    eprog = EvalProgram(estate.params, cfg, tcfg)
+    estep = make_eval_step(cfg, tcfg)
+    for b in batches:                                   # warm-up and capture
+        eprog(estate.params, b)
+    prof = profiler_window(device)
+    with prof:
+        got = [eprog(estate.params, b) for b in batches]
+        sync()
+    want = [estep(estate.params, b) for b in batches]
+    ev = {"batches": len(batches),
+          "metrics_max_rel_err": metrics_agree("eval program", got, want),
+          "stats": eprog.stats()}
+    if cuda:
+        ran = k1_ran(prof)
+        if ran != {"whole": 6 * len(batches), "tiled": 0}:
+            raise AssertionError(f"eval program: K1 kernels by name {ran}, expected "
+                                 f"{6 * len(batches)} \"whole\" (6 a batch)")
+        ev["replayed_k1_by_name"] = ran
+    log(f"eval program: {json.dumps(ev)}")
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"no_dropout": out, "dropout": dropout, "grad_accum": accum, "eval": ev}
+
+
 def leaf_names(tree, prefix=""):
     """Dotted names of a parameter tree's leaves, in tree_leaves order."""
     if isinstance(tree, dict):
@@ -1237,8 +1483,12 @@ def leaf_names(tree, prefix=""):
 
 def phase_train_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S,
                     t_max=T_MAX):
-    """The train CLI for one epoch on phase 5's tiny dataset (no dropout),
-    then the generate CLI from its best checkpoint; checks the artifacts."""
+    """The train CLI for one epoch on phase 5's tiny dataset (no dropout,
+    --num-workers 4), then the generate CLI from its best checkpoint; checks
+    the artifacts, that the CLI assembled its batches natively (no fallback
+    line in its log) and stepped through its programs (on the card every
+    geometry captured after one eager warm-up step), and returns its logged
+    epoch feed (examples/s end to end, loader wait) and program stats."""
     test_set = write_tiny_dataset(root, n_dialogs, model_kw, dv, s, t_max)
     cfg = flagship_cfg(1, dv=dv, **(model_kw or {}))
     model = os.path.join(root, "exp", "mtn")
@@ -1250,11 +1500,30 @@ def phase_train_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S,
            "--nb-cenc-blocks", str(cfg.nb_cenc_blocks), "--d-model", str(cfg.d_model),
            "--att-h", str(cfg.att_h), "--include-caption", "summary",
            "--dropout", "0", "--attn-dropout", "0", "--cutoff", "0",
-           "--warmup-steps", "10", "--report-interval", "1", "--device", device.type]
+           "--warmup-steps", "10", "--report-interval", "1", "--num-workers", "4",
+           "--device", device.type]
     r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         raise AssertionError(f"train CLI exited {r.returncode}:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    from bist_tpu_torch.native.loader import FALLBACK_LOG
+
+    if FALLBACK_LOG in r.stderr or "runs eagerly" in r.stderr:
+        raise AssertionError(f"train CLI: the native assembler or a program was not "
+                             f"used:\n{r.stderr[-4000:]}")
+    logged = {}
+    for key, marker in (("train_feed", "train epoch feed: "), ("eval_feed", "eval epoch feed: "),
+                        ("train_program", "epoch 1 train program: "),
+                        ("eval_program", "epoch 1 eval program: ")):
+        lines = [ln.split(marker, 1)[1] for ln in r.stderr.splitlines() if marker in ln]
+        if len(lines) != 1:
+            raise AssertionError(f"train CLI: {len(lines)} lines of {marker!r} in its log")
+        logged[key] = json.loads(lines[0])
+    for key in ("train_program", "eval_program"):
+        st = logged[key]
+        if device.type == "cuda" and not (st["captures"] == st["eager_runs"]
+                                          == st["geometries"] > 0):
+            raise AssertionError(f"train CLI: {key} {st}: a geometry stepped eagerly")
     headers = {"_train.csv": "epoch,step,loss,ae_temporal_loss,ae_spatial_loss",
                "_trace.csv": "epoch,split,loss,ae_temporal_loss,ae_spatial_loss"}
     for suffix, header in headers.items():
@@ -1281,7 +1550,7 @@ def phase_train_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S,
     with open(model + "_trace.csv") as f:
         trace = f.read().splitlines()[1:]
     return {"trace": trace, "answers": [d["dialog"][-1]["answer"]
-                                        for d in result["dialogs"]]}
+                                        for d in result["dialogs"]], **logged}
 
 
 # ---------------------------------------------------------------------------
@@ -1568,6 +1837,28 @@ def serve_window(device, rsp, fields, n, clients, profiled):
     return out
 
 
+def settled_window(device, rsp, fields, n, clients, profiled, what, reads=3):
+    """`serve_window`, read again (up to `reads` times in all) while a read
+    captured a geometry (its time then holds the capture, not serving):
+    returns the first read that captured nothing, with each read's captures
+    and program stats before and after it; raises when every read captured."""
+    tried = []
+    for _ in range(reads):
+        before = rsp.program.stats()
+        w = serve_window(device, rsp, fields, n, clients, profiled)
+        after = rsp.program.stats()
+        tried.append({"captures": w["captures"], "requests_per_s": w["requests_per_s"],
+                      "program_before": before, "program_after": after})
+        log(f"serving load, {what}, read {len(tried)}: {w['requests_per_s']:.2f} "
+            f"requests/s, {w['captures']} captures in the window "
+            f"(program {json.dumps(before)} -> {json.dumps(after)})")
+        if w["captures"] == 0:
+            log(f"serving load, {what}: reporting read {len(tried)}, which captured nothing")
+            return dict(w, reads=tried)
+    raise AssertionError(f"serving load, {what}: each of {reads} reads captured a geometry: "
+                         f"{json.dumps(tried)}")
+
+
 def ship_breakdown(device, rsp, fields, rows=32, reps=3):
     """Host milliseconds of one served batch's parts on an idle server (the
     median of `reps`): assembly (make_batch), pinning the token arrays,
@@ -1617,9 +1908,11 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
     bfloat16 precompute (K1 on a bfloat16 grid), each read bare; then n_prof more of each under torch.profiler
     for the card's busy share; on the card, the parts of one beam-search
     batch (ship_breakdown); each run's captured geometries, capture seconds
-    and graph pool, and the device memory reserved at its end.  Readings,
+    and graph pool, and the device memory reserved at its end.  A window
+    that captured a geometry is read again (`settled_window`).  Readings,
     not gates, apart from no error, no eager decode but a capture's warm-up,
-    and K1 on "whole" 6 times per batch in the profiled replays."""
+    K1 on "whole" 6 times per batch in the profiled replays, and a window
+    that captured nothing within 3 reads."""
     from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.serving import Responder
 
@@ -1640,7 +1933,7 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
         # bucket a batch bucket) captured before the windows are read
         traffic = serve_window(device, rsp, fields, len(fields), clients, profiled=False)
         at_traffic = rsp.program.stats()
-        out[name] = dict(serve_window(device, rsp, fields, n, clients, profiled=False),
+        out[name] = dict(settled_window(device, rsp, fields, n, clients, False, name),
                          warmup_seconds=warm, warmup_captures=at_warmup["captures"],
                          warmup_capture_seconds=at_warmup["capture_seconds"],
                          traffic_warmup={
@@ -1648,8 +1941,8 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
                              "captures": traffic["captures"],
                              "capture_seconds": at_traffic["capture_seconds"]
                              - at_warmup["capture_seconds"]},
-                         profiled=serve_window(device, rsp, fields, n_prof, clients,
-                                               profiled=True))
+                         profiled=settled_window(device, rsp, fields, n_prof, clients,
+                                                 True, name + ", profiled"))
         if device.type == "cuda" and name == "beam_search":
             out[name]["ship_breakdown"] = ship_breakdown(device, rsp, fields)
         prog = rsp.program.stats()
@@ -1816,6 +2109,13 @@ def main() -> int:
 
     train = phase_train(device, phase2_ms)
     print(f"training path on {card}: {json.dumps(train)}", flush=True)
+    prog = train["compiled"]["no_dropout"]
+    drop = train["compiled"]["dropout"]
+    print(f"train step on {card}: eager {prog['eager_ms_per_step']:.2f} ms/step, replayed "
+          f"{prog['replayed_ms_per_step']:.2f} ms/step (device {prog['device_ms_per_step']:.2f} "
+          f"ms/step, busy {prog['busy_share']:.3f}); dropout {drop['dropout']}: eager "
+          f"{drop['eager_ms_per_step']:.2f}, replayed {drop['replayed_ms_per_step']:.2f} "
+          f"ms/step", flush=True)
     lap("training")
 
     train_cli = phase_train_cli(device, os.path.join(HERE, "build", "chip_smoke",
@@ -1848,6 +2148,9 @@ def main() -> int:
                           f"counted by kernel name"),
              variants=main_path["hop1_variants"],
              launches_train=train["launches"]["hop1_fwd"],
+             # K1 kernels the card ran in 3 train and 2 eval replays, by name
+             launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k1"],
+             launches_eval_replayed=train["compiled"]["eval"]["replayed_k1_by_name"],
              # K1 kernels the card ran in the replays, by name (profiler)
              launches_serving=serving["hop1_fwd_ran"],
              launches_serving_load={k: v["profiled"]["hop1_fwd_ran"]
@@ -1857,7 +2160,9 @@ def main() -> int:
                           train["launches"]["hop1_bwd"],
                           f"flagship train step, {train['steps']} steps of "
                           f"{train['batch_size']}"),
-             variants=train["hop1_bwd_variants"]),
+             variants=train["hop1_bwd_variants"],
+             # K2 kernels (first pass) the card ran in 3 train replays, by name
+             launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"]),
         dict(kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                           "bist_tpu/ops/flash_attention.py:43", flash_cases,
                           mha_flash["launches"],

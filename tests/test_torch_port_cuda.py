@@ -881,3 +881,181 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
     want = beam.beam_search(params, cfg, to_device(host, cuda), g)
     assert same(DecodeProgram(params, cfg, g)(host), want)
+
+
+def train_batch(rng, B=4, L=9, T=10):
+    """host_batch with answers of L tokens as targets."""
+    b = host_batch(rng, B, L, T)
+    return b._replace(trg=b.query.copy(), trg_y=b.query[:, ::-1].copy())
+
+
+def train_setup(cuda, **kw):
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.train.loop import create_train_state
+
+    _, cfg, _ = small_model(cuda)
+    cfg = cfg.replace(**dict(dict(attn_dropout=0.0), **kw))
+    tcfg = TrainConfig(warmup_steps=10)
+    state, tx = create_train_state(0, cfg, tcfg, device=cuda)
+    return cfg, tcfg, state, tx
+
+
+def copied(state):
+    from bist_tpu_torch.train.loop import trainable
+
+    opt = state.opt_state
+    return state._replace(params=trainable(state.params),
+                          opt_state={"count": opt["count"].clone(),
+                                     "mu": [t.clone() for t in opt["mu"]],
+                                     "nu": [t.clone() for t in opt["nu"]]})
+
+
+def steps_agree(step_a, state_a, step_b, state_b, batches, dev, gen=None):
+    """Both steps over the same batches, as given to step_a and on `dev` to
+    step_b (the generator re-seeded from seed_for_step before each step):
+    every metric within 5e-4 relative, the
+    parameters within 5e-4 + 5e-3·|p| (the key biases, whose gradient is
+    analytically zero, within 5e-4 + 2·Σlr)."""
+    from bist_tpu_torch.train.loop import seed_for_step
+    from bist_tpu_torch.train.schedule import noam_schedule
+    from bist_tpu_torch.weights import tree_leaves
+
+    out = []
+    for step, state, bs in ((step_a, state_a, batches),
+                            (step_b, state_b, [to_device(b, dev) for b in batches])):
+        ms = []
+        for b in bs:
+            if gen is not None:
+                gen.manual_seed(seed_for_step(3, state.step))
+            state, m = step(state, b, gen)
+            ms.append(m)
+        torch.cuda.synchronize()
+        out.append((state, ms))
+    (sa, ma), (sb, mb) = out
+    for x, y in zip(ma, mb):
+        assert set(x) == set(y)
+        for k in x:
+            np.testing.assert_allclose(float(x[k]), float(y[k]), rtol=5e-4, err_msg=k)
+    lr = sum(noam_schedule(128, 10)(i) for i in range(len(batches)))
+    bias = {id(p["wk"]["b"]) for p in _attn_params(sa.params)}
+    for i, (a, c) in enumerate(zip(tree_leaves(sa.params), tree_leaves(sb.params))):
+        if id(a) in bias:
+            assert (a - c).abs().max().item() <= 5e-4 + 2 * lr, i
+        else:
+            assert torch.allclose(a, c, rtol=5e-3, atol=5e-4), i
+    return sa, sb
+
+
+def _attn_params(tree):
+    """Every attention parameter dict (one with "wk", "wv", "wo") of a tree."""
+    if isinstance(tree, dict):
+        if "wk" in tree and "wo" in tree:
+            return [tree]
+        return [p for v in tree.values() for p in _attn_params(v)]
+    if isinstance(tree, (list, tuple)):
+        return [p for v in tree for p in _attn_params(v)]
+    return []
+
+
+@pytest.mark.cuda
+def test_train_program_replays_equal_eager_steps(cuda):
+    """A TrainProgram over two geometries interleaved (one eager warm-up and
+    one capture each, then replays) against the eager step from a copy of
+    the same state; an EvalProgram on the result against make_eval_step."""
+    from bist_tpu_torch.train.compiled import EvalProgram, TrainProgram
+    from bist_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    cfg, tcfg, state, tx = train_setup(cuda)
+    rng = np.random.default_rng(20)
+    batches = [train_batch(rng, T=10 if i % 2 == 0 else 14) for i in range(6)]
+    prog = TrainProgram(state, cfg, tcfg, tx)
+    eager_state = copied(state)
+    sp, _ = steps_agree(prog, state, make_train_step(cfg, tcfg, tx), eager_state,
+                        [b if i % 2 else to_device(b, cuda) for i, b in enumerate(batches)],
+                        cuda)
+    stats = prog.stats()
+    assert stats["captures"] == stats["eager_runs"] == stats["geometries"] == 2
+    assert stats["pool_bytes"] > 0
+    ev, step = EvalProgram(sp.params, cfg, tcfg), make_eval_step(cfg, tcfg)
+    for b in batches[:3]:
+        got, want = ev(sp.params, b), step(sp.params, to_device(b, cuda))
+        for k in want:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=5e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_run_inside_train_replays(cuda):
+    """K1 (with residuals) and K2 are captured inside the train step's graph:
+    a replay launches nothing through the wrappers, and the profiler's trace
+    shows 4 K1 and 4 K2 "whole" kernels a replay (2 layers, t2s and s2t)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bist_tpu_torch.train.compiled import TrainProgram
+
+    cfg, tcfg, state, tx = train_setup(cuda)
+    batch = train_batch(np.random.default_rng(21))
+    prog = TrainProgram(state, cfg, tcfg, tx)
+    fwd, bwd = K1.hop1_fused.launches, K1.hop1_bwd.launches
+    state, _ = prog(state, batch)                 # warm-up (4 each) and capture (4)
+    torch.cuda.synchronize()
+    assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (8, 8)
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(3):
+            state, _ = prog(state, batch)
+        torch.cuda.synchronize()
+    assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (8, 8)
+    names = [e.name() for e in p.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("hop1_fwd_whole_kernel" in n for n in names) == 12, names[:40]
+    assert sum("hop1_bwd_whole_kernel" in n for n in names) == 12, names[:40]
+    assert not any("hop1_fwd_tiles_kernel" in n or "hop1_bwd_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_train_program_with_dropout_equals_eager_at_one_seed(cuda):
+    """Dropout 0.2 (attention 0.1) from the generator registered with the
+    graphs: 3 program calls (a warm-up, two replays) equal 3 eager steps
+    from the same state at the same seeds."""
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.train.loop import dropout_generator, make_train_step
+
+    cfg, tcfg, state, tx = train_setup(cuda, dropout=0.2, attn_dropout=0.1)
+    gen = dropout_generator(cfg, cuda)
+    batch = train_batch(np.random.default_rng(22))
+    prog = TrainProgram(state, cfg, tcfg, tx, gen=gen)
+    steps_agree(prog, state, make_train_step(cfg, tcfg, tx), copied(state), [batch] * 3,
+                cuda, gen=gen)
+
+
+@pytest.mark.cuda
+def test_loader_assembles_feature_grids_in_pinned_memory(cuda, tmp_path):
+    """AVSDLoader(pin_memory=True), as the CLIs build it on the card: every
+    feature grid in pinned memory (the padded tail rows zero), equal to the
+    unpinned loader's batches."""
+    import os
+
+    import chip_smoke
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.features import build_stores
+    from bist_tpu_torch.data.loader import AVSDLoader
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    root = str(tmp_path / "data")
+    test_set = chip_smoke.write_tiny_dataset(root, 5, dict(d_model=32, att_h=4, nb_blocks=1,
+                                                           nb_venc_blocks=1, nb_cenc_blocks=1),
+                                             dv=24, s=4, t_max=9)
+    vocab = get_vocabulary(test_set, cutoff=0, include_caption="summary")
+    data = load_avsd(test_set, vocab, include_caption="summary", separate_caption=True)
+    path = os.path.join(root, "<FeaType>", "<ImageID>.npy")
+    kw = dict(batch_size=4, shuffle=False, pad_batch_multiple=3, time_buckets=(4, 8, 16))
+    plain = AVSDLoader(data, visual_stores=build_stores(["resnext_st"], path, data.vid_set)[0],
+                       **kw)
+    pinned = AVSDLoader(data, visual_stores=build_stores(["resnext_st"], path, data.vid_set)[0],
+                        pin_memory=True, **kw)
+    n = 0
+    for (a, _), (b, _) in zip(plain, pinned):
+        assert torch.from_numpy(b.fts).is_pinned()
+        np.testing.assert_array_equal(a.fts, b.fts)
+        n += 1
+    assert n == len(plain) > 1

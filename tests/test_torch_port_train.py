@@ -32,6 +32,7 @@ from bist_tpu_torch.data.loader import AVSDLoader
 from bist_tpu_torch.models import model as torch_model
 from bist_tpu_torch.train import checkpoint as ckpt
 from bist_tpu_torch.train import loop
+from bist_tpu_torch.train.compiled import TrainProgram
 from bist_tpu_torch.train.losses import compute_losses, label_smoothing_kl
 from bist_tpu_torch.train.schedule import make_optimizer, noam_schedule
 from bist_tpu_torch.vocab import get_vocabulary
@@ -159,10 +160,15 @@ def torch_state(tcfg, tp):
     return loop.TrainState(params, tx.init(tree_leaves(params)), 0), tx
 
 
-def torch_run(tcfg, tp, bs, steps=STEPS, grad_accum=1):
+def torch_run(tcfg, tp, bs, steps=STEPS, grad_accum=1, program=False):
+    """The port's trajectory by the eager step or, with `program`, through
+    a TrainProgram of the same step."""
     state, tx = torch_state(tcfg, tp)
     step = loop.make_train_step(tcfg, TrainConfig(warmup_steps=10), tx,
                                 grad_accum=grad_accum)
+    if program:
+        step = TrainProgram(state, tcfg, TrainConfig(warmup_steps=10), tx,
+                            grad_accum=grad_accum)
     traj = []
     for i in range(steps):
         state, m = step(state, torch_batch(bs[i % len(bs)]), None)
@@ -179,7 +185,9 @@ def test_train_steps_match_jax(jax_hop1_kernel, rng, monkeypatch):
     path, or with the threshold at 0 its Pallas kernels (interpret mode).
     Parameters are compared through the forward, not leaf by leaf: the key
     biases have an analytically zero gradient, and Adam's first step turns
-    the sign of its round-off residue into ±lr, differently in each package."""
+    the sign of its round-off residue into ±lr, differently in each package.
+    The port runs the eager step and a TrainProgram (train.compiled; eager
+    on its static buffers here), both against the one JAX trajectory."""
     if jax_hop1_kernel:
         import bist_tpu.models.bist as jax_bist
         monkeypatch.setattr(jax_bist, "HOP1_FUSED_MIN_GRID_BYTES", 0)
@@ -187,16 +195,19 @@ def test_train_steps_match_jax(jax_hop1_kernel, rng, monkeypatch):
     jp, tp = both_params(jcfg, seed=2)
     bs = batches(rng, jcfg)
     jparams, jtraj = jax_run(jcfg, jp, bs)
-    state, ttraj = torch_run(tcfg, tp, bs)
-    for i, (a, b) in enumerate(zip(ttraj, jtraj)):
-        for k in LOSS_KEYS:
-            np.testing.assert_allclose(a[k], b[k], rtol=5e-4, err_msg=f"step {i} {k}")
-    assert ttraj[-1]["out"] < ttraj[0]["out"]
     ev = np_batch(rng, jcfg, B=3)
     jlogp, _ = jax_model.forward_logprobs(jparams, jcfg, ev, rngs=None)
-    with torch.no_grad():
-        tlogp, _ = torch_model.forward_logprobs(state.params, tcfg, torch_batch(ev))
-    np.testing.assert_allclose(to_np(tlogp), to_np(jlogp), rtol=1e-3, atol=1e-3)
+    for program in (False, True):
+        state, ttraj = torch_run(tcfg, tp, bs, program=program)
+        for i, (a, b) in enumerate(zip(ttraj, jtraj)):
+            for k in LOSS_KEYS:
+                np.testing.assert_allclose(a[k], b[k], rtol=5e-4,
+                                           err_msg=f"program {program} step {i} {k}")
+        assert ttraj[-1]["out"] < ttraj[0]["out"]
+        with torch.no_grad():
+            tlogp, _ = torch_model.forward_logprobs(state.params, tcfg, torch_batch(ev))
+        np.testing.assert_allclose(to_np(tlogp), to_np(jlogp), rtol=1e-3, atol=1e-3,
+                                   err_msg=f"program {program}")
 
 
 class SGD:

@@ -47,7 +47,7 @@ def test_train_cli_defaults_to_cuda_and_rejects_unported_options():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--model", "absent"])
-    with pytest.raises(SystemExit, match="item 15"):
+    with pytest.raises(SystemExit, match="item 10"):
         train.main(["--num-devices", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 12"):
+    with pytest.raises(SystemExit, match="item 7"):
         train.main(["--init-from-ref", "ref", "--device", "cpu"])
