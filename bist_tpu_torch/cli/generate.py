@@ -17,8 +17,10 @@ oracle (teacher-forced argmax; needs labeled turns, so not with
 --undisclosed-only) and sample (--temperature, --top-k, --top-p,
 --sample-seed).  Each style runs as one CUDA graph per batch geometry
 (`decode.compiled.DecodeProgram`), captured the first time the geometry
-comes; on the CPU the same program runs eagerly.  Reference-format
-(.pth.tar) checkpoints are not read yet.
+comes; on the CPU the same program runs eagerly.  A reference-format
+checkpoint (<prefix>_best.pth.tar beside a pickled .conf, detected by the
+.conf) is read through `bist_tpu_torch.convert`, with --reference-root
+naming a checkout of the reference for its pickled classes.
 """
 
 from __future__ import annotations
@@ -40,10 +42,11 @@ def build_parser():
     p.add_argument("--test-set", default="", type=str)
     p.add_argument("--model-conf", default="", type=str)
     p.add_argument("--reference-root", default="", type=str,
-                   help="reference-format checkpoints are not read by the "
-                        "port yet; must stay empty")
+                   help="a checkout of the reference, for reference-format "
+                        "checkpoints (--model <expdir>/mtn_best + pickled .conf)")
     p.add_argument("--model", "-m", default="", type=str,
-                   help="checkpoint prefix: <prefix>.pt (+ <prefix>.conf)")
+                   help="checkpoint prefix: <prefix>.pt (+ <prefix>.conf), or a "
+                        "reference-format checkpoint")
     p.add_argument("--maxlen", default=12, type=int)
     p.add_argument("--dec-eos", default=0, type=int)
     p.add_argument("--beam", default=3, type=int)
@@ -96,9 +99,10 @@ def main(argv=None):
     if args.decode_style not in PORTED_STYLES:
         raise SystemExit(f"--decode-style {args.decode_style}: not one of "
                          f"{', '.join(PORTED_STYLES)}")
-    if args.reference_root:
-        raise SystemExit("--reference-root: reference-format checkpoints are "
-                         "not read by bist_tpu_torch yet")
+    if args.reference_root and not os.path.isdir(args.reference_root):
+        raise SystemExit(f"--reference-root {args.reference_root}: no such directory; "
+                         f"reference-format checkpoints are not read without a "
+                         f"checkout of the reference")
     if args.decode_style == "oracle" and args.undisclosed_only:
         raise SystemExit("--decode-style oracle requires labeled targets; "
                          "run without --undisclosed-only")
@@ -109,7 +113,9 @@ def main(argv=None):
     import torch
 
     from bist_tpu_torch import resolve_device
-    from bist_tpu_torch.config import GenerateConfig, default_conf_for, load_conf
+    from bist_tpu_torch.config import GenerateConfig, load_conf
+    from bist_tpu_torch.convert import (default_conf_for, is_reference_conf,
+                                        load_reference_checkpoint_cli)
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import pinned, quantize_features
     from bist_tpu_torch.data.features import build_stores
@@ -123,14 +129,23 @@ def main(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     conf_path = args.model_conf or default_conf_for(args.model)
-    vocab, cfg, tcfg, extra = load_conf(conf_path)
 
     def load(prefix):
         path = prefix if prefix.endswith(".pt") else prefix + ".pt"
         logging.info("Loading model params from %s", path)
         return load_params(path, device)
 
-    params = load(args.model)
+    if is_reference_conf(conf_path):
+        if args.ensemble:
+            raise SystemExit("--ensemble is not supported with reference-format "
+                             "checkpoints; convert them first (bist_tpu_torch.convert)")
+        logging.info("reference-format checkpoint detected; importing")
+        params, cfg, tcfg, vocab, extra = load_reference_checkpoint_cli(
+            args.model, conf_path, reference_root=args.reference_root or None,
+            device=device)
+    else:
+        vocab, cfg, tcfg, extra = load_conf(conf_path)
+        params = load(args.model)
     if args.ensemble:
         params = [params] + [load(p) for p in args.ensemble]
         logging.info("ensembling %d models", len(params))

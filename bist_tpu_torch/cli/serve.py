@@ -16,18 +16,31 @@ responder (`bist_tpu_torch.serving`), the API of `bist_tpu.cli.serve`.
     GET /metrics    → counters, latency percentiles, component seconds
 
 It reads <model>.conf (JSON, either package's) and the port checkpoint
-<model>.pt (or <model>_best.pt), captures every batch bucket's decode as a
-CUDA graph (warmup; on the CPU it runs each once) and
+<model>.pt (or <model>_best.pt), or a reference-format checkpoint (a
+pickled .conf beside <model>_best.pth.tar, read through
+`bist_tpu_torch.convert` with --reference-root), captures every batch
+bucket's decode as a CUDA graph (warmup; on the CPU it runs each once) and
 logs "serving on <host>:<port>" with the port it bound (--port 0 picks a
 free one).  It runs on CUDA unless --device cpu is given, and raises
 without CUDA otherwise.  Concurrent requests are coalesced into batches
 (`serving.DynamicBatcher`).
 
-Not ported yet, and refused with an error that names the ROADMAP item:
-AOT bundles (--bundle, --export-*; queue 1 item 6) and reference-format
-checkpoints (--reference-root; queue 1 item 7).  `bist_tpu`'s persistent
-compilation cache has no counterpart here: the port runs eagerly and
-builds its CUDA kernels once per checkout (`ops._build`).
+Serving bundles (`bist_tpu_torch.export`):
+
+    python -m bist_tpu_torch.cli.serve --model exps/mtn --export-bundle B \
+        [--export-lq 32 --export-lh 64,256 --export-lc 64 --export-t 16,32]
+    python -m bist_tpu_torch.cli.serve --bundle B --port 8000
+
+--export-bundle writes one `torch.export` program per geometry of the
+cross product of the batch buckets and the --export-* buckets, on this
+device type (--export-platforms cpu,cuda for both), and exits.  --bundle
+serves from the bundle's programs and decode configuration (decode flags
+given on the command line are ignored with a warning) and captures its
+whole geometry table before it takes traffic (`warmup_geometries`).
+Data-parallel bundles (--export-dp > 1) wait for ROADMAP queue 1 item 10.
+`bist_tpu`'s persistent compilation cache has no counterpart here: a CUDA
+graph does not outlive its process, and the CUDA kernels are built once
+per checkout (`ops._build`).
 """
 
 from __future__ import annotations
@@ -43,28 +56,35 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-# flags of bist_tpu's serve CLI the port refuses, and the ROADMAP item each waits for
-_BUNDLES = "AOT bundles (ROADMAP queue 1 item 6)"
-NOT_PORTED = {"bundle": _BUNDLES,
-              **{f"export_{f}": _BUNDLES
-                 for f in ("bundle", "platforms", "lq", "lh", "lc", "t", "dp")},
-              "reference_root": "reference-format checkpoints (ROADMAP queue 1 item 7)"}
+# the decode flags a bundle's own configuration overrides
+BUNDLE_IGNORES = ("decode_style", "beam", "maxlen", "penalty", "cache_dtype",
+                  "encode_dtype", "scan_unroll", "temperature", "top_k", "top_p",
+                  "sample_seed", "feat_int8", "feat_s")
 
 
 def build_parser():
     p = argparse.ArgumentParser(description="bist_tpu_torch HTTP serving")
     p.add_argument("--model", default="",
                    help="checkpoint prefix: <prefix>.pt or <prefix>_best.pt "
-                        "(+ <prefix>.conf)")
+                        "(+ <prefix>.conf), or a reference-format checkpoint")
     p.add_argument("--model-conf", default="")
-    p.add_argument("--bundle", default="", help="not ported yet")
-    p.add_argument("--export-bundle", default="", help="not ported yet")
-    p.add_argument("--export-platforms", default="", help="not ported yet")
-    p.add_argument("--export-lq", default="32", help="not ported yet")
-    p.add_argument("--export-lh", default="64,256", help="not ported yet")
-    p.add_argument("--export-lc", default="64", help="not ported yet")
-    p.add_argument("--export-t", default="", help="not ported yet")
-    p.add_argument("--export-dp", type=int, default=1, help="not ported yet")
+    p.add_argument("--bundle", default="",
+                   help="serve a bundle written by --export-bundle (its programs, "
+                        "weights, vocabulary and decode configuration)")
+    p.add_argument("--export-bundle", default="",
+                   help="write a serving bundle of --model to this directory and exit")
+    p.add_argument("--export-platforms", default="",
+                   help="device types to export for, comma-separated (cpu, cuda); "
+                        "default this --device's")
+    p.add_argument("--export-lq", default="32", help="question length buckets")
+    p.add_argument("--export-lh", default="64,256", help="history length buckets")
+    p.add_argument("--export-lc", default="64", help="caption length buckets")
+    p.add_argument("--export-t", default="",
+                   help="clip-count buckets (default the serving time buckets)")
+    p.add_argument("--export-workers", type=int, default=1,
+                   help="programs exported at a time, each in a process of its own")
+    p.add_argument("--export-dp", type=int, default=1,
+                   help="data-parallel width; > 1 waits for ROADMAP queue 1 item 10")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max-batch", type=int, default=64)
@@ -105,7 +125,9 @@ def build_parser():
                    help="spatial grid size S of the (T, S, Dv) features: pins "
                         "the served grid at warmup (other grids are rejected "
                         "at submit); 0 = unpinned")
-    p.add_argument("--reference-root", default="", help="not ported yet")
+    p.add_argument("--reference-root", default="",
+                   help="a checkout of the reference, for serving reference-format "
+                        "checkpoints (--model mtn_best + pickled .conf; detected)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -113,45 +135,58 @@ def build_parser():
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    for name, what in NOT_PORTED.items():
-        if getattr(args, name) != p.get_default(name):
-            raise SystemExit(f"--{name.replace('_', '-')}: {what} are not "
-                             f"ported to bist_tpu_torch yet")
-    if not args.model:
-        p.error("--model is required")
+    if args.export_dp > 1:
+        raise SystemExit(f"--export-dp {args.export_dp}: data-parallel bundles are not "
+                         f"ported to bist_tpu_torch yet (ROADMAP queue 1 item 10)")
+    if not (args.model or args.bundle):
+        p.error("--model is required unless --bundle is given")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s: %(message)s")
 
     import torch
 
     from bist_tpu_torch import resolve_device
-    from bist_tpu_torch.config import GenerateConfig, default_conf_for, load_conf
+    from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.serving import DynamicBatcher, Responder
-    from bist_tpu_torch.weights import load_params
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    vocab, cfg, _, _ = load_conf(args.model_conf or default_conf_for(args.model))
-    base = args.model[:-3] if args.model.endswith(".pt") else args.model
-    ckpt = next((c for c in (base + ".pt", base + "_best.pt") if os.path.exists(c)),
-                base + ".pt")
-    logging.info("loading %s onto %s", ckpt, device)
-    params = load_params(ckpt, device)
-    gcfg = GenerateConfig(maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
-                          nbest=1, cache_dtype=args.cache_dtype,
-                          encode_dtype=args.encode_dtype,
-                          decode_style=args.decode_style,
-                          temperature=args.temperature, top_k=args.top_k,
-                          top_p=args.top_p, sample_seed=args.sample_seed)
-    responder = Responder(params, cfg, vocab, gcfg, max_batch=args.max_batch,
-                          feat_int8=bool(args.feat_int8))
-    logging.info("warmup: every batch bucket %s", responder.batch_buckets)
-    responder.warmup(feature_shape=((args.feat_s, cfg.ft_sizes[0])
-                                    if args.feat_s and cfg.has_video else None))
+    if args.bundle:
+        from bist_tpu_torch.export import load_bundle
+
+        ignored = [f for f in BUNDLE_IGNORES if getattr(args, f) != p.get_default(f)]
+        if ignored:
+            logging.warning("--bundle serves the bundle's decode configuration; ignoring "
+                            "%s", ", ".join("--" + f.replace("_", "-") for f in ignored))
+        t0 = time.perf_counter()
+        bundle = load_bundle(args.bundle, device)
+        logging.info("bundle loaded in %.2f s: %d program(s), geometries %s",
+                     time.perf_counter() - t0, len(bundle.programs),
+                     sorted(bundle.geometries))
+        cfg = bundle.cfg
+        responder = bundle.make_responder()
+        logging.info("warmup: every geometry of the bundle (%d)", len(bundle.geometries))
+        responder.warmup_geometries(bundle.geometries.values())
+    else:
+        params, cfg, vocab = load_model(args, device)
+        gcfg = GenerateConfig(maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
+                              nbest=1, cache_dtype=args.cache_dtype,
+                              encode_dtype=args.encode_dtype,
+                              decode_style=args.decode_style,
+                              temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, sample_seed=args.sample_seed)
+        if args.export_bundle:
+            export(args, p, params, cfg, gcfg, vocab)
+            return
+        responder = Responder(params, cfg, vocab, gcfg, max_batch=args.max_batch,
+                              feat_int8=bool(args.feat_int8))
+        logging.info("warmup: every batch bucket %s", responder.batch_buckets)
+        responder.warmup(feature_shape=((args.feat_s, cfg.ft_sizes[0])
+                                        if args.feat_s and cfg.has_video else None))
     prog = responder.program.stats()
     logging.info("warmup: %d geometries captured in %.2f s (graph pool %.1f MB)",
                  prog["captures"], prog["capture_seconds"], prog["pool_bytes"] / 2 ** 20)
-    batcher = DynamicBatcher(responder, max_batch=args.max_batch,
+    batcher = DynamicBatcher(responder, max_batch=responder.max_batch,
                              max_wait_ms=args.max_wait_ms,
                              pipeline_depth=args.pipeline_depth)
     batcher.start()
@@ -163,6 +198,57 @@ def main(argv=None):
     finally:
         httpd.server_close()
         batcher.stop()
+
+
+def load_model(args, device):
+    """(params on `device`, cfg, vocab) of --model: the port's checkpoint
+    with its JSON .conf, or a reference-format checkpoint (pickled .conf)
+    through `convert`."""
+    from bist_tpu_torch.config import load_conf
+    from bist_tpu_torch.convert import (default_conf_for, is_reference_conf,
+                                        load_reference_checkpoint_cli)
+    from bist_tpu_torch.weights import load_params
+
+    conf = args.model_conf or default_conf_for(args.model)
+    if is_reference_conf(conf):
+        logging.info("reference-format checkpoint detected; importing")
+        params, cfg, _, vocab, _ = load_reference_checkpoint_cli(
+            args.model, conf, reference_root=args.reference_root or None, device=device)
+        return params, cfg, vocab
+    vocab, cfg, _, _ = load_conf(conf)
+    base = args.model[:-3] if args.model.endswith(".pt") else args.model
+    ckpt = next((c for c in (base + ".pt", base + "_best.pt") if os.path.exists(c)),
+                base + ".pt")
+    logging.info("loading %s onto %s", ckpt, device)
+    return load_params(ckpt, device), cfg, vocab
+
+
+def export(args, p, params, cfg, gcfg, vocab) -> None:
+    """--export-bundle: one program per geometry of the cross product of the
+    batch buckets and the --export-* buckets (every shape the bundle's
+    Responder can assemble), written with the model's weights and vocab."""
+    from bist_tpu_torch.export import default_serving_geometries, save_bundle
+    from bist_tpu_torch.serving import DEFAULT_TIME_BUCKETS, default_batch_buckets
+
+    if args.decode_style not in ("beam_search", "greedy"):
+        p.error("--export-bundle supports --decode-style beam_search or greedy "
+                "(sampling streams are a live server's policy)")
+
+    def buckets(s):
+        return tuple(int(x) for x in s.split(",") if x.strip())
+
+    t_buckets = buckets(args.export_t) or DEFAULT_TIME_BUCKETS
+    geoms = default_serving_geometries(
+        cfg, batch_buckets=default_batch_buckets(args.max_batch),
+        Lq=buckets(args.export_lq), Lh=buckets(args.export_lh),
+        Lc=buckets(args.export_lc), T=t_buckets, S=args.feat_s or 16,
+        Ta=t_buckets[-1] if cfg.has_audio else None, feat_int8=bool(args.feat_int8))
+    platforms = tuple(s.strip() for s in args.export_platforms.split(",") if s.strip())
+    t0 = time.perf_counter()
+    save_bundle(args.export_bundle, params, cfg, gcfg, vocab, geoms,
+                platforms=platforms or None, workers=args.export_workers)
+    logging.info("bundle written to %s (%d geometries) in %.1f s", args.export_bundle,
+                 len(geoms), time.perf_counter() - t0)
 
 
 def make_http_server(host, port, batcher, *, requires_features=False):

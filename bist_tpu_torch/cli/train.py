@@ -22,9 +22,11 @@ by the native loader (`native/`), and --num-workers sizes each feature
 store's prefetch pool.  With --dropout 0 and --attn-dropout 0, hop 1 of
 every video layer trains through the hand-written kernels (K1 forward with
 residuals, K2 backward); with dropout it takes the plain path, as
-`bist_tpu` does.  Not ported yet: data parallelism over several cards
-(--num-devices > 1, ROADMAP queue 1 item 10) and --init-from-ref
-(reference checkpoints, item 7).
+`bist_tpu` does.  --init-from-ref <prefix> starts from a reference-format
+checkpoint (read through `bist_tpu_torch.convert`, --reference-root naming
+a checkout of the reference): its vocabulary and model shape, a fresh
+optimizer state.  Not ported yet: data parallelism over several cards
+(--num-devices > 1, ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -114,10 +116,11 @@ def build_parser():
                         "0 writes them on the training thread")
     p.add_argument("--verbose", "-v", default=0, type=int)
     p.add_argument("--init-from-ref", default="", type=str,
-                   help="reference-format checkpoints are not read by the "
-                        "port yet (ROADMAP queue 1 item 7); must stay empty")
+                   help="start from a reference-format checkpoint "
+                        "(<expdir>/mtn_best + its pickled .conf): its vocab and "
+                        "model shape, a fresh optimizer state")
     p.add_argument("--reference-root", default="", type=str,
-                   help="for --init-from-ref; must stay empty")
+                   help="a checkout of the reference, for --init-from-ref")
     p.add_argument("--resume", default="", type=str,
                    help="checkpoint to resume from (params + optimizer state "
                         "+ step), or 'auto' to pick up the newest complete "
@@ -141,9 +144,17 @@ def main(argv=None):
     if args.num_devices > 1:
         raise SystemExit("--num-devices > 1: data-parallel training is not "
                          "ported to bist_tpu_torch yet (ROADMAP queue 1 item 10)")
-    if args.init_from_ref or args.reference_root:
-        raise SystemExit("--init-from-ref: reference-format checkpoints are not "
-                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 7)")
+    if args.reference_root and not os.path.isdir(args.reference_root):
+        raise SystemExit(f"--reference-root {args.reference_root}: no such directory "
+                         f"(a checkout of the reference, for --init-from-ref)")
+    ref_conf = ""
+    if args.init_from_ref:
+        from bist_tpu_torch.convert import default_conf_for, is_reference_conf
+
+        ref_conf = default_conf_for(args.init_from_ref)
+        if not os.path.exists(ref_conf) or not is_reference_conf(ref_conf):
+            raise SystemExit(f"--init-from-ref {args.init_from_ref}: no reference-format "
+                             f".conf (a pickled (vocab, args)) at {ref_conf}")
 
     import torch
 
@@ -166,9 +177,30 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.rand_seed)
 
-    logging.info("Extracting words from %s", args.train_set)
-    vocab = get_vocabulary(args.train_set, cutoff=args.cutoff,
-                           include_caption=args.include_caption)
+    ref_init = None
+    if args.init_from_ref:
+        from bist_tpu_torch.convert import load_reference_checkpoint_cli
+
+        ref_params, ref_cfg, _, vocab, _ = load_reference_checkpoint_cli(
+            args.init_from_ref, ref_conf, reference_root=args.reference_root or None,
+            device=device)
+        # the checkpoint dictates caption preprocessing: the loaders below
+        # follow the flags, which must then match it
+        if ref_cfg.include_caption != args.include_caption or \
+                ref_cfg.separate_caption != bool(args.separate_caption):
+            raise SystemExit(
+                f"--init-from-ref checkpoint was trained with --include-caption "
+                f"{ref_cfg.include_caption} --separate-caption "
+                f"{int(ref_cfg.separate_caption)}; pass matching flags (got "
+                f"--include-caption {args.include_caption} --separate-caption "
+                f"{args.separate_caption})")
+        ref_init = (ref_params, ref_cfg)
+        logging.info("--init-from-ref %s: vocab (%d words) and model shape come from "
+                     "the checkpoint", args.init_from_ref, len(vocab))
+    else:
+        logging.info("Extracting words from %s", args.train_set)
+        vocab = get_vocabulary(args.train_set, cutoff=args.cutoff,
+                               include_caption=args.include_caption)
     logging.info("#vocab = %d", len(vocab))
     data_kw = dict(include_caption=args.include_caption,
                    separate_caption=bool(args.separate_caption),
@@ -200,6 +232,18 @@ def main(argv=None):
         include_caption=args.include_caption,
         separate_caption=bool(args.separate_caption), ft_sizes=ft_sizes,
         dtype="bfloat16" if args.bf16 else "float32", remat=bool(args.remat))
+    if ref_init is not None:
+        import dataclasses
+
+        ref_cfg = ref_init[1]
+        if ref_cfg.ft_sizes != ft_sizes:
+            raise SystemExit(f"--init-from-ref feature dims {ref_cfg.ft_sizes} != "
+                             f"detected {ft_sizes} (check --fea-type)")
+        # the structure from the checkpoint, regularisation and precision
+        # from the flags
+        cfg = dataclasses.replace(ref_cfg, dropout=args.dropout,
+                                  attn_dropout=args.attn_dropout, dtype=cfg.dtype,
+                                  remat=cfg.remat)
     tcfg = TrainConfig(
         num_epochs=args.num_epochs, rand_seed=args.rand_seed,
         batch_size=args.batch_size, max_length=args.max_length,
@@ -237,7 +281,20 @@ def main(argv=None):
     logging.info("#validation sample = %d  #validation batch = %d",
                  len(valid_data.examples), len(valid_loader))
 
-    state, tx = create_train_state(args.rand_seed, cfg, tcfg, device=device)
+    if ref_init is not None:
+        # the checkpoint's parameters, a fresh optimizer state
+        from bist_tpu_torch.train.loop import TrainState, trainable
+        from bist_tpu_torch.train.schedule import make_optimizer
+        from bist_tpu_torch.weights import tree_leaves
+
+        tx = make_optimizer(cfg.d_model, tcfg.warmup_steps, tcfg.noam_factor,
+                            tcfg.adam_b1, tcfg.adam_b2, tcfg.adam_eps)
+        params = trainable(ref_init[0])
+        state = TrainState(params, tx.init(tree_leaves(params)), 0)
+        logging.info("params initialised from the reference checkpoint "
+                     "(fresh optimizer state)")
+    else:
+        state, tx = create_train_state(args.rand_seed, cfg, tcfg, device=device)
     start_epoch = 0
     min_valid_loss = 1.0e10
     resume_path = args.resume

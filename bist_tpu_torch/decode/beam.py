@@ -105,10 +105,12 @@ def _start(params_list, cfg: ModelConfig, batch: Batch,
               for _ in params_list]
 
     i32 = dict(dtype=torch.int32, device=device)
+    # scalar writes by fill_ (not `x[i] = s`, which a torch.export trace
+    # records as a copy from a host scalar tensor: no CUDA graph takes it)
     tokens = torch.full((B, K, maxlen + 1), PAD, **i32)
-    tokens[:, :, 0] = SOS
+    tokens[:, :, 0].fill_(SOS)
     scores = torch.full((B, K), NEG, dtype=torch.float32, device=device)
-    scores[:, 0] = 0.0
+    scores[:, 0].fill_(0.0)
     return _Search(
         ctxs=ctxs, caches=caches, tokens=tokens, scores=scores,
         comp_tokens=torch.full((B, nbest, maxlen), PAD, **i32),
@@ -154,9 +156,9 @@ def _step(params_list, cfg: ModelConfig, gcfg: GenerateConfig, s: _Search,
     comp_lens = all_lens[rows, top]
 
     # expansion (decode.py:79-97): top-K over the K·V continuations
-    lp[:, :, UNK] = NEG
+    lp[:, :, UNK].fill_(NEG)
     if not gcfg.dec_eos:
-        lp[:, :, EOS] = NEG
+        lp[:, :, EOS].fill_(NEG)
     scores, flat_idx = stable_topk(lp.reshape(B, K * V), K)
     parent = flat_idx // V                                        # (B, K)
     tokens = s.tokens[rows, parent]

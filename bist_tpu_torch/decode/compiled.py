@@ -4,11 +4,17 @@ wrappers of `bist_tpu.serving.Responder` and `bist_tpu.cli.generate`.
 
 A `DecodeProgram` is built from (params or a list of them, cfg, gcfg; the
 style is gcfg.decode_style) and keeps one entry per geometry: the style and the shape and dtype
-of every Batch field that is not None.  The first call at a geometry runs
-the decode once eagerly on a side stream (which builds and loads the
-kernels, fills the positional tables and sets the kernels' shared-memory
-attributes) and then captures it into a `torch.cuda.CUDAGraph`, in one
-memory pool shared by the program's graphs.  Every call copies the batch
+of every Batch field that is not None.  Given a `beam_fn` (a serving
+bundle's programs, `export.Bundle.beam_fn`), the program captures that
+function on (params, static batch) in place of the eager stages, in one
+graph, the same way; a geometry the function does not carry raises its
+KeyError at the first call, before any capture.
+
+The first call at a geometry runs the decode once eagerly on a side
+stream (which builds and loads the kernels, fills the positional tables
+and sets the kernels' shared-memory attributes) and then captures it into
+a `torch.cuda.CUDAGraph`, in one memory pool shared by the program's
+graphs.  Every call copies the batch
 into the entry's static inputs without blocking, replays the graph and
 copies the static outputs into fresh tensors on the stream right after the
 replay, so that no later replay (of any geometry: the graphs share their
@@ -87,15 +93,18 @@ class DecodeProgram:
     (B, Lt) ids by oracle; `seed` and `row_seeds` are sampling's
     (`sample.sample_decode`; `seed` defaults to gcfg.sample_seed)."""
 
-    def __init__(self, params, cfg: ModelConfig, gcfg: GenerateConfig):
+    def __init__(self, params, cfg: ModelConfig, gcfg: GenerateConfig, beam_fn=None):
         style = gcfg.decode_style
         if style not in STYLES:
             raise ValueError(f"decode style {style!r}: expected one of {STYLES}")
         ensemble = isinstance(params, (list, tuple))
         if ensemble and style != "beam_search":
             raise ValueError("an ensemble decodes by beam search only")
+        if beam_fn is not None and (ensemble or style not in ("beam_search", "greedy")):
+            raise ValueError("a beam_fn decodes one model by beam search or greedily")
         self.params_list = list(params) if ensemble else [params]
         self.cfg, self.gcfg, self.style = cfg, gcfg, style
+        self.beam_fn = beam_fn
         self.device = self.params_list[0]["embed"]["lut"].device
         self._cuda = self.device.type == "cuda"
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
@@ -115,6 +124,11 @@ class DecodeProgram:
         i) says before stage i whether the decode is done; result(state)
         gives the output tensors."""
         P, cfg, g = self.params_list, self.cfg, self.gcfg
+        if self.beam_fn is not None:
+            # one stage: the function (a bundle's programs) on the static batch
+            return ([lambda inp: self.beam_fn(P[0], inp[0])], None,
+                    (lambda out: tuple(out)) if self.style == "beam_search"
+                    else (lambda out: (out,)))
         if self.style == "beam_search":
             result = lambda s: tuple(beam._result(s))
             if not g.early_exit:

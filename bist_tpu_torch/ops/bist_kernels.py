@@ -315,15 +315,52 @@ def hop1_fused(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
     any alignment (the t2s direction passes the grid with T and S swapped);
     x, q_proj, the weights and the mask must be float32 (mask int32), on
     kv's device, and contiguous.  The results are float32.
-    `hop1_fused.launches` counts the launches this wrapper issues and
+
+    Without residuals the call goes through the registered op
+    `torch.ops.bist_tpu_torch.hop1_fwd` (`hop1_fwd_op`), so that eager runs,
+    CUDA graph captures and `torch.export` programs all hold the same op;
+    with them (the training forward, `hop1_trainable`) it launches directly.
+    `hop1_fused.launches` counts the launches of K1 and
     `hop1_fused.variants` counts them by kernel (`hop1_variant`), a launch
     recorded into a CUDA graph's capture included; a graph's replay does not
-    pass through the wrapper, so its K1 kernels are counted from a
-    profiler's trace by kernel name."""
+    pass through the op, so its K1 kernels are counted from a profiler's
+    trace by kernel name."""
+    if not return_residuals:
+        w = [attn_params[n][p] for n in ("wk", "wv", "wo") for p in ("w", "b")]
+        return hop1_fwd_op(x, q_proj, kv, *w, mask, h)
     if kv.device.type == "cpu":
         return hop1_plain(x, q_proj, kv, attn_params, h, mask, return_residuals)
     return _hop1_launch(_fwd_lib().bist_hop1_fwd, None, x, q_proj, kv, attn_params, h,
                         mask, return_residuals)
+
+
+def _attn_params(wk, bk, wv, bv, wo, bo):
+    return {"wk": {"w": wk, "b": bk}, "wv": {"w": wv, "b": bv}, "wo": {"w": wo, "b": bo}}
+
+
+@torch.library.custom_op("bist_tpu_torch::hop1_fwd", mutates_args=(), device_types="cuda")
+def hop1_fwd_op(x: torch.Tensor, q_proj: torch.Tensor, kv: torch.Tensor,
+                wk: torch.Tensor, bk: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor,
+                wo: torch.Tensor, bo: torch.Tensor, mask: Optional[torch.Tensor],
+                h: int) -> torch.Tensor:
+    """K1 as a registered op, the inference forward of `hop1_fused` with the
+    attention weights flat.  Its CUDA implementation is the launch (the
+    variant choice and every check run there, at call time); its CPU
+    implementation is `hop1_plain`; its fake gives (B, G, Lq, D) in x's
+    dtype and touches no library, so tracing builds no kernel."""
+    return _hop1_launch(_fwd_lib().bist_hop1_fwd, None, x, q_proj, kv,
+                        _attn_params(wk, bk, wv, bv, wo, bo), h, mask, False)
+
+
+@hop1_fwd_op.register_kernel("cpu")
+def _hop1_fwd_cpu(x, q_proj, kv, wk, bk, wv, bv, wo, bo, mask, h):
+    return hop1_plain(x, q_proj, kv, _attn_params(wk, bk, wv, bv, wo, bo), h, mask)
+
+
+@hop1_fwd_op.register_fake
+def _hop1_fwd_fake(x, q_proj, kv, wk, bk, wv, bv, wo, bo, mask, h):
+    B, G, _, D = kv.shape
+    return x.new_empty((B, G, x.shape[1], D))
 
 
 def _hop1_fused_as(variant: str, x, q_proj, kv, attn_params, h, mask=None,

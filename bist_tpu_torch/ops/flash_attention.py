@@ -77,19 +77,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention without materialised scores (same arguments and result as
-    `attention_plain`).
+    `attention_plain`), through the registered op
+    `torch.ops.bist_tpu_torch.flash_fwd` (`flash_fwd_op`).
 
     On a CUDA tensor it launches the K3 kernel, or raises (other dtypes,
     non-contiguous inputs); on a CPU tensor it runs `attention_plain`.  q,
     k, v: contiguous, one dtype, float32 or bfloat16 (the result has it
     too), any head dim, any alignment; mask: contiguous int32 (G, Lk) or
-    None.  `flash_attention.launches` counts the launches this wrapper
-    issues, a launch recorded into a CUDA graph's capture included (a
-    replay does not pass through the wrapper)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask, sm_scale)
-    if q.device.type != "cuda":
+    None.  `flash_attention.launches` counts the kernel's launches, a
+    launch recorded into a CUDA graph's capture included (a replay does not
+    pass through the op)."""
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return flash_fwd_op(q, k, v, mask, 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                        else float(sm_scale))
+
+
+@torch.library.custom_op("bist_tpu_torch::flash_fwd", mutates_args=(), device_types="cuda")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], sm_scale: float) -> torch.Tensor:
+    """K3 as a registered op.  Its CUDA implementation checks the inputs,
+    plans the kv split and launches; its CPU implementation is
+    `attention_plain`; its fake gives q's shape and dtype and touches no
+    library."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
     if q.dtype not in DTYPES:
@@ -104,8 +114,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(
                 f"flash_attention: {name} must be contiguous {dtype} {shape} on "
                 f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
     bf16 = int(q.dtype == torch.bfloat16)
     dev = q.device
     lib = _lib()
@@ -135,6 +143,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"splits={nsplit}x{chunk})")
     flash_attention.launches += 1
     return out
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, mask, sm_scale):
+    return attention_plain(q, k, v, mask, sm_scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, mask, sm_scale):
+    return torch.empty_like(q)
 
 
 flash_attention.launches = 0

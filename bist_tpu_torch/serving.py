@@ -26,9 +26,13 @@ out on the stream; it returns while the device works.
 keeps up to `pipeline_depth` batches dispatched, so batch N+1's assembly
 and replay overlap batch N's device work.
 
-One device: the parameters' device is the serving device.  Serving over
-several GPUs, AOT bundles (`bist_tpu`'s `beam_fn` and
-`warmup_geometries`) and reference-format checkpoints are not ported yet.
+One device: the parameters' device is the serving device.  A serving
+bundle (`export.Bundle.make_responder`) passes its programs as `beam_fn`:
+the Responder's `DecodeProgram` then captures them, one CUDA graph per
+geometry, and `warmup_geometries` captures the bundle's whole geometry
+table before traffic arrives.  Serving over several GPUs (`bist_tpu`'s
+data-parallel mesh, `beam_fn_devices` > 1) waits for ROADMAP queue 1 item
+10.
 
 Usage:
     responder = Responder(params, cfg, vocab, gcfg)
@@ -119,12 +123,22 @@ class Responder:
                  batch_buckets: Optional[Tuple[int, ...]] = None,
                  feat_int8: bool = False,
                  audio_time_buckets=None,
-                 feat_tail: Optional[Tuple[int, int]] = None):
-        # validated first: a bad style fails at load, not on the first request
+                 feat_tail: Optional[Tuple[int, int]] = None,
+                 beam_fn=None, beam_fn_devices: int = 1):
+        # validated first, with a beam_fn or not: a bad style fails at load,
+        # not on the first request
         if gcfg.decode_style not in SERVED_STYLES:
             raise ValueError(
                 f"serving supports decode_style 'beam_search', 'greedy' or "
                 f"'sample', not {gcfg.decode_style!r}")
+        if beam_fn is not None and gcfg.decode_style == "sample":
+            raise ValueError(
+                "bundle programs do not support decode_style 'sample' (per-request "
+                "streams are a live server's policy; serve the checkpoint with "
+                "--decode-style sample instead)")
+        if beam_fn_devices != 1:
+            raise ValueError(f"beam_fn_devices={beam_fn_devices}: serving over several "
+                             f"devices waits for ROADMAP queue 1 item 10")
         self._style = gcfg.decode_style
         self.params = params
         self.device = params["embed"]["lut"].device
@@ -156,8 +170,9 @@ class Responder:
             raise ValueError(f"the largest batch bucket {self.batch_buckets[-1]} "
                              f"must be max_batch {max_batch}")
         # the decode: one CUDA graph per geometry (on the CPU, the same
-        # stages run eagerly on its static buffers)
-        self.program = DecodeProgram(params, cfg, gcfg)
+        # stages run eagerly on its static buffers), of a bundle's programs
+        # where a beam_fn is given
+        self.program = DecodeProgram(params, cfg, gcfg, beam_fn=beam_fn)
         # cumulative seconds of each batch's parts, read through
         # DynamicBatcher.metrics()["component_seconds"]: host assembly,
         # the copy to the device and the graph's replay, the host's wait
@@ -343,6 +358,21 @@ class Responder:
         for b in buckets:
             for L in lens:
                 self.respond([mk(L) for _ in range(b)])
+
+    def warmup_geometries(self, geometries) -> None:
+        """Capture every geometry of a table (`export.geometry_of`'s dicts,
+        a bundle's `geometries`) before taking traffic: one batch of
+        <sos>/PAD tokens and zero features each, with the dtypes
+        `make_batch` assembles (int8 and its scale where `int8` is set), so
+        that no request group is captured at serve time.  A bundle's
+        cross product of buckets holds more shapes than warmup()'s one
+        length and time bucket per batch bucket."""
+        from bist_tpu_torch.export import host_batch
+
+        for g in geometries:
+            batch = host_batch(g, self.cfg)
+            out = self.program(self._pinned(batch))
+            (out[0] if isinstance(out, tuple) else out).cpu()
 
 
 class DynamicBatcher:

@@ -119,7 +119,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the port read from its log): /healthz, /respond with nested-list
      features and with an int8 upload, a 400 without features, /metrics;
      then the evaluate CLI on phase 5's greedy result: seven metrics and
-     its .eval.
+     its .eval;
+ 11. serving bundles (bist_tpu_torch.export) of phase 3's model at the serve
+     CLI's decode settings (beam 5, maxlen 12, bfloat16 cache): a beam
+     bundle of 4 geometries (batch 8 and 64 x histories 64 and 256, LQ, LC,
+     40 clips of 16 x 2048; torch.export programs exported by 4 worker
+     processes) and a greedy bundle of one, loaded into fresh objects.
+     The beam bundle's Responder captures its table (warmup_geometries) and
+     answers phase 3's 256 turns in groups that reach every geometry, under
+     torch.profiler.  Required: each answer equal to a DecodeProgram
+     Responder's for the same rows, no capture and no eager K1 launch in the
+     served window, K1 6 times per batch in the replays, all "whole", by
+     kernel name, and 6 K1 op nodes and no weight in each program; seed 1's
+     params.npz swapped into the same bundle (nothing exported) giving a
+     seed-1 DecodeProgram Responder's answers; the greedy bundle giving the
+     greedy DecodeProgram's; the serve CLI exporting a bundle of phase 5's
+     model (--export-bundle) and serving it (--bundle: /healthz,
+     /respond).  Readings: export, load and capture seconds per geometry,
+     .pt2 and params.npz bytes, the graph pool, requests/s (in turns) and
+     device ms per batch of the bundle's and the DecodeProgram's Responders
+     at one geometry, and the first batch at a geometry off warmup()'s
+     diagonal after warmup() alone and after warmup_geometries.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -1957,6 +1977,53 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
     return out
 
 
+class ServeProcess:
+    """The serve CLI as a process of its own with `args` (--port 0 added),
+    its output in `log_path`: entering waits for its "serving on <host>:
+    <port>" line and gives the base URL; leaving sends SIGINT and waits."""
+
+    def __init__(self, args, log_path, timeout=600):
+        self.cmd = [sys.executable, "-m", "bist_tpu_torch.cli.serve", *args, "--port", "0"]
+        self.log_path, self.timeout = log_path, timeout
+
+    def tail(self):
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    def __enter__(self):
+        import re
+
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(self.cmd, cwd=HERE, stdout=logf,
+                                         stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + self.timeout
+            while True:
+                if self.proc.poll() is not None:
+                    raise AssertionError(f"serve CLI exited {self.proc.returncode}:\n"
+                                         f"{self.tail()}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve CLI did not start in {self.timeout} s:\n"
+                                         f"{self.tail()}")
+                m = re.search(r"serving on [\d.]+:(\d+)", self.tail())
+                if m:
+                    return f"http://127.0.0.1:{int(m.group(1))}"
+                time.sleep(0.2)
+        except BaseException:
+            self.__exit__()
+            raise
+
+    def __exit__(self, *exc):
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
 def phase_serve_cli(device, root, result_json, s=S, timeout=600):
     """The serve CLI (a process of its own, --port 0) on phase 5's model
     <root>/mtn: /healthz, /respond with nested-list features and with an
@@ -1964,35 +2031,14 @@ def phase_serve_cli(device, root, result_json, s=S, timeout=600):
     `result_json` (phase 5's greedy result): its seven metrics printed and
     its .eval written."""
     import re
-    import signal
 
     from bist_tpu_torch.config import load_conf
     from bist_tpu_torch.data.batching import quantize_features
 
     _, cfg, _, _ = load_conf(os.path.join(root, "mtn.conf"))
-    log_path = os.path.join(root, "serve.log")
-    cmd = [sys.executable, "-m", "bist_tpu_torch.cli.serve", "--model",
-           os.path.join(root, "mtn"), "--port", "0", "--device", device.type]
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
-
-    def tail():
-        with open(log_path) as f:
-            return f.read()[-3000:]
-
-    try:
-        deadline, port = time.monotonic() + timeout, None
-        while port is None:
-            if proc.poll() is not None:
-                raise AssertionError(f"serve CLI exited {proc.returncode}:\n{tail()}")
-            if time.monotonic() > deadline:
-                raise AssertionError(f"serve CLI did not start in {timeout} s:\n{tail()}")
-            m = re.search(r"serving on [\d.]+:(\d+)", tail())
-            if m:
-                port = int(m.group(1))
-            else:
-                time.sleep(0.2)
-        base = f"http://127.0.0.1:{port}"
+    server = ServeProcess(["--model", os.path.join(root, "mtn"), "--device", device.type],
+                          os.path.join(root, "serve.log"), timeout)
+    with server as base:
         rng = np.random.default_rng(5)
         fts = rng.standard_normal((10, s, cfg.ft_sizes[0]), dtype=np.float32)
         q8, scale = quantize_features(fts[None])
@@ -2006,13 +2052,6 @@ def phase_serve_cli(device, root, result_json, s=S, timeout=600):
             "respond, no features": http_json(f"{base}/respond", turn),
             "metrics": http_json(f"{base}/metrics"),
         }
-    finally:
-        proc.send_signal(signal.SIGINT)
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
     want = {"healthz": 200, "respond, lists": 200, "respond, int8": 200,
             "respond, no features": 400, "metrics": 200}
     codes = {k: c for k, (c, _) in checks.items()}
@@ -2020,7 +2059,7 @@ def phase_serve_cli(device, root, result_json, s=S, timeout=600):
             or not all(isinstance(checks[k][1].get("answer"), str)
                        for k in ("respond, lists", "respond, int8")) \
             or checks["metrics"][1].get("requests", 0) < 2:
-        raise AssertionError(f"serve CLI: {checks}\n{tail()}")
+        raise AssertionError(f"serve CLI: {checks}\n{server.tail()}")
 
     r = subprocess.run([sys.executable, "-m", "bist_tpu_torch.cli.evaluate", result_json],
                        cwd=HERE, capture_output=True, text=True, timeout=300)
@@ -2037,6 +2076,314 @@ def phase_serve_cli(device, root, result_json, s=S, timeout=600):
             "serve_metrics": {k: checks["metrics"][1][k] for k in ("requests", "batches",
                                                                     "errors")},
             "evaluate": {k: float(v) for k, v in metrics.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving bundles
+
+
+def with_history(f, words):
+    """A client's fields with a history of `words` words: its own history's
+    last words, repeated (with its question) where it is shorter."""
+    w = f["history"].split() or f["question"].split()
+    while len(w) < words:
+        w = w + f["question"].split() + w
+    return dict(f, history=" ".join(w[-words:]))
+
+
+def bundle_groups(fields, big=64, small=8):
+    """Phase 3's turns as two halves, the first with histories of 80 words
+    (they pad to the 256 bucket), the second of 12 (the 64 bucket), each
+    half as one group of `big` rows and then groups of `small`: groups that
+    reach every geometry of a (small, big) x (64, 256) table."""
+    half = len(fields) // 2
+    groups = []
+    for part in ([with_history(f, 80) for f in fields[:half]],
+                 [with_history(f, 12) for f in fields[half:]]):
+        groups.append(part[:big])
+        groups += [part[i:i + small] for i in range(big, len(part), small)]
+    return groups
+
+
+def respond_groups(rsp, groups):
+    """Each group through Responder.respond: the answers in order and each
+    batch's geometry key."""
+    from bist_tpu_torch.export import geometry_key, geometry_of
+
+    answers, keys = [], []
+    for group in groups:
+        reqs = [rsp.make_request(**f) for f in group]
+        keys.append(geometry_key(geometry_of(rsp.make_batch(reqs))))
+        rsp.respond(reqs)
+        answers += [r._answer for r in reqs]
+    return answers, keys
+
+
+def phase_bundles(device, model, fields, cli_root, dv=DV, s=S, t_max=T_MAX, workers=4,
+                  big=64, small=8, lh=(64, LH)):
+    """Serving bundles (`bist_tpu_torch.export`) of phase 3's model at the
+    serve CLI's decode settings (beam 5, maxlen 12, bfloat16 cache): a beam
+    bundle of 4 geometries (batch `small` and `big` x histories `lh`, LQ,
+    LC, t_max clips of (s, dv)) exported by `workers` processes and a greedy
+    bundle of one geometry, both loaded into fresh objects; the beam
+    bundle's Responder captures its table (`warmup_geometries`) and answers
+    `fields` in groups that reach every geometry, each answer equal to a
+    DecodeProgram Responder's for the same rows, with no capture and no
+    eager K1 launch in the served window and, on the card, K1 6 times per
+    batch, all "whole", by kernel name; params.npz of seed 1 swapped into
+    the same bundle (no export) gives a seed-1 DecodeProgram's answers; the
+    greedy bundle gives the greedy DecodeProgram's.  Readings: export,
+    load and capture seconds per geometry, file bytes, graph pool,
+    requests/s and device ms per batch of both Responders at one geometry
+    (in turns), and the first batch at a geometry off warmup()'s diagonal
+    with and without warmup_geometries.  Then the serve CLI exports a
+    bundle of phase 5's model and serves it (`phase_bundle_cli`), its export
+    started first and run beside the bundles'."""
+    # three exports at once: the serve CLI's (a process), the greedy bundle
+    # (a thread of this process, which only waits on the beam bundle's
+    # worker processes meanwhile) and the beam bundle's; the CLI's process
+    # is stopped whatever happens
+    cli_export = start_bundle_cli_export(device, cli_root, s)
+    try:
+        return bundle_checks(device, model, fields, cli_root, cli_export, dv, s, t_max,
+                             workers, big, small, lh)
+    finally:
+        if cli_export[0].poll() is None:
+            cli_export[0].kill()
+            cli_export[0].wait(timeout=30)
+
+
+def bundle_checks(device, model, fields, cli_root, cli_export, dv, s, t_max, workers, big,
+                  small, lh):
+    """`phase_bundles` once the serve CLI's export is started."""
+    import concurrent.futures
+    import dataclasses
+
+    import torch
+
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.export import (default_serving_geometries, flatten_params,
+                                       geometry_key, load_bundle, save_bundle)
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
+    from bist_tpu_torch.serving import Responder
+
+    vocab, cfg, params = model
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    K1 = torch.ops.bist_tpu_torch.hop1_fwd.default
+    gcfg = GenerateConfig(maxlen=12, beam=5, penalty=1.0, nbest=1, cache_dtype="bfloat16")
+    greedy = dataclasses.replace(gcfg, decode_style="greedy")
+    geoms = default_serving_geometries(cfg, batch_buckets=(small, big), Lq=LQ, Lh=lh,
+                                       Lc=LC, T=t_max, S=s)
+    kw = dict(max_batch=big, batch_buckets=(small, big),
+              len_buckets={"q": (LQ,), "h": tuple(lh), "c": (LC,)},
+              time_buckets=(t_max,), feat_tail=(s, dv))
+    root = os.path.join(HERE, "build", "chip_smoke", "bundles")
+    shutil.rmtree(root, ignore_errors=True)
+    beam_dir, greedy_dir = os.path.join(root, "beam"), os.path.join(root, "greedy")
+    out = {"geometries": [geometry_key(g) for g in geoms]}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        greedy_saved = pool.submit(save_bundle, greedy_dir, params, cfg, greedy, vocab,
+                                   geoms[-1:])
+        t0 = time.perf_counter()
+        written = save_bundle(beam_dir, params, cfg, gcfg, vocab, geoms, workers=workers)
+        out["export_seconds"] = time.perf_counter() - t0
+        greedy_saved.result()
+    for name, d in (("beam", beam_dir), ("greedy", greedy_dir)):
+        with open(os.path.join(d, "bundle.json")) as f:
+            out[f"{name}_export_seconds_per_program"] = json.load(f)["export_seconds"]
+    out["pt2_bytes"] = {k: os.path.getsize(p) for k, p in written.items()}
+    out["params_npz_bytes"] = os.path.getsize(os.path.join(beam_dir, "params.npz"))
+
+    t0 = time.perf_counter()
+    bundle = load_bundle(beam_dir, device)
+    out["load_seconds"] = time.perf_counter() - t0
+    out["load_seconds_per_program"] = bundle.load_seconds
+    nodes = {k: sum(n.target is K1 for n in ep.graph.nodes) for k, ep in bundle.programs.items()}
+    out["k1_op_nodes"] = nodes
+    if set(nodes.values()) != {2 * cfg.nb_venc_blocks} \
+            or any(len(ep.state_dict) for ep in bundle.programs.values()):
+        raise AssertionError(f"bundles: K1 op nodes {nodes} (expected "
+                             f"{2 * cfg.nb_venc_blocks} a program) or weights in a program")
+
+    rsp_b = bundle.make_responder()
+    derived = {k: getattr(rsp_b, k) for k in ("batch_buckets", "q_buckets", "h_buckets",
+                                               "c_buckets", "time_buckets", "feat_tail")}
+    if derived != {"batch_buckets": (small, big), "q_buckets": (LQ,), "h_buckets": tuple(lh),
+                   "c_buckets": (LC,), "time_buckets": (t_max,), "feat_tail": (s, dv)}:
+        raise AssertionError(f"bundles: make_responder derived {derived}")
+    out["capture_seconds_per_geometry"] = {}
+    for key, g in bundle.geometries.items():
+        t0 = time.perf_counter()
+        rsp_b.warmup_geometries([g])
+        sync()
+        out["capture_seconds_per_geometry"][key] = time.perf_counter() - t0
+    rsp_p = Responder(params, cfg, vocab, gcfg, **kw)
+    rsp_p.warmup_geometries(geoms)
+
+    groups = bundle_groups(fields, big, small)
+    want, _ = respond_groups(rsp_p, groups)
+    sync()
+    reset_hop1_counts()
+    before = rsp_b.program.stats()
+    prof = profiler_window(device)
+    with prof:
+        got, keys = respond_groups(rsp_b, groups)
+        sync()
+    after = rsp_b.program.stats()
+    out["program"] = after
+    out["graph_pool_mb"] = after["pool_bytes"] / 2 ** 20
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if differ:
+        raise AssertionError(f"bundles: {len(differ)} of {len(want)} answers differ from the "
+                             f"DecodeProgram Responder's, e.g. request {differ[0]}: "
+                             f"{got[differ[0]]!r} against {want[differ[0]]!r}")
+    if set(keys) != set(bundle.geometries):
+        raise AssertionError(f"bundles: the groups reached {sorted(set(keys))}, not every "
+                             f"geometry of {sorted(bundle.geometries)}")
+    if any(after[k] != before[k] for k in ("geometries", "captures", "eager_runs")) \
+            or hop1_fused.launches:
+        raise AssertionError(f"bundles: the served window captured or ran eagerly: program "
+                             f"{before} -> {after}, K1 launches {hop1_fused.launches}")
+    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+    if cuda and ran != {"whole": 6 * len(groups), "tiled": 0}:
+        raise AssertionError(f"bundles: K1 kernels by name {ran} in {len(groups)} replayed "
+                             f"batches, expected {6 * len(groups)} \"whole\"")
+    out.update(served={"requests": len(got), "identical": len(got), "batches": len(groups),
+                       "geometries_reached": len(set(keys)), "hop1_fwd_ran": ran["whole"]})
+
+    # requests/s and device ms per batch at one geometry (big rows, long histories)
+    one = [groups[0], [with_history(f, 80) for f in fields[-big:]]]
+    reqs = {name: [[r.make_request(**f) for f in g] for g in one]
+            for name, r in (("bundle", rsp_b), ("program", rsp_p))}
+    rates = {"bundle": [], "program": []}
+    for name, rsp in (("bundle", rsp_b), ("program", rsp_p), ("program", rsp_p),
+                      ("bundle", rsp_b)):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for r in reqs[name]:
+                rsp.respond(r)
+        sync()
+        rates[name].append(3 * big * len(one) / (time.perf_counter() - t0))
+    device_ms = {}
+    for name, rsp in (("bundle", rsp_b), ("program", rsp_p)):
+        prof = profiler_window(device)
+        with prof:
+            for r in reqs[name]:
+                rsp.respond(r)
+            sync()
+        device_ms[name] = device_busy_ms(prof) / len(one) if cuda else None
+    out["one_geometry"] = {"geometry": geometry_key(geoms[-1]), "requests_per_s": rates,
+                           "device_ms_per_batch": device_ms}
+    del rsp_p
+
+    # the first batch at a geometry off warmup()'s diagonal (groups[1]: small
+    # rows, long histories), after warmup() alone and after warmup_geometries
+    first = {}
+    for name in ("warmup", "warmup_geometries"):
+        rsp = bundle.make_responder()
+        if name == "warmup":
+            rsp.warmup(feature_shape=(s, dv), t_clips=min(16, t_max))
+        else:
+            rsp.warmup_geometries(geoms)
+        warmed = rsp.program.stats()["geometries"]
+        reqs1 = [rsp.make_request(**f) for f in groups[1]]
+        sync()
+        t0 = time.perf_counter()
+        rsp.respond(reqs1)
+        sync()
+        first[name] = {"ms": (time.perf_counter() - t0) * 1e3, "warmed": warmed,
+                       "captured": rsp.program.stats()["geometries"] - warmed}
+        del rsp
+    if first["warmup_geometries"]["captured"] or not first["warmup"]["captured"]:
+        raise AssertionError(f"bundles: first batch off the diagonal {first}")
+    out["first_batch_off_diagonal"] = first
+
+    # a weight swap: seed 1's params.npz in the same bundle, nothing exported
+    mtimes = {k: os.path.getmtime(p) for k, p in written.items()}
+    params1 = init_model(1, cfg, device=device)
+    np.savez(os.path.join(beam_dir, "params.npz"), **flatten_params(params1))
+    bundle.reload_params()
+    swap = [groups[0], groups[-1]]
+    got1, _ = respond_groups(bundle.make_responder(), swap)
+    want1, _ = respond_groups(Responder(params1, cfg, vocab, gcfg, **kw), swap)
+    if got1 != want1 or mtimes != {k: os.path.getmtime(p) for k, p in written.items()}:
+        raise AssertionError("bundles: the swapped weights' answers differ from a seed-1 "
+                             "DecodeProgram Responder's, or a program was written again")
+    out["weight_swap"] = {"requests": len(got1), "identical": len(got1),
+                          "changed_from_seed_0": sum(a != b for a, b in zip(got1, got))}
+    del bundle, rsp_b
+
+    gb = load_bundle(greedy_dir, device)
+    rg = gb.make_responder()
+    rg.warmup_geometries(gb.geometries.values())
+    gkw = dict(kw, max_batch=big, batch_buckets=(big,),
+               len_buckets={"q": (LQ,), "h": (lh[-1],), "c": (LC,)})
+    got_g, _ = respond_groups(rg, one)
+    want_g, _ = respond_groups(Responder(params, cfg, vocab, greedy, **gkw), one)
+    if got_g != want_g:
+        raise AssertionError("bundles: the greedy bundle's answers differ from the greedy "
+                             "DecodeProgram Responder's")
+    out["greedy"] = {"requests": len(got_g), "identical": len(got_g),
+                     "geometry": next(iter(gb.geometries))}
+    del gb, rg
+    out["serve_cli"] = phase_bundle_cli(device, cli_root, cli_export, s)
+    log(f"bundles: {json.dumps(out)}")
+    return out
+
+
+def start_bundle_cli_export(device, root, s=S):
+    """Start the serve CLI's --export-bundle of phase 5's model <root>/mtn
+    (one geometry: batch 8, LQ/64/LC tokens, 16 clips of (s, Dv)) into
+    <root>/bundle, its output in <root>/export_bundle.log; returns the
+    process and its start time."""
+    cmd = [sys.executable, "-m", "bist_tpu_torch.cli.serve", "--model",
+           os.path.join(root, "mtn"), "--export-bundle", os.path.join(root, "bundle"),
+           "--max-batch", "8", "--export-lq", str(LQ), "--export-lh", "64",
+           "--export-lc", str(LC), "--export-t", "16", "--feat-s", str(s),
+           "--device", device.type]
+    with open(os.path.join(root, "export_bundle.log"), "w") as logf:
+        return subprocess.Popen(cmd, cwd=HERE, stdout=logf,
+                                stderr=subprocess.STDOUT), time.perf_counter()
+
+
+def phase_bundle_cli(device, root, export, s=S, timeout=900):
+    """The serve CLI on phase 5's model <root>/mtn: waits for the
+    --export-bundle process `export` (`start_bundle_cli_export`), then
+    serves the bundle with --bundle as a process of its own: /healthz and
+    /respond answering, its log naming the warmup over its geometry
+    table."""
+    from bist_tpu_torch.config import load_conf
+
+    proc, t0 = export
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(root, "export_bundle.log")) as f:
+        export_log = f.read()
+    if rc != 0:
+        raise AssertionError(f"serve CLI --export-bundle exited {rc}:\n{export_log[-4000:]}")
+    _, cfg, _, _ = load_conf(os.path.join(root, "mtn.conf"))
+    server = ServeProcess(["--bundle", os.path.join(root, "bundle"), "--device", device.type],
+                          os.path.join(root, "serve_bundle.log"), timeout)
+    with server as base:
+        fts = np.random.default_rng(6).standard_normal((10, s, cfg.ft_sizes[0]),
+                                                        dtype=np.float32)
+        checks = {"healthz": http_json(f"{base}/healthz"),
+                  "respond": http_json(f"{base}/respond", {
+                      "question": "what is the man doing ?", "history": "is he inside ? yes",
+                      "caption": "a man sits on a couch .", "features": fts.tolist()})}
+        log_text = server.tail()
+    if [c for c, _ in checks.values()] != [200, 200] \
+            or not isinstance(checks["respond"][1].get("answer"), str) \
+            or "every geometry of the bundle" not in log_text:
+        raise AssertionError(f"serve CLI --bundle: {checks}\n{log_text}")
+    return {"export_seconds": export_s, "serve": checks}
 
 
 # ---------------------------------------------------------------------------
@@ -2132,12 +2479,26 @@ def main() -> int:
     serving_load = phase_serving_load(device, model, fields)
     print(f"serving load on {card}: {json.dumps(serving_load)}", flush=True)
     lap("serving load")
-    del model, fields
 
     serve_cli = phase_serve_cli(device, os.path.join(HERE, "build", "chip_smoke", "cli"),
                                 cli["greedy_result"])
     print(f"serve and evaluate CLIs: {json.dumps(serve_cli)}", flush=True)
     lap("serve and evaluate CLIs")
+
+    bundles = phase_bundles(device, model, fields,
+                            os.path.join(HERE, "build", "chip_smoke", "cli"))
+    del model, fields
+    one = bundles["one_geometry"]
+    print(f"serving bundles on {card}: export {bundles['export_seconds']:.1f} s for "
+          f"{len(bundles['geometries'])} programs ({bundles['beam_export_seconds_per_program']}), "
+          f"load {bundles['load_seconds']:.1f} s ({bundles['load_seconds_per_program']}), "
+          f"capture {bundles['capture_seconds_per_geometry']}, graph pool "
+          f"{bundles['graph_pool_mb']:.1f} MB; at {one['geometry']}: requests/s bundle "
+          f"{one['requests_per_s']['bundle']} against DecodeProgram "
+          f"{one['requests_per_s']['program']}, device ms a batch {one['device_ms_per_batch']}; "
+          f"first batch off the diagonal {bundles['first_batch_off_diagonal']}", flush=True)
+    print(f"serving bundles on {card}: {json.dumps(bundles)}", flush=True)
+    lap("serving bundles")
 
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
@@ -2154,7 +2515,9 @@ def main() -> int:
              # K1 kernels the card ran in the replays, by name (profiler)
              launches_serving=serving["hop1_fwd_ran"],
              launches_serving_load={k: v["profiled"]["hop1_fwd_ran"]
-                                    for k, v in serving_load.items()}),
+                                    for k, v in serving_load.items()},
+             # K1 kernels the card ran in the serving bundle's replays, by name
+             launches_bundle=bundles["served"]["hop1_fwd_ran"]),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],

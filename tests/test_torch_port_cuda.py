@@ -1059,3 +1059,98 @@ def test_loader_assembles_feature_grids_in_pinned_memory(cuda, tmp_path):
         np.testing.assert_array_equal(a.fts, b.fts)
         n += 1
     assert n == len(plain) > 1
+
+
+@pytest.fixture
+def bundle_on_card(cuda, tmp_path):
+    """A beam-search bundle of small_model exported on the card at
+    host_batch's geometry, loaded into fresh objects, with the model."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.export import geometry_of, load_bundle, save_bundle
+
+    vocab, cfg, params = small_model(cuda)
+    gcfg = GenerateConfig(maxlen=5, beam=3, nbest=2, cache_dtype="bfloat16")
+    geom = geometry_of(host_batch(np.random.default_rng(0)))
+    save_bundle(str(tmp_path / "b"), params, cfg, gcfg, vocab, [geom])
+    return cfg, params, gcfg, load_bundle(str(tmp_path / "b"), cuda)
+
+
+@pytest.mark.cuda
+def test_bundle_replays_equal_decode_program(bundle_on_card):
+    """The bundle's program captured by a DecodeProgram (its beam_fn) gives
+    the eager-stage DecodeProgram's outputs on two alternating batches of
+    its geometry, one capture, nothing eager after; its graph holds K1's op
+    (t2s and s2t in each of 2 layers) and no weight."""
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+
+    cfg, params, gcfg, bundle = bundle_on_card
+    ep = next(iter(bundle.programs.values()))
+    assert sum(n.target is torch.ops.bist_tpu_torch.hop1_fwd.default
+               for n in ep.graph.nodes) == 4 and len(ep.state_dict) == 0
+    rng = np.random.default_rng(5)
+    batches = [host_batch(rng), host_batch(rng)]
+    prog = DecodeProgram(bundle.params, cfg, gcfg, beam_fn=bundle.beam_fn())
+    plain = DecodeProgram(params, cfg, gcfg)
+    for i in (0, 1, 0, 1):
+        got = prog(batches[i])
+        torch.cuda.synchronize()
+        assert same(got, plain(batches[i])), i
+    stats = prog.stats()
+    assert stats["captures"] == stats["eager_runs"] == stats["geometries"] == 1
+
+
+@pytest.mark.cuda
+def test_k1_runs_inside_bundle_replays(bundle_on_card):
+    """K1's op is captured inside the bundle's graph: the trace of 3 replays
+    shows K1's "whole" kernel 12 times (4 a replay) and no launch passes
+    through the op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, bundle = bundle_on_card
+    rsp_prog = bundle.make_responder().program
+    batch = host_batch(np.random.default_rng(6))
+    rsp_prog(batch)
+    torch.cuda.synchronize()
+    before = K1.hop1_fused.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a kernel the trace may take late (CUPTI can start recording a
+        # moment after the window opens; a run once lost a K1 that way)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            rsp_prog(batch)
+        torch.cuda.synchronize()
+    assert K1.hop1_fused.launches == before
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("hop1_fwd_whole_kernel" in n for n in names) == 12, names[:40]
+
+
+@pytest.mark.cuda
+def test_registered_ops_equal_the_direct_launches(cuda):
+    """K1's and K3's registered ops on the card give the direct launch's
+    result bit for bit (K1 through `_hop1_launch` as before the op, K3
+    through the op twice), and count their launches."""
+    rng = np.random.default_rng(7)
+    B, G, Lq, Lk, D, h = 3, 16, 32, 40, 128, 8
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(1), h, D).items()}
+    w = [p[n][k] for n in ("wk", "wv", "wo") for k in ("w", "b")]
+    x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
+    kv = tensor(rng, (B, Lk, G, D), cuda).transpose(1, 2)
+    mask = prefix_mask(rng, B, Lk, cuda)[:, None, :].contiguous()
+    for m in (mask, None):
+        before = K1.hop1_fused.launches
+        got = torch.ops.bist_tpu_torch.hop1_fwd(x, q, kv, *w, m, h)
+        want = K1._hop1_launch(K1._fwd_lib().bist_hop1_fwd, None, x, q, kv, p, h, m, False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and K1.hop1_fused.launches == before + 2
+    qf, kf, vf = (tensor(rng, (8, 16, 64), cuda) for _ in range(3))
+    fmask = prefix_mask(rng, 8, 16, cuda)
+    before = K3.flash_attention.launches
+    a = torch.ops.bist_tpu_torch.flash_fwd(qf, kf, vf, fmask, 0.125)
+    b = K3.flash_attention(qf, kf, vf, fmask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and K3.flash_attention.launches == before + 2
+    close(a, K3.attention_plain(qf, kf, vf, fmask), "flash op")

@@ -71,11 +71,16 @@ def test_serve_cli_defaults_to_cuda_and_refuses_unported_options():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--model", "absent"])
-    for args, item in ((["--bundle", "b"], "item 6"), (["--export-bundle", "b"], "item 6"),
-                       (["--export-lh", "64"], "item 6"),
-                       (["--reference-root", "r"], "item 7")):
-        with pytest.raises(SystemExit, match=item):
-            serve.main(args + ["--model", "absent", "--device", "cpu"])
+    # bundles and reference checkpoints are ported: what is left refused is
+    # data-parallel export (item 10); a missing reference root is named
+    with pytest.raises(SystemExit, match="item 10"):
+        serve.main(["--export-dp", "2", "--model", "absent", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no such directory"):
+        from bist_tpu_torch.convert import import_reference_checkpoint
+        import_reference_checkpoint("absent_best.pth.tar", "absent.conf",
+                                    reference_root="absent_root", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--bundle", "absent_bundle", "--device", "cpu"])
     args = serve.build_parser().parse_args([])
     assert (args.max_batch, args.pipeline_depth, args.cache_dtype, args.beam,
             args.decode_style) == (64, 4, "bfloat16", 5, "beam_search")

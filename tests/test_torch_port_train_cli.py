@@ -49,5 +49,8 @@ def test_train_cli_defaults_to_cuda_and_rejects_unported_options():
         train.main(["--model", "absent"])
     with pytest.raises(SystemExit, match="item 10"):
         train.main(["--num-devices", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 7"):
+    with pytest.raises(SystemExit, match="no reference-format .conf"):
         train.main(["--init-from-ref", "ref", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no such directory"):
+        train.main(["--init-from-ref", "ref", "--reference-root", "/nonexistent",
+                    "--device", "cpu"])
