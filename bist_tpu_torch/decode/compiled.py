@@ -47,7 +47,7 @@ from __future__ import annotations
 import functools
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -257,6 +257,18 @@ class DecodeProgram:
         self.capture_seconds += time.perf_counter() - t0
 
     # -- reports --------------------------------------------------------
+
+    def geometries(self) -> List[Dict[str, Any]]:
+        """The geometries entered so far, in order, each as
+        `export.geometry_of` describes a batch of it: the table
+        `Responder.warmup_geometries` takes."""
+        from bist_tpu_torch.export import geometry_of
+
+        with self._lock:
+            keys = list(self._entries)
+        return [geometry_of(Batch(**dict(dict.fromkeys(Batch._fields), **{
+            name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, shape, dtype in key[1:]}))) for key in keys]
 
     def stats(self) -> Dict[str, object]:
         """Geometries seen, captured, eager warm-up runs, capture seconds and

@@ -5,7 +5,10 @@ same names, and the same layouts — a linear weight is (in, out) in both, and
 `models.layers.linear` computes x @ w + b — so no leaf is transposed either
 way.  `params_from_jax` takes the JAX tree with numpy leaves (for example
 `jax.tree_util.tree_map(np.asarray, params)`); `params_to_jax` gives numpy
-leaves back.  A port checkpoint (`<model>.pt`) is that tree saved with
+leaves back.  Leaves are float32 on both sides, except the extractor's
+int8 kernels (`resnext3d.quantize_resnext_int8`), which stay int8 both
+ways, and its bfloat16 leaves, which come across as bfloat16 and go back as
+float32 (numpy has no bfloat16 of its own).  A port checkpoint (`<model>.pt`) is that tree saved with
 `torch.save`, or a training checkpoint (`train.checkpoint`) that holds it
 under "params".
 """
@@ -36,18 +39,28 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _leaf_from_jax(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.int8:
+        return torch.tensor(a, device=device)
+    t = torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
+
+
 def params_from_jax(tree, device=None):
     """JAX parameter tree (numpy leaves) → port parameters on `device`
     (default cuda; raises without it).  Leaves become float32 tensors of the
-    same shape; lists stay lists."""
+    same shape (int8 and bfloat16 ones keep their type); lists stay
+    lists."""
     device = resolve_device(device)
-    return tree_map(lambda a: torch.tensor(np.asarray(a, dtype=np.float32),
-                                           device=device), tree)
+    return tree_map(lambda a: _leaf_from_jax(a, device), tree)
 
 
 def params_to_jax(params):
-    """Port parameters → the JAX tree with numpy float32 leaves."""
-    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), params)
+    """Port parameters → the JAX tree with numpy float32 leaves (int8 ones
+    stay int8)."""
+    return tree_map(lambda t: t.detach().cpu().numpy() if t.dtype == torch.int8
+                    else t.detach().to("cpu", torch.float32).numpy(), params)
 
 
 def save_params(path: str, params) -> None:

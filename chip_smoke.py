@@ -101,7 +101,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   9. serving at the serve CLI's defaults (batch buckets 8-64, its length
      and time buckets, bfloat16 cache, beam 5, every bucket captured in
      warmup(), then the traffic's geometries by serving its 256 requests
-     once): 512 requests from 64 closed-loop clients by beam search,
+     once and capturing each length and time combination that pass reached,
+     and each axis-wise maximum of them, at every batch bucket): 512
+     requests from 64 closed-loop clients by beam search,
      then 128 greedily and 128 with a bfloat16 precompute (K1 on a bfloat16
      grid): requests/s, latency percentiles, mean batch rows and component
      seconds, read with no profiler; then 128 more of each under
@@ -140,6 +142,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      device ms per batch of the bundle's and the DecodeProgram's Responders
      at one geometry, and the first batch at a geometry off warmup()'s
      diagonal after warmup() alone and after warmup_geometries.
+
+ 12. the video feature extractor (bist_tpu_torch.models.resnext3d, no Pallas
+     kernel on its path: cuDNN convolutions as XLA's in bist_tpu): ResNeXt-101
+     with random weights from seed 0; 4 random clips of 16 x 112 x 112
+     through the card in float32 (TF32 off) and through the port on the CPU,
+     held to 1e-4 of max |f|; bfloat16 and int8 (stages 3 and 4, static
+     scales calibrated on the batch) against float32 as |Δ|/|f| on a batch
+     of 128 and on the 4 clips, bounded by 0.05 and 0.06; each precision's
+     speed at batch 128 (median of 5 batches after 2: clips/s, TFLOP/s from
+     the convolutions' multiply-adds, 19.1 GFLOP a clip), then one batch
+     under torch.profiler: device ms by part (stem, stages 1-4, CUDA events
+     between them), the card's busy share (the union of its kernels'
+     intervals over the batch's wall time) and the top kernels; then every
+     int8 convolution's shape at batch 128, with the plans the timed runs
+     chose, held bit for bit against float64 sums.  Then the
+     extract CLI on 6 synthetic .npy videos (40-300 frames, 112 x 112 and
+     240 x 320; 221 clips) with a kenshohara-format checkpoint (--model),
+     packed and per-video, the two held identical (or within 1e-5 of max
+     |f|), its grids written into phase 5's tiny dataset; the generate CLI
+     (beam search) answering every turn from them, K1's kernels counted by
+     name.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -1918,12 +1941,28 @@ def ship_breakdown(device, rsp, fields, rows=32, reps=3):
                                                                 rsp.gcfg))}
 
 
+def traffic_table(geoms, batch_buckets):
+    """Every batch bucket crossed with the length and time buckets of each
+    of the geometries `geoms` (`DecodeProgram.geometries()`) and of each
+    axis-wise maximum of them: the geometries of the groups a traffic
+    formed, at any batch size, and of any union of such groups (a group's
+    buckets are its requests' largest)."""
+    combos = {tuple(sorted((k, v) for k, v in g.items() if k != "B")) for g in geoms}
+    while True:
+        joins = {tuple((k, max(x, y)) for (k, x), (_, y) in zip(a, b))
+                 for a in combos for b in combos} - combos
+        if not joins:
+            return [dict(c, B=b) for b in batch_buckets for c in sorted(combos)]
+        combos |= joins
+
+
 def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128,
                        clients=64, dv=DV, s=S):
     """Serving at the serve CLI's defaults (batch buckets 8-64, its length
     and time buckets, bfloat16 cache, beam 5, warmup over every batch
-    bucket, then the requests of `fields` once, so that the geometries of
-    their traffic are captured before the windows): n_req requests by beam
+    bucket, then the requests of `fields` once and `traffic_table`'s
+    geometries by `warmup_geometries`, so that the geometries of their
+    traffic are captured before the windows): n_req requests by beam
     search, then n_other greedily and n_other by beam search with a
     bfloat16 precompute (K1 on a bfloat16 grid), each read bare; then n_prof more of each under torch.profiler
     for the card's busy share; on the card, the parts of one beam-search
@@ -1950,9 +1989,19 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
         warm = time.perf_counter() - t0
         at_warmup = rsp.program.stats()
         # the traffic's own geometries (warmup() takes one length and time
-        # bucket a batch bucket) captured before the windows are read
+        # bucket a batch bucket) captured before the windows are read: one
+        # pass of its requests, then `traffic_table` (the batches' sizes,
+        # and so the groups' bucket maxima, follow the host's timing: on a
+        # slow host a pass alone left a new geometry for each of 3 reads);
+        # on the CPU nothing is captured, so the table is only counted
         traffic = serve_window(device, rsp, fields, len(fields), clients, profiled=False)
         at_traffic = rsp.program.stats()
+        table = traffic_table(rsp.program.geometries(), rsp.batch_buckets)
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            rsp.warmup_geometries(table)
+        table_s = time.perf_counter() - t0
+        at_table = rsp.program.stats()
         out[name] = dict(settled_window(device, rsp, fields, n, clients, False, name),
                          warmup_seconds=warm, warmup_captures=at_warmup["captures"],
                          warmup_capture_seconds=at_warmup["capture_seconds"],
@@ -1961,6 +2010,11 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
                              "captures": traffic["captures"],
                              "capture_seconds": at_traffic["capture_seconds"]
                              - at_warmup["capture_seconds"]},
+                         traffic_table={
+                             "geometries": len(table), "seconds": table_s,
+                             "captures": at_table["captures"] - at_traffic["captures"],
+                             "capture_seconds": at_table["capture_seconds"]
+                             - at_traffic["capture_seconds"]},
                          profiled=settled_window(device, rsp, fields, n_prof, clients,
                                                  True, name + ", profiled"))
         if device.type == "cuda" and name == "beam_search":
@@ -2387,6 +2441,432 @@ def phase_bundle_cli(device, root, export, s=S, timeout=900):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the video feature extractor
+
+EXTRACT_TOL = 1e-4       # card against CPU, float32 both: max |Δ| over max |f|
+BF16_DEV_MAX = 0.05      # ‖f_bf16 - f‖ / ‖f‖ at depth 101 (read 0.0082 on an H100)
+# ‖f_int8 - f‖ / ‖f‖, stages 3 and 4, static scales: bist_tpu's own bound
+# (tests/test_resnext3d.py:347); read 0.0377 on an H100 (700 W)
+INT8_DEV_MAX = 0.06
+PACK_TOL = 1e-5          # packed against per-video, if not identical: over max |f|
+# (frames, height, width) of the synthetic videos: 221 clips at stride 4
+VIDEOS = ((40, 112, 112), (64, 240, 320), (100, 112, 112), (160, 240, 320),
+          (220, 112, 112), (300, 240, 320))
+
+
+def conv_out(d, k, s):
+    """A convolution's output extent along one axis (torch's k//2 padding)."""
+    return (d + 2 * (k // 2) - k) // s + 1
+
+
+def resnext_conv_macs(params, t=16, h=112, w=112) -> dict:
+    """Multiply-adds of every convolution of one t×h×w clip through a
+    ResNeXt tree (DHWIO kernels), by part: the stem and each stage, from
+    the kernels' shapes and torch's output extents."""
+    from bist_tpu_torch.models.resnext3d import STAGE_STRIDES
+
+    out = conv_out
+    kd, kh, kw, ci, co = params["stem"]["conv"].shape
+    ext = (out(t, kd, 1), out(h, kh, 2), out(w, kw, 2))
+    macs = {"stem": int(np.prod(ext)) * kd * kh * kw * ci * co}
+    ext = tuple(out(d, 3, 2) for d in ext)                     # the max pool
+    for s, stage in enumerate(params["stages"]):
+        m = 0
+        for b, blk in enumerate(stage):
+            stride = STAGE_STRIDES[s] if b == 0 else 1
+            ext_out = tuple(out(d, 1, stride) for d in ext)    # 1³ and padded 3³ alike
+            for name in ("conv1", "conv2", "conv3", "down_conv"):
+                if name in blk:
+                    at = ext if name == "conv1" else ext_out
+                    m += int(np.prod(at)) * int(np.prod(blk[name].shape))
+            ext = ext_out
+        macs[f"stage{s + 1}"] = m
+    return macs
+
+
+def kenshohara_resnext_state_dict(depth, seed=0, n_classes=400):
+    """A synthetic state dict with the key names and shapes of a kenshohara
+    Kinetics ResNeXt checkpoint (DataParallel's 'module.' prefixes, torch
+    (O, I/g, kD, kH, kW) kernels, BatchNorm running stats), random from
+    numpy: He-normal kernels, BN weights near 1."""
+    import torch
+
+    from bist_tpu_torch.models.resnext3d import (CARDINALITY, DEPTH_BLOCKS, EXPANSION,
+                                                 PLANES, STAGE_STRIDES)
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[f"module.{name}.weight"] = rng.standard_normal((o, i, k, k, k), np.float32) \
+            * np.float32(np.sqrt(2.0 / (i * k ** 3)))
+
+    def bn(name, c):
+        sd[f"module.{name}.weight"] = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"module.{name}.bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"module.{name}.running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"module.{name}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    c_in = 64
+    for s, (n_blocks, planes, stride) in enumerate(zip(DEPTH_BLOCKS[depth], PLANES,
+                                                        STAGE_STRIDES)):
+        c_out = planes * EXPANSION
+        for b in range(n_blocks):
+            pre = f"layer{s + 1}.{b}"
+            conv(pre + ".conv1", planes, c_in, 1)
+            bn(pre + ".bn1", planes)
+            conv(pre + ".conv2", planes, planes // CARDINALITY, 3)
+            bn(pre + ".bn2", planes)
+            conv(pre + ".conv3", c_out, planes, 1)
+            bn(pre + ".bn3", c_out)
+            if b == 0 and (c_in != c_out or stride != 1):
+                conv(pre + ".downsample.0", c_out, c_in, 1)
+                bn(pre + ".downsample.1", c_out)
+            c_in = c_out
+    sd["module.fc.weight"] = (0.01 * rng.standard_normal((n_classes, c_in))).astype(np.float32)
+    sd["module.fc.bias"] = np.zeros(n_classes, np.float32)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def kinetics_clips(n, seed, device):
+    """n random 16-frame 112×112 clips as the preprocessing leaves them:
+    0..255 pixels minus the Kinetics means, (n, 16, 112, 112, 3) float32."""
+    import torch
+
+    from bist_tpu_torch.models.resnext3d import KINETICS_MEAN
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (n, 16, 112, 112, 3), generator=g, device=device)
+    return x.float() - torch.tensor(KINETICS_MEAN, device=device)
+
+
+def rel_dev(got, want) -> float:
+    """‖got - want‖ / ‖want‖ in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def parts_apply(net, clips, mark):
+    """resnext101_apply's 'spatio_temporal' forward with `mark(name)` called
+    after the stem and after each stage."""
+    from bist_tpu_torch.models import resnext3d as rx
+
+    with rx.conv_precision():
+        x = rx.stem_apply(net, clips)
+        mark("stem")
+        for s, stage in enumerate(net.params["stages"]):
+            for b, blk in enumerate(stage):
+                x = rx.block_apply(blk, x, rx.STAGE_STRIDES[s] if b == 0 else 1)
+            mark(f"stage{s + 1}")
+        return rx.finish(x, net.params, "spatio_temporal")
+
+
+def device_timeline(prof, top=8, after=None):
+    """The card's work in a torch.profiler window: its busy ms (the union of
+    the kernels' and copies' intervals, annotations left out: cuDNN's work
+    can overlap itself, so durations summed overcount), the streams it ran
+    on, and the `top` kernels by device ms.  With `after`, only the work
+    that starts after the last kernel whose name holds it."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    if after is not None:
+        ends = [e.end_ns() for e in events if after in e.name()]
+        if not ends:
+            raise AssertionError(f"no {after} kernel in the profiler window")
+        events = [e for e in events if e.start_ns() >= max(ends)]
+    busy, cur = 0, None
+    for start, end in sorted((e.start_ns(), e.end_ns()) for e in events):
+        if cur is None or start > cur[1]:
+            busy += cur[1] - cur[0] if cur else 0
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += cur[1] - cur[0] if cur else 0
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name()[:80], (0.0, 0))
+        by_name[e.name()[:80]] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"busy_ms": busy / 1e6, "summed_ms": sum(e.duration_ns() for e in events) / 1e6,
+            "streams": len({e.device_resource_id() for e in events}),
+            "top_kernels": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in kernels]}
+
+
+def extractor_speed(device, net, clips, macs_per_clip, reps=5, warmup=2):
+    """One precision's net on a batch of clips: the median ms of `reps`
+    batches after `warmup` (CUDA events around each, the card idle before),
+    clips/s and TFLOP/s (2 × the convolutions' multiply-adds) from it; then
+    one batch under torch.profiler (after a batch and a marker kernel), its
+    device ms by part (CUDA events between the parts), the card's busy share
+    (`device_timeline`'s busy ms after the marker over the batch's wall
+    time) and its top kernels.  On the CPU: host clock, no parts."""
+    import torch
+
+    from bist_tpu_torch.models import resnext3d as rx
+
+    cuda = device.type == "cuda"
+    run = lambda: rx.resnext101_apply(net, clips)  # noqa: E731
+    for _ in range(warmup):
+        run()
+    if cuda:
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    n = clips.shape[0]
+    out = {"batch": n, "ms_per_batch": ms, "ms_runs": times, "clips_per_s": n / ms * 1e3,
+           "tflops": 2 * macs_per_clip * n / ms / 1e9}
+    if not cuda:
+        return out
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    prof = profiler_window(device)
+    with prof:
+        # CUPTI may start recording a while after the window opens (in a
+        # process that has profiled before, a batch's first ~50 ms went
+        # missing): one batch first, then a marker kernel, then the batch
+        # that is read
+        run()
+        torch.cuda._sleep(1000)                      # "spin_kernel"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        parts_apply(net, clips, mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    names = list(events)
+    out["part_ms"] = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+    timeline = device_timeline(prof, after="spin_kernel")
+    out.update(profiled_ms=wall, busy_share=timeline["busy_ms"] / wall, **timeline)
+    return out
+
+
+def int_conv_f64(x, w, stride):
+    """The integer sums of an int8 convolution in float64, by an explicit
+    patch product (exact: every sum is an integer below 2^53).  w as
+    `resnext3d.prepare` leaves an int8 kernel: the (I, O) matrix of a 1³
+    one, else (O, I/g, k, k, k) float32 integers."""
+    import torch
+    import torch.nn.functional as F
+
+    x = x.double()
+    if w.dim() == 2:
+        return torch.einsum("ncthw,co->nothw", x[:, :, ::stride, ::stride, ::stride],
+                            w.double())
+    k, groups = w.shape[2], x.shape[1] // w.shape[1]
+    p = F.pad(x, (k // 2,) * 6).unfold(2, k, stride).unfold(3, k, stride).unfold(4, k, stride)
+    n, c, t, h, wd = p.shape[:5]
+    p = p.reshape(n, groups, c // groups, t, h, wd, k, k, k)
+    wg = w.double().reshape(groups, -1, c // groups, k, k, k)
+    return torch.einsum("ngcthwijk,gocijk->ngothw", p, wg).reshape(n, -1, t, h, wd)
+
+
+def int8_sums_exact(net, clips_shape, seed=5):
+    """Every convolution of the int8 stages' first two blocks (later blocks
+    repeat the second's shapes) through `_conv3d_int8` at the shapes a
+    batch of `clips_shape` gives it, in the net's layout, on random int8
+    activations over the full range (a grouped 3³ conv's sums stay under
+    27·32·127² < 2^24, so a float32 sum is exact only where the algorithm
+    adds the products directly), held bit for bit against `int_conv_f64`.
+    Called in the process that timed the int8 net, the convolutions run
+    with the plans its cuDNN search chose.  Returns each one's input shape
+    and largest |sum|; raises at the first that differs."""
+    import torch
+
+    from bist_tpu_torch.models import resnext3d as rx
+
+    n, t, h, w = clips_shape[:4]
+    dev = net.device
+    kd, kh, kw = net.params["stem"]["conv"].shape[2:]
+    ext = (conv_out(t, kd, 1), conv_out(h, kh, 2), conv_out(w, kw, 2))
+    ext = tuple(conv_out(d, 3, 2) for d in ext)                # the max pool
+    g = torch.Generator(device=dev).manual_seed(seed)
+    checked = []
+    with rx.conv_precision():
+        for si, stage in enumerate(net.params["stages"]):
+            for b, blk in enumerate(stage):
+                stride = rx.STAGE_STRIDES[si] if b == 0 else 1
+                ext_out = tuple(conv_out(d, 1, stride) for d in ext)
+                if blk["conv1"].dtype == torch.int8 and b < 2:
+                    for name in ("conv1", "conv2", "conv3", "down_conv"):
+                        if name not in blk:
+                            continue
+                        wt = blk[name]
+                        c = wt.shape[0] if wt.dim() == 2 else wt.shape[1] * rx.CARDINALITY
+                        s = stride if name in ("conv2", "down_conv") else 1
+                        xq = torch.randint(-127, 128, (n, c) + (ext_out if name == "conv3"
+                                                                 else ext),
+                                           generator=g, device=dev).to(torch.int8)
+                        xq = xq.contiguous(memory_format=rx.MEMORY_FORMAT)
+                        got = rx._conv3d_int8(xq, wt, s).double()
+                        want = int_conv_f64(xq, wt, s)
+                        what = f"stage {si + 1} block {b} {name} on {tuple(xq.shape)}"
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"extractor int8: {what}: the sums differ from float64's "
+                                f"by up to {float((got - want).abs().max())}")
+                        checked.append({"conv": what, "max_abs_sum": float(want.abs().max())})
+                        del xq, got, want
+                ext = ext_out
+    return checked
+
+
+def phase_extractor(device, root, depth=101, batch=128, reps=5, n_check=4, videos=VIDEOS,
+                    model_kw=None, stride=4):
+    """The extractor on the card: ResNeXt at `depth` with seeded random
+    weights, float32 against the port's own CPU forward; bfloat16 and int8
+    (stages 3 and 4, static scales calibrated on the batch) against float32;
+    the speed of each at `batch` clips; then the extract CLI on synthetic
+    .npy videos with a kenshohara-format checkpoint, packed and per-video,
+    its grids written into phase 5's tiny dataset, and the generate CLI
+    (beam search) answering every turn from them, K1's kernels counted by
+    name in its run.  Returns the readings."""
+    import contextlib
+
+    import torch
+
+    from bist_tpu_torch.models import resnext3d as rx
+    from bist_tpu_torch.weights import tree_map
+
+    cuda = device.type == "cuda"
+    out = {"depth": depth}
+    params = rx.init_resnext101(torch.Generator().manual_seed(0), depth=depth)
+    macs = resnext_conv_macs(params)
+    macs_per_clip = sum(macs.values())
+    out["gflop_per_clip"] = 2 * macs_per_clip / 1e9
+    out["gflop_per_clip_by_part"] = {k: 2 * v / 1e9 for k, v in macs.items()}
+    net = rx.prepare(params, device)
+
+    with torch.inference_mode():
+        # 1. the card's float32 features against the port's CPU forward
+        check = kinetics_clips(n_check, 1, torch.device("cpu"))
+        f_cpu = rx.resnext101_apply(rx.prepare(params, "cpu"), check)
+        f_card = rx.resnext101_apply(net, check.to(device)).cpu()
+        if f_card.shape != (n_check, 16, 2048) or not torch.isfinite(f_card).all():
+            raise AssertionError(f"extractor: features {tuple(f_card.shape)}, finite "
+                                 f"{bool(torch.isfinite(f_card).all())}")
+        err = float((f_card - f_cpu).abs().max() / f_cpu.abs().max())
+        out["card_vs_cpu"] = {"clips": n_check, "max_abs_err_over_max_abs": err,
+                              "max_abs": float(f_cpu.abs().max()), "tol": EXTRACT_TOL}
+        if not err <= EXTRACT_TOL:
+            raise AssertionError(f"extractor float32: card against CPU {err:.3e} of max |f| "
+                                 f"> {EXTRACT_TOL}")
+        del f_cpu
+
+        # 2, 3. bfloat16 and int8 against float32, and each one's speed
+        clips = kinetics_clips(batch, 2, device)
+        nets = {"float32": net,
+                "bfloat16": rx.prepare(tree_map(lambda t: t.to(torch.bfloat16), params),
+                                       device)}
+        scales = rx.collect_act_scales(net, clips.to(torch.bfloat16))
+        nets["int8"] = rx.prepare(rx.quantize_resnext_int8(params, act_scales=scales,
+                                                           stages=(2, 3)), device)
+        ref = rx.resnext101_apply(net, clips).float()
+        ref_check = f_card.to(device)
+        speed, devs = {}, {}
+        for name, n in nets.items():
+            if name != "float32":
+                devs[name] = {
+                    "calibration_batch": rel_dev(rx.resnext101_apply(n, clips).float(), ref),
+                    "fresh_clips": rel_dev(rx.resnext101_apply(n, check.to(device)).float(),
+                                           ref_check),
+                    "bound": BF16_DEV_MAX if name == "bfloat16" else INT8_DEV_MAX}
+                if not max(devs[name]["calibration_batch"], devs[name]["fresh_clips"]) \
+                        <= devs[name]["bound"]:
+                    raise AssertionError(f"extractor {name}: deviation from float32 "
+                                         f"{devs[name]} beyond its bound")
+            speed[name] = extractor_speed(device, n, clips, macs_per_clip, reps=reps)
+            log(f"extractor {name}: {json.dumps(speed[name])}")
+        out.update(deviation_from_float32=devs, speed=speed,
+                   int8_sums_exact=int8_sums_exact(nets["int8"], clips.shape))
+        del nets, clips, ref, scales
+
+    # 4. the extract CLI on synthetic videos: packed, then per-video
+    from bist_tpu_torch.cli import extract_features, generate
+
+    test_set = write_tiny_dataset(root, n_dialogs=len(videos), model_kw=model_kw, dv=2048)
+    with open(test_set) as f:
+        orig = json.load(f)
+    ids = [d["image_id"] for d in orig["dialogs"]]
+    vroot, packed, per_video = (os.path.join(root, d) for d in
+                                ("videos", "resnext_st", "per_video"))
+    shutil.rmtree(packed)                      # write_tiny_dataset's random grids
+    os.makedirs(vroot)
+    rng = np.random.default_rng(3)
+    for vid, (n, h, w) in zip(ids, videos):
+        np.save(os.path.join(vroot, vid + ".npy"),
+                rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+    ckpt = os.path.join(root, "resnext.pth")
+    torch.save({"arch": f"resnext-{depth}",
+                "state_dict": kenshohara_resnext_state_dict(depth, seed=4)}, ckpt)
+    args = ["--video_root", vroot, "--model", ckpt, "--model_depth", str(depth),
+            "--batch_size", str(batch), "--stride", str(stride), "--device", device.type]
+    secs = {}
+    with open(os.path.join(root, "extract.log"), "w") as logf, \
+            contextlib.redirect_stdout(logf):
+        for name, dst, extra in (("packed", packed, []), ("per_video", per_video,
+                                                          ["--pack", "0"])):
+            t0 = time.perf_counter()
+            extract_features.main(args + ["--output", dst] + extra)
+            secs[name] = time.perf_counter() - t0
+    worst, n_clips = 0.0, 0
+    for vid, (n, h, w) in zip(ids, videos):
+        a, b = (np.load(os.path.join(d, vid + ".npy")) for d in (packed, per_video))
+        want = (len(range(0, max(n - 1, 1), stride)), 16, 2048)
+        if a.shape != want or b.shape != want or not np.isfinite(a).all():
+            raise AssertionError(f"extract CLI {vid}: shapes {a.shape}, {b.shape}, want {want}")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        n_clips += want[0]
+    if worst > PACK_TOL:
+        raise AssertionError(f"extract CLI: packed against per-video {worst:.3e} of max |f|")
+    out["cli"] = {"videos": len(videos), "clips": n_clips, "seconds": secs,
+                  "packed_equals_per_video": "identical" if worst == 0 else worst,
+                  "clips_per_s_packed_setup_included": n_clips / secs["packed"]}
+
+    # 5. the grids into generation: beam search answering every turn
+    result_json = os.path.join(root, "result_extracted.json")
+    gen_args = ["--test-set", test_set,
+                "--test-path", os.path.join(root, "<FeaType>", "<ImageID>.npy"),
+                "--model", os.path.join(root, "mtn"), "--decode-style", "beam_search",
+                "--beam", "5", "--penalty", "1.0", "--nbest", "5", "--undisclosed-only", "1",
+                "--maxlen", "12", "--gen-batch-size", "4", "--output", result_json,
+                "--device", device.type]
+    prof = profiler_window(device)
+    with open(os.path.join(root, "generate.log"), "w") as logf, \
+            contextlib.redirect_stdout(logf), prof:
+        generate.main(gen_args)
+    with open(result_json) as f:
+        result = json.load(f)
+    check_result_schema(result, orig, undisclosed=True)
+    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+    if cuda and not sum(ran.values()):
+        raise AssertionError("generate from extracted features: no K1 kernel ran")
+    out["generate"] = {"turns": sum(len(d["dialog"]) for d in result["dialogs"]),
+                       "answers": [t["answer"] for d in result["dialogs"] for t in d["dialog"]],
+                       "k1_ran": ran}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -2500,6 +2980,25 @@ def main() -> int:
     print(f"serving bundles on {card}: {json.dumps(bundles)}", flush=True)
     lap("serving bundles")
 
+    extractor = phase_extractor(device, os.path.join(HERE, "build", "chip_smoke", "extract"))
+    sp = extractor["speed"]
+    print(f"extractor on {card}: ResNeXt-{extractor['depth']} "
+          f"({extractor['gflop_per_clip']:.2f} GFLOP a clip), batch {sp['float32']['batch']}: "
+          + "; ".join(f"{k} {v['clips_per_s']:.1f} clips/s, {v['tflops']:.2f} TFLOP/s, busy "
+                      f"{v['busy_share']:.3f}, ms by part {json.dumps(v['part_ms'])}"
+                      for k, v in sp.items())
+          + f"; float32 card against CPU {extractor['card_vs_cpu']['max_abs_err_over_max_abs']:.3e}"
+            f" of max |f|; deviation from float32 "
+          + json.dumps(extractor["deviation_from_float32"])
+          + f"; int8 sums bit for bit float64's in {len(extractor['int8_sums_exact'])} "
+            f"convolutions at batch {sp['int8']['batch']}"
+          + f"; CLI {extractor['cli']['clips']} clips, packed against per-video "
+            f"{extractor['cli']['packed_equals_per_video']}; generate answered "
+            f"{extractor['generate']['turns']} turns, K1 by name "
+            f"{json.dumps(extractor['generate']['k1_ran'])}", flush=True)
+    print(f"extractor on {card}: {json.dumps(extractor)}", flush=True)
+    lap("extractor")
+
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -2517,7 +3016,9 @@ def main() -> int:
              launches_serving_load={k: v["profiled"]["hop1_fwd_ran"]
                                     for k, v in serving_load.items()},
              # K1 kernels the card ran in the serving bundle's replays, by name
-             launches_bundle=bundles["served"]["hop1_fwd_ran"]),
+             launches_bundle=bundles["served"]["hop1_fwd_ran"],
+             # K1 kernels the card ran, by name, generating from extracted features
+             launches_extract_chain=extractor["generate"]["k1_ran"]),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],

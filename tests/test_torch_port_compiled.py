@@ -180,6 +180,20 @@ def test_geometry_key_and_shared_static_inputs(model, rng):
     assert desc.startswith("greedy: ") and "his (2, 11) int32" in desc
 
 
+def test_geometries_list_what_the_program_entered(model, rng):
+    """`geometries()` gives each geometry entered, in order, as
+    `export.geometry_of` describes a batch of it."""
+    from bist_tpu_torch.export import geometry_of
+
+    jcfg, tcfg, _, tp = model
+    prog = DecodeProgram(tp, tcfg, GenerateConfig(maxlen=4, decode_style="greedy"))
+    b1, b2 = np_batch(rng, jcfg, B=2), np_batch(rng, jcfg, B=3, Lh=11)
+    for b in (b1, b2, b1):
+        prog(b)
+    assert prog.geometries() == [geometry_of(b1), geometry_of(b2)]
+    assert prog.geometries()[1]["Lh"] == 11 and prog.geometries()[1]["B"] == 3
+
+
 def test_program_rejects_what_it_cannot_decode(model):
     _, tcfg, _, tp = model
     with pytest.raises(ValueError, match="decode style"):
@@ -211,6 +225,9 @@ def test_responder_decodes_through_its_program(rng):
     reqs = [rsp.make_request("what is he doing", "a man is walking", "the man", fts)
             for _ in range(3)]
     rsp.respond(reqs)
+    assert rsp.program.stats()["geometries"] == len(rsp.batch_buckets)
+    # its geometries, given back to warmup_geometries, are the same ones
+    rsp.warmup_geometries(rsp.program.geometries())
     assert rsp.program.stats()["geometries"] == len(rsp.batch_buckets)
     want = beam.beam_search(params, tcfg, rsp.make_batch(reqs), rsp.gcfg)
     hyps = beam.extract_hyps(want, rsp.id2word, 0, rsp.gcfg.nbest)

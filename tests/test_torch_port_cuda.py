@@ -1154,3 +1154,115 @@ def test_registered_ops_equal_the_direct_launches(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, b) and K3.flash_attention.launches == before + 2
     close(a, K3.attention_plain(qf, kf, vf, fmask), "flash op")
+
+
+# ---------------------------------------------------------------------------
+# The video feature extractor (models/resnext3d.py): cuDNN convolutions and
+# pools, no kernel of the port.  The card against the port's own CPU forward.
+
+EXTRACT_TOL = 1e-4     # float32 both (TF32 off): max |Δ| over max |f|
+
+
+def _kinetics_clips(n, seed, hw=64):
+    from bist_tpu_torch.models.resnext3d import KINETICS_MEAN
+
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, 256, (n, 16, hw, hw, 3)).astype(np.float32)
+                        - np.asarray(KINETICS_MEAN, np.float32))
+
+
+def _extract_close(got, want, what):
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= EXTRACT_TOL, f"{what}: {err:.3e} of max |f|"
+
+
+@pytest.mark.cuda
+def test_extractor_float32_block_and_net_match_cpu(cuda, monkeypatch):
+    """ResNeXt-50 in float32: one strided bottleneck with its downsample, and
+    the whole net in every activation layout, each against the CPU; the
+    extractor's TF32 setting does not outlive its call."""
+    from bist_tpu_torch.models import resnext3d as rx
+
+    params = rx.init_resnext101(torch.Generator().manual_seed(0), depth=50)
+    cpu_net = rx.prepare(params, "cpu")
+    xin = torch.tensor(np.random.default_rng(1).standard_normal((2, 256, 8, 16, 16),
+                                                                dtype=np.float32))
+    want = rx.block_apply(cpu_net.params["stages"][1][0], xin, 2)
+    card_net = rx.prepare(params, cuda)
+    with rx.conv_precision():
+        got = rx.block_apply(card_net.params["stages"][1][0],
+                             xin.to(cuda).contiguous(memory_format=rx.MEMORY_FORMAT), 2)
+    _extract_close(got, want, "stage 2 block 0")
+    x = _kinetics_clips(2, 2)
+    want = rx.resnext101_apply(cpu_net, x)
+    tf32 = torch.backends.cudnn.allow_tf32
+    for fmt in (torch.contiguous_format, torch.channels_last_3d):
+        monkeypatch.setattr(rx, "MEMORY_FORMAT", fmt)
+        got = rx.resnext101_apply(rx.prepare(params, cuda), x.to(cuda))
+        assert got.shape == (2, 4, 2048) and got.device.type == "cuda"
+        _extract_close(got, want, f"net, {fmt}")
+    assert torch.backends.cudnn.allow_tf32 == tf32
+
+
+@pytest.mark.cuda
+def test_extractor_int8_on_the_card_equals_the_cpu(cuda):
+    """int8 stages 3 and 4 (static scales): the integer conv sums exact on
+    the card at the real widths, and every int8 block, given the same
+    bfloat16 input, the CPU's output bit for bit."""
+    from bist_tpu_torch.models import resnext3d as rx
+
+    params = rx.init_resnext101(torch.Generator().manual_seed(0), depth=50)
+    x = _kinetics_clips(2, 4)
+    scales = rx.collect_act_scales(rx.prepare(params, "cpu"), x.to(torch.bfloat16))
+    q = rx.quantize_resnext_int8(params, act_scales=scales, stages=(2, 3))
+    cpu_net, card_net = rx.prepare(q, "cpu"), rx.prepare(q, cuda)
+    rng = np.random.default_rng(3)
+    for c, o, k, s in ((512, 256, 1, 1), (1024, 2048, 1, 2), (512, 512, 3, 2),
+                       (1024, 1024, 3, 1)):
+        xq = torch.tensor(rng.integers(-127, 128, (2, c, 4, 8, 8)), dtype=torch.int8)
+        cin = c // rx.CARDINALITY if k == 3 else c
+        w = torch.tensor(rng.integers(-127, 128, (k, k, k, cin, o)), dtype=torch.int8)
+        want = torch.nn.functional.conv3d(xq.double(), w.permute(4, 3, 0, 1, 2).double(),
+                                          stride=s, padding=k // 2, groups=c // cin)
+        with rx.conv_precision():
+            got = rx._conv3d_int8(xq.to(cuda).contiguous(memory_format=rx.MEMORY_FORMAT),
+                                  rx._prepare_conv(w, cuda), s)
+        assert torch.equal(got.double().cpu(), want), (c, o, k, s)
+    h = rx.stem_apply(cpu_net, x)
+    for s, stage in enumerate(cpu_net.params["stages"]):
+        for b, blk in enumerate(stage):
+            stride = rx.STAGE_STRIDES[s] if b == 0 else 1
+            nxt = rx.block_apply(blk, h, stride)
+            if s >= 2:
+                with rx.conv_precision():
+                    got = rx.block_apply(card_net.params["stages"][s][b],
+                                         h.to(cuda).contiguous(memory_format=rx.MEMORY_FORMAT),
+                                         stride)
+                assert got.dtype == torch.bfloat16
+                assert torch.equal(got.cpu(), nxt), f"stage {s + 1} block {b}"
+            h = nxt
+
+
+@pytest.mark.cuda
+def test_extract_cli_packed_on_the_card(cuda, tmp_path):
+    """The extract CLI on the card (ResNeXt-50, random init, 112 × 112 .npy
+    stacks): packed equal to per-video, both near the CPU's run."""
+    from bist_tpu_torch.cli import extract_features
+
+    rng = np.random.default_rng(5)
+    (tmp_path / "v").mkdir()
+    for vid, n in {"a": 8, "b": 20, "c": 40}.items():
+        np.save(tmp_path / "v" / f"{vid}.npy",
+                rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    base = ["--video_root", str(tmp_path / "v"), "--stride", "8", "--batch_size", "4",
+            "--model_depth", "50"]
+    runs = {"packed": ["--device", "cuda"], "per_video": ["--device", "cuda", "--pack", "0"],
+            "cpu": ["--device", "cpu"]}
+    for name, extra in runs.items():
+        extract_features.main(base + ["--output", str(tmp_path / name)] + extra)
+    for vid in ("a", "b", "c"):
+        pk, pv, cpu = (torch.from_numpy(np.load(tmp_path / r / f"{vid}.npy")) for r in runs)
+        assert pk.shape == cpu.shape and pk.shape[1:] == (16, 2048)
+        assert float((pk - pv).abs().max()) <= 1e-5 * float(pv.abs().max()), vid
+        _extract_close(pk, cpu, f"CLI {vid}")

@@ -47,9 +47,26 @@ def test_serving_load_phase_reads_every_style(model_and_fields):
             assert w["hop1_fwd"] == 0 and w["batches"] >= 1
             assert set(w["component_seconds"]) == {"coalesce_s", "assemble_s", "ship_s",
                                                    "device_wait_s", "extract_s"}
+        # the table is counted, not run: nothing is captured on the CPU
+        assert r["traffic_table"]["geometries"] >= 4 and r["traffic_table"]["captures"] == 0
         assert "device_busy_share" not in r                 # read bare
         assert r["profiled"]["device_busy_share"] is None   # no card here
         assert "ship_breakdown" not in r                    # card only
+
+
+def test_traffic_table_crosses_every_batch_bucket_with_the_reached_buckets():
+    """The table: each geometry's length and time buckets, and each
+    axis-wise maximum of two of them, at every batch bucket; no other
+    combination of the values."""
+    def g(B, Lq, Lh, T):
+        return dict(B=B, Lq=Lq, Lh=Lh, Lt=1, T=T, S=16, Dv=2048, int8=False)
+
+    geoms = [g(8, 16, 128, 48), g(64, 32, 256, 48), g(16, 16, 256, 32)]
+    table = chip_smoke.traffic_table(geoms, (8, 16, 32, 64))
+    assert len(table) == 4 * 4 and all(x in table for x in geoms)
+    assert len({tuple(sorted(x.items())) for x in table}) == len(table)
+    assert g(32, 16, 256, 48) in table                  # the first and third joined
+    assert g(32, 32, 128, 32) not in table
 
 
 def test_serve_and_evaluate_cli_phase(tmp_path):

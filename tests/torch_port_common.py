@@ -98,3 +98,56 @@ def to_np(x):
 def assert_close(got, want, tol, what=""):
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol, atol=tol,
                                err_msg=what)
+
+
+def zoo_state_dict(name, arch, jparams, seed):
+    """A kenshohara-format state dict with the shapes of the DHWIO tree
+    `jparams`, random from numpy, with BN running stats."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, w):
+        o = w.shape[-1]
+        sd[key + ".weight"] = rng.standard_normal(
+            (o, w.shape[3]) + w.shape[:3]).astype(np.float32) * 0.1
+
+    def bn(key, p):
+        c = p["scale"].shape[0]
+        sd[key + ".weight"] = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[key + ".bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[key + ".running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[key + ".running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    if name == "densenet":
+        conv("features.conv0", jparams["stem"]["conv"])
+        bn("features.norm0", jparams["stem"]["bn"])
+        for i, block in enumerate(jparams["blocks"]):
+            for j, lp in enumerate(block):
+                pre = f"features.denseblock{i + 1}.denselayer{j + 1}"
+                bn(pre + ".norm.1", lp["bn1"])
+                conv(pre + ".conv.1", lp["conv1"])
+                bn(pre + ".norm.2", lp["bn2"])
+                conv(pre + ".conv.2", lp["conv2"])
+        for i, tp in enumerate(jparams["transitions"]):
+            bn(f"features.transition{i + 1}.norm", tp["bn"])
+            conv(f"features.transition{i + 1}.conv", tp["conv"])
+        bn("features.norm5", jparams["final_bn"])
+        head = "classifier"
+    else:
+        conv("conv1", jparams["stem"]["conv"])
+        bn("bn1", jparams["stem"]["bn"])
+        for s, stage in enumerate(jparams["stages"]):
+            for b, blk in enumerate(stage):
+                pre = f"layer{s + 1}.{b}"
+                for i in (1, 2, 3):
+                    if f"conv{i}" in blk:
+                        conv(f"{pre}.conv{i}", blk[f"conv{i}"])
+                        bn(f"{pre}.bn{i}", blk[f"bn{i}"])
+                if "down_conv" in blk:
+                    conv(pre + ".downsample.0", blk["down_conv"])
+                    bn(pre + ".downsample.1", blk["down_bn"])
+        head = "fc"
+    n_out = arch["out_features"]
+    sd[head + ".weight"] = rng.standard_normal((7, n_out)).astype(np.float32)
+    sd[head + ".bias"] = rng.standard_normal(7).astype(np.float32)
+    return {"module." + k: torch.from_numpy(v) for k, v in sd.items()}
