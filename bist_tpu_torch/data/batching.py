@@ -34,9 +34,10 @@ class Batch(NamedTuple):
 
 
 def to_device(batch: Batch, device) -> Batch:
-    """Every array of `batch` as a tensor on `device` (None stays None)."""
-    return Batch(*[None if x is None else torch.as_tensor(x).to(device)
-                   for x in batch])
+    """Every array of `batch` (a Batch or another NamedTuple of arrays) as a
+    tensor on `device` (None stays None)."""
+    return type(batch)(*[None if x is None else torch.as_tensor(x).to(device)
+                         for x in batch])
 
 
 def pinned(batch: Batch, device) -> Batch:

@@ -4,6 +4,8 @@ batch geometry, the port's counterpart of the two `jax.jit` calls of
 
 A `TrainProgram` is built on a TrainState and keeps one entry per geometry
 (grad_accum and the shape and dtype of every Batch field that is not None).
+A `StepProgram`, its base, does the same for any eager step on a TrainState
+and any batch NamedTuple (`tasks.tgifqa`'s TgifBatch and its step).
 The first call at a geometry runs the eager step (`loop.make_train_step`)
 once on a side stream: that run IS the call's step (it updates the state
 and its metrics are returned), and it builds and loads the kernels, sets
@@ -50,7 +52,7 @@ copy-out.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,17 +68,18 @@ class _Entry:
     """One geometry: its static inputs, its graph (None on the CPU) and the
     graph's static metrics."""
 
-    def __init__(self, inputs: Batch):
+    def __init__(self, inputs: NamedTuple):
         self.inputs = inputs
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outs: Metrics = {}
 
 
 class _Program:
-    """What the two programs share: the geometries, the static inputs (one
-    buffer per Batch field, shape and dtype, shared by the geometries), one
+    """What the programs share: the geometries, the static inputs (one
+    buffer per batch field, shape and dtype, shared by the geometries), one
     graph pool, and the warm-up, capture and replay of `_run(static batch)`,
-    which returns a dict of 0-d metric tensors."""
+    which returns a dict of 0-d metric tensors.  A batch is any NamedTuple
+    of arrays or tensors (None for an absent field)."""
 
     def __init__(self, params, label: str):
         self._leaves = tree_leaves(params)
@@ -91,7 +94,7 @@ class _Program:
         self.capture_seconds = 0.0  # warm-ups and captures
         self.warm_up_seconds = 0.0  # the warm-ups' part of it
 
-    def _run(self, batch: Batch) -> Metrics:
+    def _run(self, batch: NamedTuple) -> Metrics:
         raise NotImplementedError
 
     def _new_graph(self) -> torch.cuda.CUDAGraph:
@@ -102,17 +105,18 @@ class _Program:
             raise ValueError(f"{type(self).__name__}: these parameters are not the "
                              f"ones the program was built on")
 
-    def _metrics(self, batch: Batch) -> Metrics:
-        src = Batch(*[None if x is None else x if isinstance(x, torch.Tensor)
-                      else torch.from_numpy(np.asarray(x)) for x in batch])
+    def _metrics(self, batch: NamedTuple) -> Metrics:
+        kind = type(batch)
+        src = kind(*[None if x is None else x if isinstance(x, torch.Tensor)
+                     else torch.from_numpy(np.asarray(x)) for x in batch])
         key = (self._label,) + tuple(
-            (name, tuple(x.shape), x.dtype) for name, x in zip(Batch._fields, src)
+            (name, tuple(x.shape), x.dtype) for name, x in zip(kind._fields, src)
             if x is not None)
         entry = self._entries.get(key)
         new = entry is None
         if new:
-            entry = _Entry(Batch(*[None if x is None else self._buffer(name, x)
-                                   for name, x in zip(Batch._fields, src)]))
+            entry = _Entry(kind(*[None if x is None else self._buffer(name, x)
+                                  for name, x in zip(kind._fields, src)]))
         for dst, x in zip(entry.inputs, src):
             if x is not None:
                 dst.copy_(x, non_blocking=True)
@@ -171,34 +175,30 @@ class _Program:
                 "pool_bytes": pool_bytes(self._pool)}
 
 
-class TrainProgram(_Program):
-    """`make_train_step(cfg, tcfg, tx, grad_accum)` on `state` as one CUDA
-    graph per geometry.  `program(state, batch, gen)` takes what the eager
-    step takes (a host batch, pinned for a copy that does not block, or a
-    device batch; `gen` the generator given here, re-seeded by the caller)
-    and returns what it returns: (TrainState with step + 1, metrics)."""
+class StepProgram(_Program):
+    """An eager train step on `state` as one CUDA graph per geometry:
+    `step(state, batch, gen)` → (TrainState, metrics), updating the
+    parameters and the optimizer state in place.  `program(state, batch,
+    gen)` takes what the step takes (a host batch, pinned for a copy that
+    does not block, or a device batch; `gen` the generator given here,
+    re-seeded by the caller) and returns what it returns: (TrainState with
+    step + 1, metrics)."""
 
-    def __init__(self, state: TrainState, cfg: ModelConfig, tcfg: TrainConfig, tx,
-                 grad_accum: int = 1, gen: Optional[torch.Generator] = None):
-        super().__init__(state.params, f"train step, grad_accum {grad_accum}")
-        if cfg.remat and gen is not None:
-            raise ValueError(
-                "TrainProgram: remat with dropout draws each decoder round's masks "
-                "from clones of the generator made during the step "
-                "(models.bist.decoder_apply), which a CUDA graph cannot register; "
-                "train this configuration with the eager make_train_step")
+    def __init__(self, state: TrainState, step: Callable, gen: Optional[torch.Generator] = None,
+                 label: str = "train step"):
+        super().__init__(state.params, label)
         for name, value in state.opt_state.items():
             for t in value if isinstance(value, (list, tuple)) else [value]:
                 if not (isinstance(t, torch.Tensor) and t.device == self.device):
                     raise ValueError(
-                        f"TrainProgram: the optimizer state's {name!r} holds a "
+                        f"{type(self).__name__}: the optimizer state's {name!r} holds a "
                         f"{type(t).__name__}"
                         f"{' on ' + str(t.device) if isinstance(t, torch.Tensor) else ''}, "
                         f"not a tensor on {self.device}: a graph replays only device "
                         f"tensors that the update changes in place (as "
                         f"train.schedule.Adam keeps its state)")
         self.state, self.gen = state, gen
-        self._step = make_train_step(cfg, tcfg, tx, grad_accum=grad_accum)
+        self._step = step
 
     def _new_graph(self) -> torch.cuda.CUDAGraph:
         graph = torch.cuda.CUDAGraph()
@@ -206,16 +206,32 @@ class TrainProgram(_Program):
             graph.register_generator_state(self.gen)
         return graph
 
-    def _run(self, batch: Batch) -> Metrics:
+    def _run(self, batch: NamedTuple) -> Metrics:
         return self._step(self.state, batch, self.gen)[1]
 
-    def __call__(self, state: TrainState, batch: Batch,
+    def __call__(self, state: TrainState, batch: NamedTuple,
                  gen: Optional[torch.Generator] = None):
         self._check_params(state.params)
         if gen is not self.gen:
-            raise ValueError("TrainProgram: step with the generator the program was "
-                             "built with (its graphs read that generator's state)")
+            raise ValueError(f"{type(self).__name__}: step with the generator the program "
+                             f"was built with (its graphs read that generator's state)")
         return state._replace(step=state.step + 1), self._metrics(batch)
+
+
+class TrainProgram(StepProgram):
+    """`make_train_step(cfg, tcfg, tx, grad_accum)` on `state` as one CUDA
+    graph per geometry (a StepProgram on AVSD's Batch)."""
+
+    def __init__(self, state: TrainState, cfg: ModelConfig, tcfg: TrainConfig, tx,
+                 grad_accum: int = 1, gen: Optional[torch.Generator] = None):
+        if cfg.remat and gen is not None:
+            raise ValueError(
+                "TrainProgram: remat with dropout draws each decoder round's masks "
+                "from clones of the generator made during the step "
+                "(models.bist.decoder_apply), which a CUDA graph cannot register; "
+                "train this configuration with the eager make_train_step")
+        super().__init__(state, make_train_step(cfg, tcfg, tx, grad_accum=grad_accum), gen,
+                         f"train step, grad_accum {grad_accum}")
 
 
 class EvalProgram(_Program):

@@ -1,4 +1,6 @@
-"""Noam learning-rate schedule + Adam (after `bist_tpu.train.schedule`).
+"""Noam (or constant) learning-rate schedule + Adam (after
+`bist_tpu.train.schedule`; the constant rate is `optax.adam(lr)`'s, for
+`tasks.tgifqa`).
 
 Parity: NoamOpt (model/optimize.py:9-34) — lr(step) = factor · d_model^-0.5 ·
 min(step^-0.5, step · warmup^-1.5), step counting from 1, driving
@@ -35,6 +37,16 @@ def noam_schedule(d_model: int, warmup: int, factor: float = 1.0):
             return scale * torch.minimum(step ** -0.5, step * inv_warmup)
         step = count + 1.0
         return scale * min(step ** -0.5, step * inv_warmup)
+
+    return sched
+
+
+def constant_schedule(lr: float):
+    """The rate `lr` at every count (optax's constant learning rate), as a
+    float32 0-d tensor on the count's device."""
+
+    def sched(count: torch.Tensor) -> torch.Tensor:
+        return torch.full((), lr, dtype=torch.float32, device=count.device)
 
     return sched
 

@@ -163,6 +163,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      |f|), its grids written into phase 5's tiny dataset; the generate CLI
      (beam search) answering every turn from them, K1's kernels counted by
      name.
+ 13. TGIF-QA (bist_tpu_torch.tasks.tgifqa, cli/train_tgif.py) at the train_tgif
+     CLI's width (d_model 128, 8 heads, 2 video blocks, grids of 16 x 2048,
+     random weights from seed 0): (a) for each task, tgif_forward through K1
+     against force_plain() on one batch (8 questions, 40 rows for multiple
+     choice, 32 clips) within 5e-4, and one train step's loss (5e-4
+     relative) and gradients (5e-4 + 5e-3·|g|) at dropout 0 (4 K1 with
+     residuals, 4 K2); (b) the train_tgif CLI (its main, in this process,
+     under torch.profiler) for each task at --dropout 0 and for count at the
+     default 0.1, 2 epochs of batches of 32 on synthetic splits of 64 train
+     and 40 test questions over GIFs of 8-40 clips and one of 70 (in
+     frameqa's train and count's test split: t_pad 128 sends t2s through
+     "tiled"); each run's K1 and K2 counted through the wrappers (8 a
+     captured geometry, K1 4 a test batch) and by kernel name (4 a step, K1
+     4 a test batch; with dropout K1 in the test split only), its
+     examples/s by epoch, captures and TEST metric read from its log; (c)
+     the eager step against its StepProgram's replays at one geometry
+     (frameqa 32 and action 32 x 5 rows, 32 clips): ms/step, and 3 replays
+     under torch.profiler (K1 and K2 "whole" 4 a replay by name, the card's
+     busy share and top kernels); (d) tests/test_tgifqa.py's held-out Transition proof at its
+     tiny configuration (d_model 16: K1 and K2 "tiled"): 400 replayed steps,
+     held-out accuracy above 0.6.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -2867,6 +2888,465 @@ def phase_extractor(device, root, depth=101, batch=128, reps=5, n_check=4, video
 
 
 # ---------------------------------------------------------------------------
+# phase 13: TGIF-QA
+
+
+TGIF_TASKS = ("frameqa", "count", "action", "transition")
+TGIF_TOL = 5e-4
+TGIF_TINY = dict(d_model=16, att_h=2, nb_venc_blocks=2, dv=12)   # tests/test_tgifqa.py's
+
+
+def tgif_cfg(vocab_size, d_model=128, att_h=8, nb_venc_blocks=2, dv=DV):
+    """The train_tgif CLI's model configuration (its defaults: d_model 128,
+    8 heads, 2 video blocks) at --dropout 0."""
+    from bist_tpu_torch.config import ModelConfig
+
+    return ModelConfig(vocab_size=vocab_size, nb_blocks=nb_venc_blocks,
+                       nb_venc_blocks=nb_venc_blocks, nb_cenc_blocks=0, d_model=d_model,
+                       att_h=att_h, dropout=0.0, include_caption="none",
+                       enc_vc_combine="none", ft_sizes=(dv,), ptr_ft="query")
+
+
+def tgif_batch(rng, task, B, T, Lq, vocab_size, dv=DV, s=S, n_answers=1000):
+    """A host TgifBatch: B questions (B·5 question + candidate rows for
+    multiple choice) with a PAD tail, grids of T clips whose last quarter
+    is zero (padding the temporal mask must hide), labels of the task."""
+    from bist_tpu_torch.tasks.tgifqa import MULTIPLE_CHOICE, TgifBatch, TGIFTask
+    from bist_tpu_torch.vocab import PAD
+
+    rows = B * 5 if TGIFTask(task) in MULTIPLE_CHOICE else B
+    query = rng.integers(4, vocab_size, size=(rows, Lq)).astype(np.int32)
+    query[:, -(Lq // 4):] = PAD
+    fts = rng.standard_normal((rows, T, s, dv), dtype=np.float32)
+    fts[:, T - T // 4:] = 0.0
+    hi = {"frameqa": n_answers, "count": 11}.get(task, 5)
+    label = rng.integers(1 if task == "count" else 0, hi, size=B).astype(np.int32)
+    return TgifBatch(query, fts, label)
+
+
+def mc_heldout_batches(rng, transition, T=8, S=2, D=12, before_tok=6, after_tok=7):
+    """tests/test_tgifqa.py's 5-way generator (fresh batches per call): a
+    fixed action codebook U; action: the whole video is U[a], answer a;
+    transition: halves U[a] and U[b] and a cue token (before/after) that
+    selects which, unsolvable without temporal order."""
+    from bist_tpu_torch.tasks.tgifqa import TgifBatch
+
+    U = (rng.standard_normal((5, D)) * 2.0).astype(np.float32)
+
+    def gen(n):
+        rows, fts, labels = [], [], []
+        for _ in range(n):
+            grid = rng.standard_normal((T, S, D)).astype(np.float32) * 0.3
+            if transition:
+                a, b = rng.choice(5, size=2, replace=False)
+                grid[: T // 2] += U[a]
+                grid[T // 2:] += U[b]
+                use_before = bool(rng.integers(0, 2))
+                cue = before_tok if use_before else after_tok
+                label = a if use_before else b
+            else:
+                label = int(rng.integers(0, 5))
+                grid += U[label]
+                cue = 5
+            for c in range(5):
+                rows.append(np.array([cue, 10 + c], np.int32))
+            fts.extend([grid] * 5)
+            labels.append(label)
+        return TgifBatch(query=np.stack(rows), fts=np.stack(fts),
+                         label=np.asarray(labels, np.int32))
+
+    return gen
+
+
+TGIF_WORDS = ("what is the man woman cat dog doing how many times does do jump run "
+              "walk turn nod wave before after red blue green two three four").split()
+
+
+def write_tgif_dataset(root, n_train=64, n_test=40, n_gifs=40, t_range=(8, 40), long_t=70,
+                       dv=DV, s=S, seed=0):
+    """Synthetic TGIF-QA splits under `root`: .npy grids (T, s, dv) of
+    n_gifs GIFs of t_range clips and one of long_t clips ("long", in
+    frameqa's train split and count's test split only, so t_pad 128 sends
+    t2s through "tiled"), and each task's train and test TSVs in the public
+    format.  Returns {task: (train tsv, test tsv)} and the feature
+    directory."""
+    rng = np.random.default_rng(seed)
+    feats = os.path.join(root, "feats")
+    os.makedirs(feats, exist_ok=True)
+    gifs = [f"gif{i:03d}" for i in range(n_gifs)]
+    for g in gifs:
+        t = int(rng.integers(t_range[0], t_range[1] + 1))
+        np.save(os.path.join(feats, g + ".npy"), rng.standard_normal((t, s, dv), dtype=np.float32))
+    np.save(os.path.join(feats, "long.npy"), rng.standard_normal((long_t, s, dv), dtype=np.float32))
+    text = lambda lo, hi: " ".join(rng.choice(TGIF_WORDS, size=int(rng.integers(lo, hi))))
+    splits = {}
+    for task in TGIF_TASKS:
+        for split, n in (("train", n_train), ("test", n_test)):
+            names = list(rng.choice(gifs, size=n))
+            if (task, split) in (("frameqa", "train"), ("count", "test")):
+                names[0] = "long"
+            if task in ("action", "transition"):
+                lines = ["gif_name\tquestion\ta1\ta2\ta3\ta4\ta5\tanswer"] + [
+                    f"{g}\t{text(4, 12)}\t" + "\t".join(text(1, 5) for _ in range(5))
+                    + f"\t{rng.integers(0, 5)}" for g in names]
+            elif task == "count":
+                lines = ["gif_name\tquestion\tanswer"] + [
+                    f"{g}\thow many times does the man {text(1, 4)}\t{rng.integers(1, 11)}"
+                    for g in names]
+            else:
+                lines = ["gif_name\tquestion\tanswer"] + [
+                    f"{g}\t{text(4, 20)}\t{rng.choice(TGIF_WORDS[-8:])}" for g in names]
+            path = os.path.join(root, f"{split}_{task}.tsv")
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            splits.setdefault(task, []).append(path)
+    return splits, feats
+
+
+def tgif_grads_agree(task, names, loss_k, grads_k, loss_p, grads_p):
+    """One train step's loss (5e-4 relative) and gradients (5e-4 +
+    5e-3·|g|; the key biases', analytically zero, to 5e-4) on the kernel
+    path against the plain path; returns the largest differences."""
+    import torch
+
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if loss_rel > TGIF_TOL:
+        raise AssertionError(f"TGIF {task} train loss: kernels {loss_k.item()} against "
+                             f"plain {loss_p.item()}")
+    worst = 0.0
+    for name, a, b in zip(names, grads_k, grads_p):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        rtol = 0.0 if name.endswith("wk.b") else 5e-3
+        if not torch.allclose(a, b, rtol=rtol, atol=TGIF_TOL):
+            raise AssertionError(f"TGIF {task} gradient {name}: kernels and plain differ "
+                                 f"by {err:.3e}")
+    return loss_rel, worst
+
+
+def tgif_kernels_against_plain(device, task, params, cfg, batch):
+    """(a) for one task: the forward through the kernels (4 K1 launches)
+    against `dispatch.force_plain()` within 5e-4, then one train step's
+    loss and gradients at dropout 0 (4 K1 with residuals, 4 K2)."""
+    import torch
+
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.tasks.tgifqa import TGIFTask, tgif_forward, tgif_loss
+    from bist_tpu_torch.train.loop import trainable
+    from bist_tpu_torch.weights import tree_leaves
+
+    cuda = device.type == "cuda"
+    t = TGIFTask(task)
+    b = to_device(batch, device)
+    before = hop1_fused.launches
+    with torch.no_grad():
+        got = tgif_forward(params, cfg, b.query, b.fts, t)
+        with dispatch.force_plain():
+            want = tgif_forward(params, cfg, b.query, b.fts, t)
+    fwd_launches = hop1_fused.launches - before
+    if cuda and fwd_launches != 4:
+        raise AssertionError(f"TGIF {task} forward: K1 launched {fwd_launches} times, "
+                             f"expected 4 (2 layers, t2s and s2t)")
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and torch.allclose(got, want, rtol=TGIF_TOL,
+                                                          atol=TGIF_TOL)):
+        raise AssertionError(f"TGIF {task} forward: kernels and plain differ by {err:.3e}")
+
+    params = trainable(params)
+    leaves = tree_leaves(params)
+
+    def loss_grads():
+        loss, _ = tgif_loss(params, cfg, b, t)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss, [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+
+    before = hop1_fused.launches, hop1_bwd.launches
+    loss_k, grads_k = loss_grads()
+    step_launches = (hop1_fused.launches - before[0], hop1_bwd.launches - before[1])
+    if cuda and step_launches != (4, 4):
+        raise AssertionError(f"TGIF {task} train step: K1, K2 launched {step_launches} "
+                             f"times, expected 4 each")
+    with dispatch.force_plain():
+        loss_p, grads_p = loss_grads()
+    loss_rel, grad_err = tgif_grads_agree(task, leaf_names(params), loss_k, grads_k,
+                                          loss_p, grads_p)
+    return {"rows": int(b.query.shape[0]), "fts": list(b.fts.shape),
+            "forward_max_abs_err": err, "loss_rel_err": loss_rel,
+            "grad_max_abs_err": grad_err, "launches": {"forward_k1": fwd_launches,
+                                                       "step_k1_k2": list(step_launches)}}
+
+
+def run_tgif_cli(device, argv):
+    """The train_tgif CLI in this process (its `main`, as `python -m` runs
+    it) under torch.profiler on the card, the wrappers' counts zeroed
+    before: returns its log lines, the wrappers' K1 and K2 launches and the
+    kernels the card ran by name (`hop1_ran`)."""
+    import logging
+
+    from bist_tpu_torch.cli import train_tgif
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    root = logging.getLogger()
+    handler, level = Keep(level=logging.INFO), root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    prof = profiler_window(device)
+    try:
+        with prof:
+            train_tgif.main(argv)
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    wrappers = {"k1": hop1_fused.launches, "k2": hop1_bwd.launches}
+    ran = hop1_ran(prof) if device.type == "cuda" else None
+    return lines, wrappers, ran
+
+
+def tgif_cli_checks(device, task, dropout, lines, wrappers, ran, n_train, n_test, B, epochs):
+    """The CLI run's log read back and its kernels held to what its steps
+    must launch: with dropout 0, K1 4 a step and 4 a test batch, K2 4 a
+    step by name (a geometry's first step is its eager warm-up; a capture
+    runs nothing), and through the wrappers K1 and K2 8 a captured geometry
+    (warm-up and capture) and K1 4 a test batch; with dropout hop 1 trains
+    on the plain path, so K1 only in the test split and no K2."""
+    import math
+
+    def logged(marker):
+        return [json.loads(ln.split(marker, 1)[1]) for ln in lines if marker in ln]
+
+    feeds = [logged(f"epoch {e + 1} train feed: ") for e in range(epochs)]
+    stats = [logged(f"epoch {e + 1} train program: ") for e in range(epochs)]
+    test = [ln for ln in lines if ln.startswith("TEST ")]
+    saved = [ln for ln in lines if ln.startswith("saved ")]
+    if not (all(len(f) == 1 for f in feeds + stats) and len(test) == 1 and saved):
+        raise AssertionError(f"TGIF CLI {task}: log lines missing:\n" + "\n".join(lines[-20:]))
+    steps = sum(f[0]["steps"] for f in feeds)
+    test_batches = math.ceil(n_test / B)
+    st = stats[-1][0]
+    if steps != epochs * (n_train // B) or test[0].split()[-2] != str(n_test):
+        raise AssertionError(f"TGIF CLI {task}: {steps} steps, {test[0]!r}")
+    metric = float(test[0].split(": ")[1].split()[0])
+    if not math.isfinite(metric):
+        raise AssertionError(f"TGIF CLI {task}: {test[0]}")
+    cuda = device.type == "cuda"
+    if cuda and not st["captures"] == st["eager_runs"] == st["geometries"] > 0:
+        raise AssertionError(f"TGIF CLI {task}: program stats {st}: a geometry stepped "
+                             f"eagerly")
+    if cuda:
+        want_wrappers = {"k1": 4 * test_batches + (0 if dropout else 8 * st["captures"]),
+                         "k2": 0 if dropout else 8 * st["captures"]}
+        by_name = {k: sum(v.values()) for k, v in ran.items()}
+        want_by_name = {"k1": 4 * test_batches + (0 if dropout else 4 * steps),
+                        "k2": 0 if dropout else 4 * steps}
+        if wrappers != want_wrappers or by_name != want_by_name:
+            raise AssertionError(f"TGIF CLI {task}, dropout {dropout}: K1/K2 through the "
+                                 f"wrappers {wrappers} (expected {want_wrappers}), by "
+                                 f"name {ran} (expected {want_by_name})")
+    return {"task": task, "dropout": dropout, "steps": steps, "test_batches": test_batches,
+            "test": test[0], "metric": metric,
+            "examples_per_s": [f[0]["examples_per_s"] for f in feeds],
+            "epoch_seconds": [f[0]["seconds"] for f in feeds],
+            "program": st, "wrapper_launches": wrappers, "by_name": ran}
+
+
+def tgif_step_speed(device, task, params, cfg, batch, eager_steps=10, replays=20):
+    """(c) one geometry: the eager step and the StepProgram's replays on
+    the same device batch from copies of one state, ms/step (median after
+    the first); 3 replays under torch.profiler: K1 and K2 4 a replay each by
+    name, all "whole" at T <= 64, the card's busy share of them (the union
+    of its kernels' intervals) and its top kernels a step."""
+    import torch
+
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.tasks.tgifqa import (TGIFTask, create_tgif_train_state,
+                                             make_tgif_train_step, tgif_optimizer)
+    from bist_tpu_torch.train.compiled import StepProgram
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t = TGIFTask(task)
+    b = to_device(batch, device)
+    tx = tgif_optimizer(1e-3)
+    step = make_tgif_train_step(cfg, t, tx)
+
+    def timed(fn, state, n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            sync()
+            times.append(time.perf_counter() - t0)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"TGIF {task} step: loss {float(m['loss'])}")
+        return state, statistics.median(times[1:]) * 1e3
+
+    _, eager_ms = timed(step, create_tgif_train_state(params, tx), eager_steps)
+    state = create_tgif_train_state(params, tx)
+    prog = StepProgram(state, step, label=f"tgif {task} train step")
+    state, replayed_ms = timed(prog, state, replays)
+    out = {"rows": int(b.query.shape[0]), "fts": list(b.fts.shape), "eager_ms_per_step": eager_ms,
+           "replayed_ms_per_step": replayed_ms,
+           "replayed_examples_per_s": len(batch.label) / replayed_ms * 1e3,
+           "stats": prog.stats()}
+    if cuda:
+        with profiler_window(device) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                state, _ = prog(state, b)
+            sync()
+            wall = time.perf_counter() - t0
+        ran = hop1_ran(prof)
+        if ran != {"k1": {"whole": 12, "tiled": 0}, "k2": {"whole": 12, "tiled": 0}}:
+            raise AssertionError(f"TGIF {task}: K1, K2 kernels in 3 replays by name {ran}, "
+                                 f"expected 12 \"whole\" each (4 a step)")
+        tl = device_timeline(prof)
+        out.update(replayed_by_name=ran, device_ms_per_step=tl["busy_ms"] / 3,
+                   busy_share=tl["busy_ms"] / (wall * 1e3),
+                   top_kernels_per_step=[dict(k, ms=k["ms"] / 3, calls=k["calls"] / 3)
+                                         for k in tl["top_kernels"]])
+    return out
+
+
+def tgif_heldout(device, steps=400, seed=0):
+    """(d) tests/test_tgifqa.py's held-out Transition proof at its tiny
+    configuration (d_model 16, 2 heads, 2 video blocks, Dv 12: K1 and K2
+    "tiled"): `steps` replayed steps of Adam at 3e-3 on fresh batches of 16,
+    then 48 held-out examples scored eagerly; accuracy above 0.6 (chance
+    0.2)."""
+    import torch
+
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.tasks.tgifqa import (TGIFTask, create_tgif_train_state,
+                                             init_tgif_model, make_tgif_train_step,
+                                             tgif_loss, tgif_optimizer)
+    from bist_tpu_torch.train.compiled import StepProgram
+
+    tiny = dict(TGIF_TINY)
+    cfg = tgif_cfg(40, **tiny)
+    t = TGIFTask.TRANSITION
+    gen = mc_heldout_batches(np.random.default_rng(seed), transition=True, D=tiny["dv"])
+    params = init_tgif_model(torch.Generator().manual_seed(1), cfg, t, device=device)
+    tx = tgif_optimizer(3e-3)
+    state = create_tgif_train_state(params, tx)
+    prog = StepProgram(state, make_tgif_train_step(cfg, t, tx), label="tgif heldout")
+    before = hop1_fused.launches, hop1_bwd.launches
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = prog(state, gen(16))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (hop1_fused.launches - before[0], hop1_bwd.launches - before[1])
+    st = prog.stats()
+    if device.type == "cuda" and (launches != (8, 8) or st["captures"] != 1):
+        raise AssertionError(f"TGIF held-out: K1, K2 through the wrappers {launches}, "
+                             f"stats {st}: expected one capture (8 each), then replays")
+    with torch.no_grad():
+        _, metrics = tgif_loss(state.params, cfg, to_device(gen(48), device), t)
+    acc = float(metrics["acc"])
+    if not acc > 0.6:
+        raise AssertionError(f"TGIF held-out Transition: accuracy {acc} after {steps} "
+                             f"replayed steps (chance 0.2, required > 0.6)")
+    return {"steps": steps, "heldout_acc": acc, "seconds": seconds,
+            "last_loss": float(m["loss"]), "wrapper_launches": list(launches)}
+
+
+def phase_tgif(device, root, model_kw=None, dv=DV, s=S, n_train=64, n_test=40, B=32,
+               t_range=(8, 40), long_t=70, speed_T=32, heldout_steps=400):
+    """TGIF-QA on the card at the train_tgif CLI's width (d_model 128, 8
+    heads, 2 video blocks, Dv 2048, S 16; `model_kw` narrows it for a CPU
+    rehearsal):
+
+      (a) per task, `tgif_forward` through the kernels against
+          force_plain() and one train step's loss and gradients
+          (`tgif_kernels_against_plain`);
+      (b) the CLI for each task at --dropout 0 (hop 1 trains through K1
+          with residuals and K2) and for count at the default 0.1 (hop 1
+          trains on the plain path, the test split runs K1), 2 epochs on
+          synthetic splits (`write_tgif_dataset`), each run's kernels
+          counted by name and through the wrappers (`tgif_cli_checks`);
+      (c) replayed against eager ms/step at one geometry, frameqa B and
+          action B·5 at T speed_T (`tgif_step_speed`);
+      (d) the held-out Transition proof (`tgif_heldout`).
+    Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.tasks.tgifqa import TGIFTask, init_tgif_model
+
+    kw = dict(model_kw or {})
+    width = dict(d_model=kw.get("d_model", 128), att_h=kw.get("att_h", 8),
+                 nb_venc_blocks=kw.get("nb_venc_blocks", 2))
+    cuda = device.type == "cuda"
+    out = {"width": dict(width, dv=dv, s=s)}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    vocab_size = 30
+    kernels, speed = {}, {}
+    for task in TGIF_TASKS:
+        cfg = tgif_cfg(vocab_size, dv=dv, **width)
+        params = init_tgif_model(torch.Generator().manual_seed(0), cfg, TGIFTask(task),
+                                 device=device)
+        batch = tgif_batch(rng, task, 8, 32, 16, vocab_size, dv=dv, s=s)
+        kernels[task] = tgif_kernels_against_plain(device, task, params, cfg, batch)
+        if task in ("frameqa", "action"):
+            big = tgif_batch(rng, task, B, speed_T, 16 if task == "frameqa" else 32,
+                             vocab_size, dv=dv, s=s)
+            speed[task] = tgif_step_speed(device, task, params, cfg, big)
+            del big
+        del params
+    out["kernels_against_plain"], out["step_speed"] = kernels, speed
+    out["seconds_a_c"] = time.perf_counter() - t0
+    log(f"TGIF kernels against plain: {json.dumps(kernels)}")
+    log(f"TGIF step speed: {json.dumps(speed)}")
+
+    t0 = time.perf_counter()
+    splits, feats = write_tgif_dataset(root, n_train, n_test, t_range=t_range, long_t=long_t,
+                                       dv=dv, s=s)
+    width_args = ["--d-model", str(width["d_model"]), "--att-h", str(width["att_h"]),
+                  "--nb-venc-blocks", str(width["nb_venc_blocks"])]
+    runs = []
+    for task, dropout in [(t, 0.0) for t in TGIF_TASKS] + [("count", 0.1)]:
+        train, test = splits[task]
+        argv = ["--task", task, "--train-tsv", train, "--test-tsv", test,
+                "--feature-path", feats, "--model", os.path.join(root, "exp", f"{task}_{dropout}"),
+                "--num-epochs", "2", "--batch-size", str(B), "--device", device.type] \
+            + width_args + ([] if dropout == 0.1 else ["--dropout", str(dropout)])
+        lines, wrappers, ran = run_tgif_cli(device, argv)
+        runs.append(tgif_cli_checks(device, task, dropout, lines, wrappers, ran, n_train,
+                                    n_test, B, 2))
+        log(f"TGIF CLI: {json.dumps(runs[-1])}")
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        for run, name in ((runs[0], "frameqa"), (runs[4], "count")):
+            # the 70-clip GIF: t2s at t_pad 128 through "tiled" (frameqa trains
+            # on it, count scores it)
+            if not (run["by_name"]["k1"]["tiled"] > 0 and run["by_name"]["k1"]["whole"] > 0):
+                raise AssertionError(f"TGIF CLI {name}: K1 by name {run['by_name']}: no "
+                                     f"\"tiled\" for the 70-clip GIF")
+        if not runs[0]["by_name"]["k2"]["tiled"] > 0:
+            raise AssertionError(f"TGIF CLI frameqa: K2 by name {runs[0]['by_name']}: no "
+                                 f"\"tiled\" for the 70-clip GIF")
+    out["cli"] = runs
+    out["cli_seconds"] = time.perf_counter() - t0
+
+    out["heldout"] = tgif_heldout(device, steps=heldout_steps)
+    log(f"TGIF held-out Transition: {json.dumps(out['heldout'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -2999,6 +3479,22 @@ def main() -> int:
     print(f"extractor on {card}: {json.dumps(extractor)}", flush=True)
     lap("extractor")
 
+    tgif = phase_tgif(device, os.path.join(HERE, "build", "chip_smoke", "tgif"))
+    print(f"TGIF-QA on {card}: "
+          + "; ".join(f"{r['task']} dropout {r['dropout']}: {r['test']}, examples/s by epoch "
+                      f"{[round(x, 1) for x in r['examples_per_s']]}, "
+                      f"{r['program']['captures']} captures in "
+                      f"{r['program']['capture_seconds']:.2f} s" for r in tgif["cli"])
+          + "; " + "; ".join(f"{k} {v['rows']} rows: eager {v['eager_ms_per_step']:.2f} "
+                             f"ms/step, replayed {v['replayed_ms_per_step']:.2f} (busy "
+                             f"{v['busy_share']:.3f})" for k, v in tgif["step_speed"].items())
+          + f"; held-out Transition acc {tgif['heldout']['heldout_acc']:.3f} after "
+            f"{tgif['heldout']['steps']} replayed steps", flush=True)
+    print(f"TGIF-QA on {card}: {json.dumps(tgif)}", flush=True)
+    lap("tgif")
+    # K1 and K2 kernels the card ran in each TGIF CLI run, by name
+    tgif_runs = {f"{r['task']} dropout {r['dropout']}": r["by_name"] for r in tgif["cli"]}
+
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -3018,7 +3514,8 @@ def main() -> int:
              # K1 kernels the card ran in the serving bundle's replays, by name
              launches_bundle=bundles["served"]["hop1_fwd_ran"],
              # K1 kernels the card ran, by name, generating from extracted features
-             launches_extract_chain=extractor["generate"]["k1_ran"]),
+             launches_extract_chain=extractor["generate"]["k1_ran"],
+             launches_tgif={k: v["k1"] for k, v in tgif_runs.items()}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],
@@ -3026,7 +3523,8 @@ def main() -> int:
                           f"{train['batch_size']}"),
              variants=train["hop1_bwd_variants"],
              # K2 kernels (first pass) the card ran in 3 train replays, by name
-             launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"]),
+             launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],
+             launches_tgif={k: v["k2"] for k, v in tgif_runs.items()}),
         dict(kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                           "bist_tpu/ops/flash_attention.py:43", flash_cases,
                           mha_flash["launches"],

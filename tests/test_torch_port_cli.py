@@ -94,10 +94,11 @@ def test_package_imports_neither_jax_nor_bist_tpu():
         "for m in pkgutil.walk_packages(bist_tpu_torch.__path__, 'bist_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'bist_tpu'))\n"
-        "extractor = ['bist_tpu_torch.models.resnext3d', 'bist_tpu_torch.models.backbones3d',\n"
-        "             'bist_tpu_torch.cli.extract_features',\n"
-        "             'bist_tpu_torch.cli.generate_result_video']\n"
-        "bad += [m for m in extractor if m not in sys.modules]\n"
+        "required = ['bist_tpu_torch.models.resnext3d', 'bist_tpu_torch.models.backbones3d',\n"
+        "            'bist_tpu_torch.cli.extract_features',\n"
+        "             'bist_tpu_torch.cli.generate_result_video',\n"
+        "             'bist_tpu_torch.tasks.tgifqa', 'bist_tpu_torch.cli.train_tgif']\n"
+        "bad += [m for m in required if m not in sys.modules]\n"
         "from bist_tpu_torch.models import resnext3d\n"
         "bad += [n for n in ('STEM_S2D', 'GROUP_CH') if hasattr(resnext3d, n)]\n"
         "print(bad)\n"

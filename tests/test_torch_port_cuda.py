@@ -1266,3 +1266,83 @@ def test_extract_cli_packed_on_the_card(cuda, tmp_path):
         assert pk.shape == cpu.shape and pk.shape[1:] == (16, 2048)
         assert float((pk - pv).abs().max()) <= 1e-5 * float(pv.abs().max()), vid
         _extract_close(pk, cpu, f"CLI {vid}")
+
+
+TGIF = ["frameqa", "count", "action", "transition"]
+
+
+def _tgif_setup(cuda, task, B=8, T=32, seed=30):
+    """The train_tgif CLI's width (d_model 128, 8 heads, 2 video blocks,
+    Dv 2048, S 16), random parameters, one host batch of B questions (B·5
+    rows for multiple choice) with a zero clip tail and PAD query tail."""
+    import chip_smoke
+    from bist_tpu_torch.tasks.tgifqa import TGIFTask, init_tgif_model
+
+    cfg = chip_smoke.tgif_cfg(30)
+    params = init_tgif_model(torch.Generator().manual_seed(0), cfg, TGIFTask(task), device=cuda)
+    batch = chip_smoke.tgif_batch(np.random.default_rng(seed), task, B, T, 16, 30)
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", TGIF)
+def test_tgif_forward_and_train_step_match_plain(cuda, task):
+    """`tgif_forward` through K1 (4 launches) against force_plain() within
+    5e-4; one train step at dropout 0 (4 K1 with residuals, 4 K2): loss to
+    5e-4 relative, gradients to 5e-4 + 5e-3·|g|."""
+    import chip_smoke
+
+    cfg, params, batch = _tgif_setup(cuda, task)
+    out = chip_smoke.tgif_kernels_against_plain(cuda, task, params, cfg, batch)
+    assert out["launches"] == {"forward_k1": 4, "step_k1_k2": [4, 4]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["frameqa", "action"])
+def test_tgif_step_program_replays_equal_eager_steps(cuda, task):
+    """A StepProgram of make_tgif_train_step (one eager warm-up, one
+    capture, then replays) against the eager step from the same start:
+    losses and metrics to 5e-4 relative, parameters to 5e-4 + 5e-3·|p|
+    (the key biases, and for multiple choice the biases that shift a row's
+    5 scores alike, to 5e-4 + 2·Σlr); K1 and K2 4 times a replay by name,
+    none through the wrappers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from bist_tpu_torch.tasks.tgifqa import (TGIFTask, create_tgif_train_state,
+                                             make_tgif_train_step, tgif_optimizer)
+    from bist_tpu_torch.train.compiled import StepProgram
+    from bist_tpu_torch.weights import tree_leaves
+
+    cfg, params, batch = _tgif_setup(cuda, task)
+    tx = tgif_optimizer(1e-3)
+    step = make_tgif_train_step(cfg, TGIFTask(task), tx)
+    eager = create_tgif_train_state(params, tx)
+    state = create_tgif_train_state(params, tx)
+    prog = StepProgram(state, step)
+    fwd, bwd = K1.hop1_fused.launches, K1.hop1_bwd.launches
+    dev_batch = to_device(batch, cuda)
+    for i in range(3):
+        state, got = prog(state, batch)
+        eager, want = step(eager, dev_batch)
+        for k in want:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=5e-4, err_msg=k)
+    # the program's warm-up and capture (4 + 4), the 3 eager steps (12)
+    assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (20, 20)
+    shifts = ("head.b", "out_norm_t.bias", "out_norm_s.bias") if task == "action" else ()
+    for name, a, b in zip(chip_smoke.leaf_names(state.params), tree_leaves(state.params),
+                          tree_leaves(eager.params)):
+        if name.endswith("wk.b") or name in shifts:
+            assert (a - b).abs().max().item() <= 5e-4 + 2 * 3e-3, name
+        else:
+            assert torch.allclose(a, b, rtol=5e-3, atol=5e-4), name
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(2):
+            state, _ = prog(state, batch)
+        torch.cuda.synchronize()
+    assert (K1.hop1_fused.launches - fwd, K1.hop1_bwd.launches - bwd) == (20, 20)
+    names = [e.name() for e in p.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("hop1_fwd_whole_kernel" in n for n in names) == 8, names[:40]
+    assert sum("hop1_bwd_whole_kernel" in n for n in names) == 8, names[:40]
