@@ -22,8 +22,12 @@ a producer thread decodes the next videos; --pack 0 batches each video on
 its own.  Every batch is --batch_size clips (the last zero-padded), so both
 give the same features.  --bf16 1 runs the net in bfloat16 (float32 out);
 --int8 1 quantizes the bottleneck convs (resnext only; --int8-calib,
---int8-stages).  It runs on CUDA unless --device cpu is given, on one card:
-data parallelism over several (--dp > 1) is ROADMAP queue 1 item 10.
+--int8-stages).  It runs on CUDA unless --device cpu is given.  --dp N
+splits every batch's clips over N devices, each through its own replica of
+the backbone (rows are independent: the features are one device's); --dp
+0 (default) takes the largest number of local devices of --device's type
+that divides --batch_size (one on the CPU, where --dp N runs N replicas on
+the one CPU).  --int8 stays on one device, as in `bist_tpu`.
 """
 
 from __future__ import annotations
@@ -199,8 +203,8 @@ def build_parser():
     p.add_argument("--stride", type=int, default=4)
     p.add_argument("--batch_size", type=int, default=128, help="clips per device batch")
     p.add_argument("--dp", type=int, default=0,
-                   help="0 or 1: one card (data parallelism over several is "
-                        "ROADMAP queue 1 item 10)")
+                   help="devices a batch's clips split over; 0 = the largest count of "
+                        "local devices dividing --batch_size")
     p.add_argument("--pack", type=int, default=1,
                    help="pack clips across videos into full device batches, with "
                         "decoding on a producer thread; 0 batches each video on "
@@ -242,9 +246,11 @@ def _int8_stages(spec: str):
     return stages
 
 
-def build_apply(args, device, mode):
+def build_apply(args, device, mode, devices=None):
     """The backbone as a function numpy clip batch → numpy float32 outputs,
-    at the precision the flags ask for."""
+    at the precision the flags ask for; with `devices` (several, float32 or
+    bfloat16), data-parallel: each device's row block through its replica
+    (`dp_apply`)."""
     import torch
 
     from bist_tpu_torch.models import resnext3d as rx
@@ -303,23 +309,65 @@ def build_apply(args, device, mode):
             return state["run"](chunk)
 
         return apply_fn
+    dtype = torch.float32
     if args.bf16:
         params = tree_map(lambda t: t.to(torch.bfloat16), params)
-        return rx.batch_apply(rx.prepare(params, device), mode, torch.bfloat16, backbone)
-    return rx.batch_apply(rx.prepare(params, device), mode, torch.float32, backbone)
+        dtype = torch.bfloat16
+    if devices is not None and len(devices) > 1:
+        return dp_apply(params, devices, mode, dtype, backbone)
+    return rx.batch_apply(rx.prepare(params, device), mode, dtype, backbone)
+
+
+def dp_apply(params, devices, mode, dtype, backbone):
+    """Data-parallel `batch_apply`: a batch's clips split into contiguous row
+    blocks, block i through the backbone's replica on devices[i] (one net a
+    device; devices that repeat share theirs), every block launched before
+    any is read back, the outputs in row order."""
+    import torch
+
+    from bist_tpu_torch.models import resnext3d as rx
+    from bist_tpu_torch.parallel.mesh import DataParallel, row_slice
+
+    dp = DataParallel(devices=devices)
+    nets = {}
+    for d in dp.devices:
+        if d not in nets:
+            nets[d] = rx.prepare(params, d)
+
+    def run(chunk: np.ndarray) -> np.ndarray:
+        outs = [backbone(nets[d],
+                         torch.from_numpy(chunk[row_slice(i, dp.n, len(chunk))]).to(d).to(dtype),
+                         mode) for i, d in enumerate(dp.devices)]
+        return np.concatenate([o.float().cpu().numpy() for o in outs])
+
+    return run
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.dp > 1:
-        raise SystemExit("--dp > 1: data-parallel extraction is not ported to "
-                         "bist_tpu_torch yet (ROADMAP queue 1 item 10)")
 
     import torch
 
     from bist_tpu_torch import resolve_device
+    from bist_tpu_torch.parallel.mesh import local_devices
 
     device = resolve_device(args.device)
+    # the data-parallel conv stage: --dp 0 is the largest local device count
+    # dividing --batch_size; the int8 path stays on one device (as bist_tpu's)
+    n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    dp_n = args.dp if args.dp > 0 else max(
+        n for n in range(1, n_avail + 1) if args.batch_size % n == 0)
+    if args.int8:
+        dp_n = 1
+    devices = None
+    if dp_n > 1:
+        if args.batch_size % dp_n:
+            sys.exit(f"--batch_size {args.batch_size} not divisible by --dp {dp_n}")
+        try:
+            devices = local_devices(device.type, dp_n)
+        except ValueError as e:
+            sys.exit(f"--dp {dp_n}: {e}")
+        print(f"extraction mesh: {dp_n} of {n_avail} device(s)")
     if args.mode == "score":
         mode = "score"
     else:
@@ -338,7 +386,7 @@ def main(argv=None):
     os.makedirs(args.output, exist_ok=True)
 
     with torch.inference_mode():
-        apply_fn = build_apply(args, device, mode)
+        apply_fn = build_apply(args, device, mode, devices)
         (run_packed if args.pack else run_per_video)(entries, args, apply_fn, mode)
 
 

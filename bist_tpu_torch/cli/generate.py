@@ -17,7 +17,12 @@ oracle (teacher-forced argmax; needs labeled turns, so not with
 --undisclosed-only) and sample (--temperature, --top-k, --top-p,
 --sample-seed).  Each style runs as one CUDA graph per batch geometry
 (`decode.compiled.DecodeProgram`), captured the first time the geometry
-comes; on the CPU the same program runs eagerly.  A reference-format
+comes; on the CPU the same program runs eagerly.  As `bist_tpu` shards rows
+over every local device, the rows of each batch split over --num-devices
+devices (0, the default: every local device of --device's type; one on the
+CPU, where N > 1 runs N replicas on the one CPU), one program per device
+(`decode.compiled.ShardedDecode`): the tail batch pads to a multiple of the
+device count and the answers are one device's.  A reference-format
 checkpoint (<prefix>_best.pth.tar beside a pickled .conf, detected by the
 .conf) is read through `bist_tpu_torch.convert`, with --reference-root
 naming a checkout of the reference for its pickled classes.
@@ -80,6 +85,9 @@ def build_parser():
     p.add_argument("--gen-batch-size", default=32, type=int)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
+    p.add_argument("--num-devices", default=0, type=int,
+                   help="devices each batch's rows split over: 0 = every local device "
+                        "of --device's type (one on the CPU)")
     p.add_argument("--ensemble", nargs="*", default=None,
                    help="additional checkpoint prefixes to ensemble with "
                         "--model (summed log-probs; all share --model-conf)")
@@ -121,12 +129,21 @@ def main(argv=None):
     from bist_tpu_torch.data.features import build_stores
     from bist_tpu_torch.data.loader import AVSDLoader, device_prefetch
     from bist_tpu_torch.decode.beam import extract_hyps
-    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.decode.compiled import ShardedDecode
+    from bist_tpu_torch.parallel.mesh import local_devices
     from bist_tpu_torch.decode.sample import mix_seed
     from bist_tpu_torch.vocab import ids2words, make_id2word
     from bist_tpu_torch.weights import load_params
 
     device = resolve_device(args.device)
+    try:
+        devices = [device] if device.index is not None and args.num_devices <= 1 \
+            else local_devices(device.type, args.num_devices)
+    except ValueError as e:
+        raise SystemExit(f"--num-devices {args.num_devices}: {e}") from e
+    device = devices[0]
+    if len(devices) > 1:
+        logging.info("decoding data-parallel over %d devices", len(devices))
     torch.backends.cuda.matmul.allow_tf32 = False
     conf_path = args.model_conf or default_conf_for(args.model)
 
@@ -172,7 +189,8 @@ def main(argv=None):
     loader = AVSDLoader(test_data, visual_stores=vis_stores,
                         audio_stores=aud_stores, batch_size=args.gen_batch_size,
                         shuffle=False, cut_a=False, len_buckets=tcfg.len_buckets,
-                        time_buckets=tcfg.time_buckets, pin_memory=device.type == "cuda")
+                        time_buckets=tcfg.time_buckets, pin_memory=device.type == "cuda",
+                        pad_batch_multiple=len(devices))
     logging.info("#test sample = %d  #test batch = %d",
                  len(test_data.examples), len(loader))
 
@@ -191,9 +209,9 @@ def main(argv=None):
                           encode_dtype=args.encode_dtype,
                           temperature=args.temperature, top_k=args.top_k,
                           top_p=args.top_p, sample_seed=args.sample_seed)
-    # the decode style as one CUDA graph per batch geometry, captured the
-    # first time the geometry comes (as bist_tpu jits each style)
-    program = DecodeProgram(params, cfg, gcfg)
+    # the decode style as one CUDA graph per batch geometry on each device,
+    # captured the first time the geometry comes (as bist_tpu jits each style)
+    program = ShardedDecode(params, cfg, gcfg, devices)
 
     logging.info("----------------------- generate --------------------------")
     start_time = time.time()
@@ -213,19 +231,21 @@ def main(argv=None):
         """The answers of a decoded batch (reading them waits for its decode;
         the next batch is queued on the card by then)."""
         nonlocal n_done
+        out = program.gather(out)       # every device's rows, in order, on the host
         if gcfg.decode_style == "beam_search":
             for row in range(meta.real_count):
                 hyps = extract_hyps(out, id2word, row, gcfg.nbest)
                 answers[meta.qa_ids[row]] = (" ".join(hyps[0][0]) if hyps else "", hyps)
         else:
-            out = out.cpu().numpy()
+            out = out.numpy()
             for row in range(meta.real_count):
                 answers[meta.qa_ids[row]] = (" ".join(ids2words(out[row], id2word)), None)
         n_done += meta.real_count
         logging.info("decoded %d/%d turns (%.1f turns/s; %d geometries captured "
                      "in %.2f s)", n_done, len(test_data.examples),
-                     n_done / max(time.time() - start_time, 1e-9), program.captures,
-                     program.capture_seconds)
+                     n_done / max(time.time() - start_time, 1e-9),
+                     sum(p.captures for p in program.programs),
+                     sum(p.capture_seconds for p in program.programs))
 
     pending = None
     for n_batch, (batch, meta) in enumerate(device_prefetch(iter(loader), prepare)):

@@ -23,7 +23,9 @@ bucket's decode as a CUDA graph (warmup; on the CPU it runs each once) and
 logs "serving on <host>:<port>" with the port it bound (--port 0 picks a
 free one).  It runs on CUDA unless --device cpu is given, and raises
 without CUDA otherwise.  Concurrent requests are coalesced into batches
-(`serving.DynamicBatcher`).
+(`serving.DynamicBatcher`).  On a host with several cards the rows of each
+batch split over the largest number of them that divides every batch
+bucket (`serving.Responder`; one card: the whole batch on it).
 
 Serving bundles (`bist_tpu_torch.export`):
 
@@ -37,7 +39,9 @@ device type (--export-platforms cpu,cuda for both), and exits.  --bundle
 serves from the bundle's programs and decode configuration (decode flags
 given on the command line are ignored with a warning) and captures its
 whole geometry table before it takes traffic (`warmup_geometries`).
-Data-parallel bundles (--export-dp > 1) wait for ROADMAP queue 1 item 10.
+--export-dp N writes a data-parallel bundle: each program decodes one of N
+devices' row blocks (every batch bucket must divide by N), and serving it
+needs N cards (`export.save_bundle`).
 `bist_tpu`'s persistent compilation cache has no counterpart here: a CUDA
 graph does not outlive its process, and the CUDA kernels are built once
 per checkout (`ops._build`).
@@ -84,7 +88,8 @@ def build_parser():
     p.add_argument("--export-workers", type=int, default=1,
                    help="programs exported at a time, each in a process of its own")
     p.add_argument("--export-dp", type=int, default=1,
-                   help="data-parallel width; > 1 waits for ROADMAP queue 1 item 10")
+                   help="data-parallel width of the bundle: each program takes "
+                        "1/N of a batch's rows, and serving it needs N devices")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max-batch", type=int, default=64)
@@ -135,9 +140,15 @@ def build_parser():
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    if args.export_dp > 1:
-        raise SystemExit(f"--export-dp {args.export_dp}: data-parallel bundles are not "
-                         f"ported to bist_tpu_torch yet (ROADMAP queue 1 item 10)")
+    if args.export_bundle:
+        from bist_tpu_torch.serving import default_batch_buckets
+
+        bad = [b for b in default_batch_buckets(args.max_batch) if b % max(args.export_dp, 1)]
+        if args.export_dp < 1 or bad:
+            raise SystemExit(f"batch buckets {bad} not divisible by --export-dp "
+                             f"{args.export_dp} (the buckets of --max-batch "
+                             f"{args.max_batch}: each program takes 1/{args.export_dp} "
+                             f"of a batch's rows)")
     if not (args.model or args.bundle):
         p.error("--model is required unless --bundle is given")
     logging.basicConfig(level=logging.INFO,
@@ -183,9 +194,10 @@ def main(argv=None):
         logging.info("warmup: every batch bucket %s", responder.batch_buckets)
         responder.warmup(feature_shape=((args.feat_s, cfg.ft_sizes[0])
                                         if args.feat_s and cfg.has_video else None))
-    prog = responder.program.stats()
-    logging.info("warmup: %d geometries captured in %.2f s (graph pool %.1f MB)",
-                 prog["captures"], prog["capture_seconds"], prog["pool_bytes"] / 2 ** 20)
+    prog = responder.stats()
+    logging.info("warmup: %d geometries captured in %.2f s on %d device(s) (graph pools "
+                 "%.1f MB)", prog["captures"], prog["capture_seconds"], prog["devices"],
+                 prog["pool_bytes"] / 2 ** 20)
     batcher = DynamicBatcher(responder, max_batch=responder.max_batch,
                              max_wait_ms=args.max_wait_ms,
                              pipeline_depth=args.pipeline_depth)
@@ -246,7 +258,7 @@ def export(args, p, params, cfg, gcfg, vocab) -> None:
     platforms = tuple(s.strip() for s in args.export_platforms.split(",") if s.strip())
     t0 = time.perf_counter()
     save_bundle(args.export_bundle, params, cfg, gcfg, vocab, geoms,
-                platforms=platforms or None, workers=args.export_workers)
+                platforms=platforms or None, dp=args.export_dp, workers=args.export_workers)
     logging.info("bundle written to %s (%d geometries) in %.1f s", args.export_bundle,
                  len(geoms), time.perf_counter() - t0)
 

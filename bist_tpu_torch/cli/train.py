@@ -25,8 +25,20 @@ residuals, K2 backward); with dropout it takes the plain path, as
 `bist_tpu` does.  --init-from-ref <prefix> starts from a reference-format
 checkpoint (read through `bist_tpu_torch.convert`, --reference-root naming
 a checkout of the reference): its vocabulary and model shape, a fresh
-optimizer state.  Not ported yet: data parallelism over several cards
-(--num-devices > 1, ROADMAP queue 1 item 10).
+optimizer state.
+
+Data parallelism: --num-devices N (0 = every local device of --device's
+type; on the CPU that is 1) above 1 starts N ranks, one process per device
+(`torch.multiprocessing`, spawn), rank r on cuda:r (on the CPU, N ranks on
+the one CPU), joined by NCCL (gloo on the CPU); started by `torchrun`, the
+CLI joins torchrun's group instead (cuda:LOCAL_RANK).  Every rank walks
+the same global batches and trains on its rows, the gradients summed
+across the ranks inside each captured step (`train.loop.make_grad_step`):
+the losses are the one-device run's.  Only rank 0 writes the .conf, the
+CSV logs and the checkpoints; --resume loads the same checkpoint on every
+rank; at each epoch's end the ranks' parameters are checked bit for bit.
+A rank that fails ends the run with a non-zero exit code (the others are
+stopped, and every collective has a timeout).
 """
 
 from __future__ import annotations
@@ -126,24 +138,95 @@ def build_parser():
                         "+ step), or 'auto' to pick up the newest complete "
                         "checkpoint for --model (fresh start if none)")
     p.add_argument("--num-devices", default=0, type=int,
-                   help="0 or 1: the port trains on one card (data "
-                        "parallelism is ROADMAP queue 1 item 10)")
+                   help="data-parallel ranks, one process per device: 0 = every "
+                        "local device of --device's type (one on the CPU); on the "
+                        "CPU, N > 1 runs N ranks on the one CPU")
     p.add_argument("--bf16", default=0, type=int, help="bfloat16 activations")
     p.add_argument("--remat", default=0, type=int,
                    help="gradient checkpointing per decoder round")
     return p
 
 
+def _ranks(args) -> int:
+    """The data-parallel rank count --num-devices asks for on --device's
+    type (raises beyond the local CUDA devices)."""
+    import torch
+
+    from bist_tpu_torch import resolve_device
+    from bist_tpu_torch.parallel.mesh import local_devices
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is not None:
+        if args.num_devices > 1:
+            raise SystemExit(f"--num-devices {args.num_devices} with --device {device}: "
+                             f"name the device type (cuda) to train on several")
+        return 1                    # one named card
+    try:
+        return len(local_devices(device.type, args.num_devices))
+    except ValueError as e:
+        raise SystemExit(f"--num-devices {args.num_devices}: {e} "
+                         f"({torch.cuda.device_count()} local)") from e
+
+
+def _torchrun_rank():
+    """(rank, world size, local rank) when torchrun started this process in
+    a group of several, else None."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and "RANK" in os.environ:
+        return (int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
+    return None
+
+
+def _spawned_rank(rank, argv, world, address, threads):
+    """One spawned rank: `_train` on its device in the group at `address`."""
+    import torch
+
+    torch.set_num_threads(threads)
+    _train(build_parser().parse_args(argv), rank, world, address, local_rank=rank)
+
+
 def main(argv=None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    joined = _torchrun_rank()
+    world = joined[1] if joined is not None else _ranks(args)
+    if args.grad_accum > 1 and args.batch_size % (args.grad_accum * world):
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                         f"--grad-accum x ranks ({args.grad_accum} x {world}): each "
+                         f"microbatch must still split over the ranks")
+    if joined is not None:
+        rank, world, local = joined
+        return _train(args, rank, world, None, local_rank=local)
+    if world > 1:
+        import socket
+
+        import torch
+        import torch.multiprocessing as mp
+
+        # the group's rendezvous on a free local port; each rank re-parses argv
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sock.getsockname()[1]}"
+        threads = max(1, torch.get_num_threads() // world)
+        # join=True: a rank that raises stops the others and raises here
+        mp.start_processes(_spawned_rank, args=(argv, world, address, threads),
+                           nprocs=world, start_method="spawn")
+        return None
+    return _train(args, 0, 1, None)
+
+
+def _train(args, rank: int, world: int, address, local_rank: int = 0):
+    """The training run of one rank (world 1: the whole run)."""
     logging.basicConfig(
-        level=logging.DEBUG if args.verbose >= 1 else logging.INFO,
-        format="%(asctime)s %(levelname)s: %(message)s")
-    for k in vars(args):
-        print(f"{k}={getattr(args, k)}")
-    if args.num_devices > 1:
-        raise SystemExit("--num-devices > 1: data-parallel training is not "
-                         "ported to bist_tpu_torch yet (ROADMAP queue 1 item 10)")
+        level=(logging.DEBUG if args.verbose >= 1 else logging.INFO) if rank == 0
+        else logging.WARNING,
+        format=f"%(asctime)s %(levelname)s{f' [rank {rank}]' if world > 1 else ''}: "
+               f"%(message)s")
+    if rank == 0:
+        for k in vars(args):
+            print(f"{k}={getattr(args, k)}")
     if args.reference_root and not os.path.isdir(args.reference_root):
         raise SystemExit(f"--reference-root {args.reference_root}: no such directory "
                          f"(a checkout of the reference, for --init-from-ref)")
@@ -173,6 +256,16 @@ def main(argv=None):
     from bist_tpu_torch.vocab import get_vocabulary
 
     device = resolve_device(args.device)
+    dp = None
+    if world > 1:
+        from bist_tpu_torch.parallel import DataParallel, init_multihost
+
+        if device.type == "cuda":
+            device = torch.device("cuda", local_rank)
+        init_multihost(address, world, rank, device=device)
+        dp = DataParallel.in_group(device)
+        logging.info("data-parallel: %d ranks (%s), rank %d on %s", dp.n, dp.backend,
+                     rank, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.rand_seed)
@@ -253,9 +346,7 @@ def main(argv=None):
         cut_a=bool(args.cut_a), merge_source=bool(args.merge_source),
         skip=args.skip, num_devices=args.num_devices)
 
-    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
-        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
-                         f"--grad-accum {args.grad_accum}")
+    n_ranks = dp.n if dp is not None else 1
 
     def prepare(batch):              # runs on the prefetch thread
         """int8 quantisation, then the arrays pinned (the feature grids are
@@ -266,16 +357,19 @@ def main(argv=None):
             batch = batch._replace(fts=q8, fts_scale=scale)
         return pinned(batch, device)
 
-    # the tail batch is padded to a multiple of the microbatch count (padded
-    # rows are all-PAD: zero tokens, zero loss; real_count excludes them)
+    # the tail batch is padded to a multiple of the ranks times the
+    # microbatch count (padded rows are all-PAD: zero tokens, zero loss;
+    # real_count excludes them); a rank takes its rows of each global batch
     mk_loader = lambda data, shuffle, cut_a, pad_mult: AVSDLoader(
         data, visual_stores=vis_stores, audio_stores=aud_stores,
         batch_size=args.batch_size, shuffle=shuffle, cut_a=cut_a,
         seed=args.rand_seed, len_buckets=tcfg.len_buckets,
         time_buckets=tcfg.time_buckets, pad_batch_multiple=pad_mult,
-        pin_memory=device.type == "cuda")
-    train_loader = mk_loader(train_data, True, bool(args.cut_a), max(args.grad_accum, 1))
-    valid_loader = mk_loader(valid_data, False, False, 1)
+        pin_memory=device.type == "cuda",
+        shard=None if dp is None else (dp.rank, dp.n))
+    train_loader = mk_loader(train_data, True, bool(args.cut_a),
+                             n_ranks * max(args.grad_accum, 1))
+    valid_loader = mk_loader(valid_data, False, False, n_ranks)
     logging.info("#train sample = %d  #train batch = %d",
                  len(train_data.examples), len(train_loader))
     logging.info("#validation sample = %d  #validation batch = %d",
@@ -295,6 +389,8 @@ def main(argv=None):
                      "(fresh optimizer state)")
     else:
         state, tx = create_train_state(args.rand_seed, cfg, tcfg, device=device)
+    if dp is not None:
+        dp.broadcast_params(state.params)       # every rank starts from rank 0's
     start_epoch = 0
     min_valid_loss = 1.0e10
     resume_path = args.resume
@@ -309,27 +405,31 @@ def main(argv=None):
         logging.info("resumed from %s at step %d epoch %d", resume_path,
                      state.step, start_epoch)
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.model)), exist_ok=True)
-    save_conf(args.model + ".conf", vocab, cfg, tcfg, extra={"fea_type": args.fea_type})
-    with open(args.model + "_params.txt", "w") as f:
-        for k in vars(args):
-            f.write(f"{k}={getattr(args, k)}\n")
+    writer = rank == 0                          # the one rank that writes files
+    if writer:
+        os.makedirs(os.path.dirname(os.path.abspath(args.model)), exist_ok=True)
+        save_conf(args.model + ".conf", vocab, cfg, tcfg, extra={"fea_type": args.fea_type})
+        with open(args.model + "_params.txt", "w") as f:
+            for k in vars(args):
+                f.write(f"{k}={getattr(args, k)}\n")
 
     holder = [state]
     gen = dropout_generator(cfg, device)
-    programs = {"eval": EvalProgram(state.params, cfg, tcfg)}
+    programs = {"eval": EvalProgram(state.params, cfg, tcfg, dp=dp)}
     try:
         programs["train"] = TrainProgram(state, cfg, tcfg, tx,
-                                         grad_accum=args.grad_accum, gen=gen)
+                                         grad_accum=args.grad_accum, gen=gen, dp=dp)
     except ValueError as e:
         # what a graph cannot hold (remat with dropout) steps eagerly, and says so
         logging.warning("the train step runs eagerly, not as a CUDA graph: %s", e)
     train_step = programs.get("train") or make_train_step(cfg, tcfg, tx,
-                                                          grad_accum=args.grad_accum)
+                                                          grad_accum=args.grad_accum, dp=dp)
     eval_step = programs["eval"]
-    train_log, trace_log = init_csv_logs(args.model, resume=bool(resume_path),
-                                         start_epoch=start_epoch)
-    logging.info("Saving training results to %s", train_log)
+    train_log = trace_log = None
+    if writer:
+        train_log, trace_log = init_csv_logs(args.model, resume=bool(resume_path),
+                                             start_epoch=start_epoch)
+        logging.info("Saving training results to %s", train_log)
     logging.info("----------------")
     logging.info("Start training on %s", torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "cpu")
@@ -342,6 +442,7 @@ def main(argv=None):
             t0 = time.time()
             train_losses = run_epoch(train_loader, None, train_step, epoch,
                                      train=True, gen=gen, seed=args.rand_seed + 777,
+                                     rank=rank,
                                      report_interval=args.report_interval,
                                      train_log_path=train_log, prepare=prepare,
                                      state_holder=holder, device=device)
@@ -358,6 +459,14 @@ def main(argv=None):
             for name, prog in programs.items():
                 logging.info("epoch %d %s program: %s", epoch + 1, name,
                              json.dumps(prog.stats()))
+            if dp is not None:
+                if not dp.replicas_identical(holder[0].params):
+                    raise RuntimeError(f"epoch {epoch + 1}: the {dp.n} ranks' parameters "
+                                       f"differ after the same updates")
+                logging.info("epoch %d: parameters bit-identical on the %d ranks",
+                             epoch + 1, dp.n)
+            if not writer:
+                continue
             append_trace(trace_log, epoch, "train", train_losses)
             append_trace(trace_log, epoch, "val", valid_losses)
 
@@ -378,6 +487,8 @@ def main(argv=None):
     finally:
         if saver is not None:
             saver.wait()          # join the last checkpoint write
+        if dp is not None:
+            torch.distributed.destroy_process_group()
     logging.info("the best model is epoch %d.", bestmodel_num)
     return holder[0]
 

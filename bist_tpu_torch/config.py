@@ -143,7 +143,8 @@ class TrainConfig:
     adam_b2: float = 0.98
     adam_eps: float = 1e-9
     data_axis: str = "data"
-    num_devices: int = 0
+    num_devices: int = 0             # data-parallel devices (ranks): 0 = every
+                                     # local device of the run's device type
     grad_checkpoint: bool = False
     len_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256)
     time_buckets: Tuple[int, ...] = (16, 32, 48, 64)

@@ -13,7 +13,13 @@ copy of `bist_tpu.data.loader`).
   * the next batch's feature files are prefetched while the current batch
     is assembled (features.FeatureStore.prefetch);
   * with `pin_memory` the feature grids are assembled straight into pinned
-    host memory, which a copy to the card reads without blocking.
+    host memory, which a copy to the card reads without blocking;
+  * with `shard=(rank, n)` (a data-parallel rank) the loader walks the
+    same global batches as one process would (the same seed, shuffle, cuts
+    and buckets) and yields rank's contiguous row block of each: the
+    token fields of the global batch cut to its rows, and only its rows'
+    features, padded to the global batch's time bucket, so every rank's
+    batch has the global geometry with B/n rows.
 
 `device_prefetch` moves upcoming batches to the device on a background
 thread while the current step runs.
@@ -21,7 +27,7 @@ thread while the current step runs.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ import torch
 from bist_tpu_torch.data.avsd import AVSDData, Example, cut_answer
 from bist_tpu_torch.data.batching import Batch, BatchMeta, bucket_len, make_batch
 from bist_tpu_torch.data.features import FeatureStore
+from bist_tpu_torch.parallel.mesh import row_slice
 
 GROUP_CHUNK = 16      # batches per length-sorted chunk of the training shuffle
 PREFETCH_DEPTH = 2    # batches device_prefetch prepares ahead of the step
@@ -42,7 +49,8 @@ class AVSDLoader:
                  cut_a: bool = False, seed: int = 1,
                  len_buckets: Sequence[int] = (16, 32, 64, 128, 256),
                  time_buckets: Sequence[int] = (16, 32, 48, 64),
-                 pad_batch_multiple: int = 1, pin_memory: bool = False):
+                 pad_batch_multiple: int = 1, pin_memory: bool = False,
+                 shard: Optional[Tuple[int, int]] = None):
         self.data = data
         self.visual_stores = list(visual_stores)
         self.audio_stores = list(audio_stores)
@@ -54,6 +62,10 @@ class AVSDLoader:
         self.time_buckets = tuple(time_buckets)
         self.pad_batch_multiple = max(1, pad_batch_multiple)
         self.pin_memory = pin_memory
+        self.shard = shard
+        if shard is not None and self.pad_batch_multiple % shard[1]:
+            raise ValueError(f"pad_batch_multiple {pad_batch_multiple} must be a multiple "
+                             f"of the {shard[1]} ranks the batches split over")
 
     def __len__(self) -> int:
         n = len(self.data.examples)
@@ -84,9 +96,18 @@ class AVSDLoader:
             # the next batch's files load on the stores' pools while this
             # batch is assembled
             nxt = [self.data.examples[i].vid for i in order[s + bs:s + 2 * bs]]
+            if self.shard is not None:
+                nxt = nxt[self._rows(len(nxt))]
             for store in self.visual_stores + self.audio_stores:
                 store.prefetch(nxt)
             yield self._assemble([self.data.examples[i] for i in order[s:s + bs]])
+
+    def _rows(self, n_examples: int) -> slice:
+        """This rank's slice of a global batch of `n_examples` examples,
+        padded to `pad_batch_multiple` rows (a slice of the examples; the
+        rows past them are padding)."""
+        m = self.pad_batch_multiple
+        return row_slice(*self.shard, (n_examples + m - 1) // m * m)
 
     def _assemble(self, exs: List[Example]) -> Tuple[Batch, BatchMeta]:
         ans_in, ans_out = [], []
@@ -98,14 +119,19 @@ class AVSDLoader:
         vids = [e.vid for e in exs]
         m = self.pad_batch_multiple
         n_rows = (len(exs) + m - 1) // m * m
+        rows = slice(0, n_rows) if self.shard is None else self._rows(len(exs))
+        mine = exs[rows]                     # this rank's real examples
+        my_vids = [e.vid for e in mine]
 
         def _features(store):
+            # the time bucket of the global batch, the rows of this rank
             t_pad = bucket_len(store.max_t(vids), self.time_buckets)
-            shape = (n_rows, t_pad) + tuple(store.shape_of(vids[0])[1:])
+            shape = (rows.stop - rows.start, t_pad) + tuple(store.shape_of(vids[0])[1:])
             arr = (torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
                    if self.pin_memory else np.empty(shape, np.float32))
-            store.get_batch(vids, t_pad, out=arr[:len(exs)])
-            arr[len(exs):] = 0.0
+            if mine:
+                store.get_batch(my_vids, t_pad, out=arr[:len(mine)])
+            arr[len(mine):] = 0.0
             return arr
 
         batch = make_batch(
@@ -113,12 +139,14 @@ class AVSDLoader:
             captions=[e.caption for e in exs] if exs[0].caption is not None
             else None,
             len_buckets=self.len_buckets, pad_batch_to=n_rows)
+        if self.shard is not None:
+            batch = Batch(*[None if x is None else x[rows] for x in batch])
         batch = batch._replace(
             fts=_features(self.visual_stores[0]) if self.visual_stores else None,
             audio_fts=_features(self.audio_stores[0]) if self.audio_stores
             else None)
-        meta = BatchMeta(vids=vids, qa_ids=[e.qa_id for e in exs],
-                         real_count=len(exs))
+        meta = BatchMeta(vids=my_vids, qa_ids=[e.qa_id for e in mine],
+                         real_count=len(mine))
         return batch, meta
 
 

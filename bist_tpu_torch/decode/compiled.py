@@ -44,7 +44,9 @@ A CUDA graph does not outlive its process, so there is no persistent cache
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -64,6 +66,21 @@ def describe(key) -> str:
     return f"{key[0]}: " + ", ".join(
         f"{name} {tuple(shape)} {str(dtype).replace('torch.', '')}"
         for name, shape, dtype in key[1:])
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Python's cyclic garbage collector held off (during a capture): a
+    collection that frees an unreachable program's CUDA graphs mid-capture
+    destroys them on the capturing thread, which CUDA forbids, and the
+    capture fails."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def pool_bytes(pool) -> int:
@@ -126,7 +143,10 @@ class DecodeProgram:
         P, cfg, g = self.params_list, self.cfg, self.gcfg
         if self.beam_fn is not None:
             # one stage: the function (a bundle's programs) on the static batch
-            return ([lambda inp: self.beam_fn(P[0], inp[0])], None,
+            # (the function, not `self`, in the closure: no cycle keeps an
+            # unused program and its graphs alive)
+            fn = self.beam_fn
+            return ([lambda inp: fn(P[0], inp[0])], None,
                     (lambda out: tuple(out)) if self.style == "beam_search"
                     else (lambda out: (out,)))
         if self.style == "beam_search":
@@ -160,7 +180,11 @@ class DecodeProgram:
 
     @torch.no_grad()
     def __call__(self, batch: Batch, *, seed: Optional[int] = None,
-                 row_seeds: Optional[Sequence[int]] = None):
+                 row_seeds: Optional[Sequence[int]] = None,
+                 uniforms: Optional[torch.Tensor] = None):
+        """`uniforms` (sampling, (B, maxlen, V)) replaces the draws from
+        (seed, row_seeds): a data-parallel caller's rows of one batch's
+        draws (`ShardedDecode`)."""
         src = Batch(*[None if x is None else x if isinstance(x, torch.Tensor)
                       else torch.from_numpy(np.asarray(x)) for x in batch])
         B = src.query.shape[0]
@@ -178,7 +202,9 @@ class DecodeProgram:
             for dst, x in zip(static, src):
                 if x is not None:
                     dst.copy_(x, non_blocking=True)
-            if u is not None:
+            if u is not None and uniforms is not None:
+                u.copy_(uniforms, non_blocking=True)
+            elif u is not None:
                 sample._uniforms(self.device, self.gcfg.sample_seed if seed is None
                                  else seed, B, u.shape[1], u.shape[2], row_seeds, out=u)
             if not self._cuda:
@@ -242,7 +268,8 @@ class DecodeProgram:
         try:
             for stage in self._stages:
                 g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, pool=self._pool, capture_error_mode="thread_local"):
+                with no_gc(), torch.cuda.graph(g, pool=self._pool,
+                                               capture_error_mode="thread_local"):
                     state = stage(state)
                 entry.graphs.append(g)
                 entry.outs.append(state)
@@ -278,3 +305,81 @@ class DecodeProgram:
         return {"geometries": n, "captures": self.captures,
                 "eager_runs": self.eager_runs, "capture_seconds": self.capture_seconds,
                 "pool_bytes": pool_bytes(self._pool)}
+
+
+class ShardedDecode:
+    """Data-parallel decoding: one `DecodeProgram` per device of `devices`
+    (a list that may repeat a device), each on that device's copy of the
+    parameters (`parallel.DataParallel.put_replicated`), with its own graphs.
+    `decoder(batch)` splits the batch into `DataParallel.shard`'s row blocks
+    (device i rows [i·B/n, (i+1)·B/n); B must divide by n), copies each block
+    to its device and replays every device's graph before it waits for any;
+    `gather(pending)` waits and returns the answers in row order on the CPU
+    (a `BeamResult` of CPU tensors, or (B, maxlen) ids).  Rows are
+    independent, so the answers are the one-device program's.  On one device
+    it is that program, the batch not split.
+
+    Sampling: with `row_seeds` each block takes its rows' seeds; without,
+    the whole batch's uniforms are drawn once (on the first device) and each
+    block copies its rows, so the draws do not depend on the device count."""
+
+    def __init__(self, params, cfg: ModelConfig, gcfg: GenerateConfig,
+                 devices: Optional[Sequence] = None, beam_fn=None):
+        from bist_tpu_torch.parallel.mesh import DataParallel
+
+        models = list(params) if isinstance(params, (list, tuple)) else [params]
+        first = models[0]["embed"]["lut"].device
+        self.dp = DataParallel(devices=devices if devices is not None else [first])
+        self.devices = self.dp.devices
+        replicas = [self.dp.put_replicated(p) for p in models]       # [model][device]
+        self.programs = [
+            DecodeProgram([r[i] for r in replicas] if isinstance(params, (list, tuple))
+                          else replicas[0][i], cfg, gcfg, beam_fn=beam_fn)
+            for i in range(self.dp.n)]
+        self.cfg, self.gcfg = cfg, gcfg
+
+    @property
+    def n(self) -> int:
+        return self.dp.n
+
+    def __call__(self, batch: Batch, *, seed: Optional[int] = None,
+                 row_seeds: Optional[Sequence[int]] = None) -> list:
+        """The pending outputs, one per device (each on its device)."""
+        if self.n == 1:
+            return [self.programs[0](batch, seed=seed, row_seeds=row_seeds)]
+        from bist_tpu_torch.parallel.mesh import row_slice
+
+        B = batch.query.shape[0]
+        u = None
+        g = self.gcfg
+        if g.decode_style == "sample":
+            sample.check_row_seeds(row_seeds, B)
+            if row_seeds is None:
+                u = sample._uniforms(self.devices[0], g.sample_seed if seed is None else seed,
+                                     B, g.maxlen, self.cfg.vocab_size, None)
+        out = []
+        for i, (prog, block) in enumerate(zip(self.programs, self.dp.blocks(batch))):
+            rows = row_slice(i, self.n, B)
+            out.append(prog(block, seed=seed,
+                            row_seeds=None if row_seeds is None else list(row_seeds[rows]),
+                            uniforms=None if u is None else u[rows]))
+        return out
+
+    def gather(self, pending: list):
+        """Wait for the pending outputs and return them in row order on the
+        CPU."""
+        beam_search = self.gcfg.decode_style == "beam_search"
+        parts = [beam.BeamResult(*(t.cpu() for t in out)) if beam_search else out.cpu()
+                 for out in pending]
+        if len(parts) == 1:
+            return parts[0]
+        if beam_search:
+            return beam.BeamResult(*(torch.cat(f) for f in zip(*parts)))
+        return torch.cat(parts)
+
+    def stats(self) -> Dict[str, object]:
+        """`DecodeProgram.stats` summed over the devices' programs."""
+        per = [p.stats() for p in self.programs]
+        out = {k: sum(s[k] for s in per) for k in per[0]}
+        out["devices"] = self.n
+        return out

@@ -35,8 +35,17 @@ CUDA graph per geometry (`decode.compiled.DecodeProgram`), and
 
 Programs exported on one device type run on it only: `load_bundle` refuses
 a device whose type the bundle was not exported on, and never moves a CPU
-program onto the card.  Data-parallel bundles (`bist_tpu`'s dp > 1) wait
-for the port's parallel layer (ROADMAP queue 1 item 10).
+program onto the card.
+
+Data-parallel bundles (`save_bundle(dp=n)`, `bist_tpu`'s dp): a geometry
+keeps `bist_tpu`'s key of the GLOBAL batch (B rows) and its program is
+exported at B/n rows, one device's row block; bundle.json records
+`"dp": n`.  `Bundle.make_responder` serves it over n devices, each
+device's `DecodeProgram` running the programs on its rows
+(`serving.Responder`, `beam_fn_devices`), so a dp bundle needs n devices
+(or an explicit list of n, which may repeat one).  A program is moved to
+another card of its type with `torch.export.passes.move_to_device_pass`
+when a device first calls it.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -63,7 +73,6 @@ from bist_tpu_torch.weights import tree_map
 
 FORMAT = "bist_tpu_torch.bundle.v1"
 STYLES = ("beam_search", "greedy")
-_DP = "data-parallel bundles wait for the port's parallel layer (ROADMAP queue 1 item 10)"
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +256,16 @@ class _Decode(torch.nn.Module):
         return tuple(beam.beam_search(params, self.cfg, batch, g))
 
 
-def _check_exportable(gcfg: GenerateConfig, dp: int) -> None:
+def _check_exportable(gcfg: GenerateConfig, dp: int,
+                      geometries: Sequence[Dict[str, Any]]) -> None:
     if gcfg.decode_style not in STYLES:
         raise ValueError(f"bundles support decode_style 'beam_search' or 'greedy', "
                          f"not {gcfg.decode_style!r}")
-    if dp != 1:
-        raise ValueError(f"dp={dp}: {_DP}")
+    if dp < 1:
+        raise ValueError(f"dp={dp}: a bundle's rows split over at least one device")
+    bad = [g["B"] for g in geometries if g["B"] % dp]
+    if bad:
+        raise ValueError(f"geometry batch sizes {bad} not divisible by dp={dp}")
 
 
 def _export_one(path: str, params, cfg: ModelConfig, gcfg: GenerateConfig,
@@ -300,15 +313,18 @@ def save_bundle(path: str, params, cfg: ModelConfig, gcfg: GenerateConfig,
     `platforms`: the device types to export for ("cpu", "cuda"; default the
     parameters' own); each is exported on that device, which must be
     present.  Beam search is exported without `early_exit` (recorded so in
-    bundle.json).  `dp` > 1 raises.  Tracing is host work, tens of seconds
+    bundle.json).  `dp` > 1 exports each geometry's program at B/dp rows
+    (raising for a B that dp does not divide), under the global geometry's
+    key.  Tracing is host work, tens of seconds
     a program at the flagship width: `workers` > 1 exports that many
     programs at a time, each in a process of its own.  Returns
     {"<platform>/<key>": program path}."""
-    _check_exportable(gcfg, dp)
+    _check_exportable(gcfg, dp, geometries)
     gcfg = dataclasses.replace(gcfg, early_exit=False)
     platforms = tuple(platforms or (params["embed"]["lut"].device.type,))
     table = {geometry_key(g): dict(g) for g in geometries}
-    tasks = [(p, k, g) for p in platforms for k, g in table.items()]
+    # each program decodes one device's rows of the global geometry
+    tasks = [(p, k, dict(g, B=g["B"] // dp)) for p in platforms for k, g in table.items()]
     for p in platforms:
         resolve_device(p)
         os.makedirs(os.path.join(path, "programs", p), exist_ok=True)
@@ -331,7 +347,7 @@ def save_bundle(path: str, params, cfg: ModelConfig, gcfg: GenerateConfig,
         json.dump(vocab, f)
     with open(os.path.join(path, "bundle.json"), "w") as f:
         json.dump({"format": FORMAT, "model": config_to_dict(cfg),
-                   "generate": config_to_dict(gcfg), "geometries": table, "dp": 1,
+                   "generate": config_to_dict(gcfg), "geometries": table, "dp": dp,
                    "torch_version": torch.__version__, "platforms": list(platforms),
                    "export_seconds": seconds, "export_workers": workers},
                   f, indent=1)
@@ -355,6 +371,9 @@ class Bundle:
     path: str = ""
     load_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     dp: int = 1
+    _moved: Dict[torch.device, Dict[str, torch.nn.Module]] = dataclasses.field(
+        default_factory=dict, repr=False)
+    _lock: Any = dataclasses.field(default_factory=threading.Lock, repr=False)
 
     def reload_params(self) -> None:
         """Read the bundle's params.npz again (a weight refresh: the programs
@@ -363,16 +382,40 @@ class Bundle:
         with np.load(os.path.join(self.path, "params.npz")) as z:
             self.params = unflatten_params(dict(z), self.cfg, self.device)
 
+    def modules_on(self, device) -> Dict[str, torch.nn.Module]:
+        """The programs' modules on `device`: the loaded ones on the bundle's
+        device; for another card, the programs loaded again from the bundle
+        and moved there (`move_to_device_pass`, which rewrites a program in
+        place), once, and kept."""
+        from bist_tpu_torch.parallel.mesh import canonical_device
+
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self.modules
+        with self._lock:
+            if device not in self._moved:
+                from torch.export.passes import move_to_device_pass
+
+                self._moved[device] = {
+                    k: move_to_device_pass(torch.export.load(os.path.join(
+                        self.path, "programs", device.type, k + ".pt2")), device).module()
+                    for k in self.programs}
+            return self._moved[device]
+
     def beam_fn(self):
         """(params, batch) -> BeamResult (beam bundles) or (B, maxlen) ids
         (greedy bundles): the program of the batch's geometry on a device
-        batch.  Raises KeyError for a geometry the bundle does not carry:
-        nothing is traced at serve time."""
+        batch, on the batch's device.  A dp bundle's batch is one device's
+        rows: its geometry is the global one with B·dp rows.  Raises KeyError
+        for a geometry the bundle does not carry: nothing is traced at serve
+        time."""
         greedy = self.gcfg.decode_style == "greedy"
-        programs = self.modules
+        dp = self.dp
 
         def call(params, batch: Batch):
-            key = geometry_key(geometry_of(batch))
+            geom = geometry_of(batch)
+            key = geometry_key(dict(geom, B=geom["B"] * dp))
+            programs = self.modules_on(batch.query.device)
             if key not in programs:
                 raise KeyError(f"no exported program for geometry {key}; bundle has "
                                f"{sorted(programs)}: re-export with this geometry in "
@@ -405,7 +448,7 @@ class Bundle:
         if vid is not None:
             kw.setdefault("feat_tail", (vid["S"], vid["Dv"]))
         kw.setdefault("feat_int8", any(g.get("int8") for g in geoms))
-        kw.setdefault("beam_fn_devices", self.dp)
+        kw.setdefault("beam_fn_devices", self.dp)    # the devices the rows split over
         return Responder(self.params, self.cfg, self.vocab, self.gcfg,
                          beam_fn=self.beam_fn(), **kw)
 

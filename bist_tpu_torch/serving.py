@@ -1,5 +1,5 @@
-"""Serving: dynamic-batching response generation on one device (after
-`bist_tpu.serving`).
+"""Serving: dynamic-batching response generation on one device or several
+(after `bist_tpu.serving`).
 
 A `Responder` owns the parameters and the decode style and turns Requests
 into answers; a `DynamicBatcher` thread coalesces concurrent requests into
@@ -26,13 +26,20 @@ out on the stream; it returns while the device works.
 keeps up to `pipeline_depth` batches dispatched, so batch N+1's assembly
 and replay overlap batch N's device work.
 
-One device: the parameters' device is the serving device.  A serving
-bundle (`export.Bundle.make_responder`) passes its programs as `beam_fn`:
-the Responder's `DecodeProgram` then captures them, one CUDA graph per
-geometry, and `warmup_geometries` captures the bundle's whole geometry
-table before traffic arrives.  Serving over several GPUs (`bist_tpu`'s
-data-parallel mesh, `beam_fn_devices` > 1) waits for ROADMAP queue 1 item
-10.
+Devices: as `bist_tpu`'s Responder shards rows over a `('data',)` mesh,
+this one decodes data-parallel (`decode.compiled.ShardedDecode`): by
+default over the largest count of the parameters' device type's local
+devices that divides every batch bucket (one on the CPU; a warning when
+that leaves cards idle), or over `devices` (a list, which may repeat a
+device: replicas sharing a card).  Each device has its own `DecodeProgram`
+on its copy of the parameters; `dispatch()` copies each device's row block
+to it and replays every device's graph before `finish()` waits for any,
+then gathers the answers in row order: the one-device answers.  A serving
+bundle (`export.Bundle.make_responder`) passes its programs as `beam_fn`
+and its data-parallel width as `beam_fn_devices`: each device's program
+then captures them, one CUDA graph per geometry, and `warmup_geometries`
+captures the bundle's whole geometry table on every device before traffic
+arrives.
 
 Usage:
     responder = Responder(params, cfg, vocab, gcfg)
@@ -59,8 +66,8 @@ import torch
 from bist_tpu_torch.config import GenerateConfig, ModelConfig
 from bist_tpu_torch.data.batching import (Batch, bucket_len, pad_features, pad_tokens,
                                           pinned, quantize_features)
-from bist_tpu_torch.decode.beam import BeamResult, extract_hyps
-from bist_tpu_torch.decode.compiled import DecodeProgram
+from bist_tpu_torch.decode.beam import extract_hyps
+from bist_tpu_torch.decode.compiled import ShardedDecode
 from bist_tpu_torch.vocab import EOS, PAD, SOS, ids2words, make_id2word, words2ids
 
 log = logging.getLogger(__name__)
@@ -124,7 +131,8 @@ class Responder:
                  feat_int8: bool = False,
                  audio_time_buckets=None,
                  feat_tail: Optional[Tuple[int, int]] = None,
-                 beam_fn=None, beam_fn_devices: int = 1):
+                 beam_fn=None, beam_fn_devices: int = 1,
+                 devices: Optional[List] = None):
         # validated first, with a beam_fn or not: a bad style fails at load,
         # not on the first request
         if gcfg.decode_style not in SERVED_STYLES:
@@ -136,12 +144,8 @@ class Responder:
                 "bundle programs do not support decode_style 'sample' (per-request "
                 "streams are a live server's policy; serve the checkpoint with "
                 "--decode-style sample instead)")
-        if beam_fn_devices != 1:
-            raise ValueError(f"beam_fn_devices={beam_fn_devices}: serving over several "
-                             f"devices waits for ROADMAP queue 1 item 10")
         self._style = gcfg.decode_style
         self.params = params
-        self.device = params["embed"]["lut"].device
         self.cfg = cfg
         self.gcfg = gcfg
         self.vocab = vocab
@@ -169,10 +173,14 @@ class Responder:
         if self.batch_buckets[-1] != max_batch:
             raise ValueError(f"the largest batch bucket {self.batch_buckets[-1]} "
                              f"must be max_batch {max_batch}")
-        # the decode: one CUDA graph per geometry (on the CPU, the same
-        # stages run eagerly on its static buffers), of a bundle's programs
-        # where a beam_fn is given
-        self.program = DecodeProgram(params, cfg, gcfg, beam_fn=beam_fn)
+        self.devices = self._serving_devices(params["embed"]["lut"].device, devices,
+                                             beam_fn is not None, beam_fn_devices)
+        self.device = self.devices[0]
+        # the decode: one program per device, one CUDA graph per geometry each
+        # (on the CPU, the same stages run eagerly on its static buffers), of
+        # a bundle's programs where a beam_fn is given
+        self.decoder = ShardedDecode(params, cfg, gcfg, self.devices, beam_fn=beam_fn)
+        self.program = self.decoder.programs[0]
         # cumulative seconds of each batch's parts, read through
         # DynamicBatcher.metrics()["component_seconds"]: host assembly,
         # the copy to the device and the graph's replay, the host's wait
@@ -187,6 +195,42 @@ class Responder:
         self._auto_seed = itertools.count(-1, -1)
         log.info("responder on %s: batch buckets %s, decode style %s",
                  self.device, self.batch_buckets, self._style)
+
+    def _serving_devices(self, home: torch.device, devices, bundle: bool, bundle_n: int):
+        """The devices the rows split over: `devices`; a bundle's
+        `beam_fn_devices` local devices; or the largest count of local
+        devices of `home`'s type that divides every batch bucket."""
+        from bist_tpu_torch.parallel.mesh import local_devices
+
+        avail = torch.cuda.device_count() if home.type == "cuda" else 1
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            if bundle and len(devices) != bundle_n:
+                raise ValueError(f"{len(devices)} devices for a bundle exported "
+                                 f"data-parallel over {bundle_n} (dp {bundle_n})")
+            n = len(devices)
+        elif bundle:
+            n = bundle_n
+            if home.type == "cuda" and n > avail:
+                raise ValueError(
+                    f"this bundle was exported data-parallel over {n} devices (dp {n}) and "
+                    f"needs {n} to serve; {avail} CUDA device(s) present (export it with "
+                    f"dp <= {avail}, or pass devices=[...] to put its replicas on fewer)")
+            devices = local_devices(home.type, n) if n > 1 else [home]
+        else:
+            n = max(k for k in range(1, avail + 1)
+                    if all(b % k == 0 for b in self.batch_buckets))
+            if n < avail:
+                log.warning("serving uses %d of %d available devices (largest count "
+                            "dividing all batch buckets %s): raise max_batch or pass "
+                            "batch_buckets divisible by %d to use every card",
+                            n, avail, self.batch_buckets, avail)
+            devices = local_devices(home.type, n) if n > 1 else [home]
+        bad = [b for b in self.batch_buckets if b % n]
+        if bad:
+            raise ValueError(f"batch buckets {bad} do not split over {n} devices")
+        log.info("serving over %d device(s): %s", n, [str(d) for d in devices])
+        return devices
 
     def tokenize(self, text: str) -> np.ndarray:
         return words2ids(text, self.vocab)
@@ -286,9 +330,10 @@ class Responder:
             seeds = [r.seed if r.seed is not None else next(self._auto_seed)
                      for r in reqs] + [0] * (len(host_batch.query) - len(reqs))
         t1 = time.perf_counter()
-        # copy in and replay (row i samples from (sample_seed, seeds[i]):
-        # reproducible per request and independent of the batch it lands in)
-        out = self.program(self._pinned(host_batch), row_seeds=seeds)
+        # copy in and replay on every device (row i samples from
+        # (sample_seed, seeds[i]): reproducible per request and independent
+        # of the batch and the device it lands on)
+        out = self.decoder(self._pinned(host_batch), row_seeds=seeds)
         t2 = time.perf_counter()
         self.timings["assemble_s"] += t1 - t0
         self.timings["ship_s"] += t2 - t1
@@ -300,10 +345,9 @@ class Responder:
         """Wait for a dispatch()ed batch's results and complete its requests."""
         out, reqs, _ = pending
         t0 = time.perf_counter()
-        if self._style == "beam_search":
-            out = BeamResult(*(t.cpu() for t in out))
-        else:
-            out = out.cpu().numpy()
+        out = self.decoder.gather(out)          # every device's rows, in order
+        if self._style != "beam_search":
+            out = out.numpy()
         self.timings["device_wait_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         try:
@@ -371,8 +415,11 @@ class Responder:
 
         for g in geometries:
             batch = host_batch(g, self.cfg)
-            out = self.program(self._pinned(batch))
-            (out[0] if isinstance(out, tuple) else out).cpu()
+            self.decoder.gather(self.decoder(self._pinned(batch)))
+
+    def stats(self) -> Dict[str, object]:
+        """The decode programs' stats, summed over the devices."""
+        return self.decoder.stats()
 
 
 class DynamicBatcher:

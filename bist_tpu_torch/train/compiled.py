@@ -43,6 +43,20 @@ An `EvalProgram` is the eval step's forward and losses under no_grad (K1
 without residuals), one graph per geometry, on the train program's
 parameters.
 
+Data-parallel (`dp`, a `parallel.DataParallel.in_group` of one process per
+card): each rank's program captures the step with its collectives, the
+all-reduce of the two token counts, the gradient all-reduce on the flat
+buffer (allocated when the program is built, beside the parameters) and
+the metric all-reduce, in the same graph as the forward, K1, K2 and Adam.
+A replay runs each collective once, as the eager first call of a geometry
+does, and a capture runs none, so the ranks stay in step whichever of the
+two a call is.  Each rank takes its rows of one global batch, padded to the
+global batch's buckets, so its geometry follows from the global one and
+every rank captures at the same call; the eager first call is also the
+collective NCCL needs before a capture.  gloo's collectives on CUDA
+tensors cannot be captured: a program refuses a gloo group on the card when
+it is built (step it with the eager `make_train_step`).
+
 On the card a capture that fails raises, naming the geometry: a program
 never carries on eagerly.  On the CPU nothing is captured: each call runs
 the same step eagerly on the same static buffers with the same copy-in and
@@ -59,7 +73,7 @@ import torch
 
 from bist_tpu_torch.config import ModelConfig, TrainConfig
 from bist_tpu_torch.data.batching import Batch
-from bist_tpu_torch.decode.compiled import describe, pool_bytes
+from bist_tpu_torch.decode.compiled import describe, no_gc, pool_bytes
 from bist_tpu_torch.train.loop import Metrics, TrainState, make_eval_step, make_train_step
 from bist_tpu_torch.weights import tree_leaves
 
@@ -81,10 +95,20 @@ class _Program:
     which returns a dict of 0-d metric tensors.  A batch is any NamedTuple
     of arrays or tensors (None for an absent field)."""
 
-    def __init__(self, params, label: str):
+    def __init__(self, params, label: str, dp=None):
         self._leaves = tree_leaves(params)
         self.device = self._leaves[0].device
         self._cuda = self.device.type == "cuda"
+        if dp is not None:
+            if not dp.grouped:
+                raise ValueError(f"{type(self).__name__}: dp must be a process group's "
+                                 f"(DataParallel.in_group): one process drives one card")
+            if self._cuda and dp.backend != "nccl":
+                raise ValueError(
+                    f"{type(self).__name__}: a {dp.backend} process group on CUDA: its "
+                    f"collectives cannot be captured in a CUDA graph; use NCCL, or step "
+                    f"eagerly with make_train_step")
+            label = f"{label}, rank rows of {dp.n}"
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
         self._label = label
         self._entries: Dict[tuple, _Entry] = {}
@@ -154,7 +178,8 @@ class _Program:
         graph = self._new_graph()
         try:
             # the capture executes nothing: `out` stays the warm-up's metrics
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            with no_gc(), torch.cuda.graph(graph, pool=self._pool,
+                                           capture_error_mode="thread_local"):
                 outs = self._run(entry.inputs)
         except Exception as e:
             # a capture that ends in an error leaves its stream current
@@ -185,8 +210,8 @@ class StepProgram(_Program):
     step + 1, metrics)."""
 
     def __init__(self, state: TrainState, step: Callable, gen: Optional[torch.Generator] = None,
-                 label: str = "train step"):
-        super().__init__(state.params, label)
+                 label: str = "train step", dp=None):
+        super().__init__(state.params, label, dp)
         for name, value in state.opt_state.items():
             for t in value if isinstance(value, (list, tuple)) else [value]:
                 if not (isinstance(t, torch.Tensor) and t.device == self.device):
@@ -219,30 +244,32 @@ class StepProgram(_Program):
 
 
 class TrainProgram(StepProgram):
-    """`make_train_step(cfg, tcfg, tx, grad_accum)` on `state` as one CUDA
-    graph per geometry (a StepProgram on AVSD's Batch)."""
+    """`make_train_step(cfg, tcfg, tx, grad_accum, dp)` on `state` as one
+    CUDA graph per geometry (a StepProgram on AVSD's Batch)."""
 
     def __init__(self, state: TrainState, cfg: ModelConfig, tcfg: TrainConfig, tx,
-                 grad_accum: int = 1, gen: Optional[torch.Generator] = None):
+                 grad_accum: int = 1, gen: Optional[torch.Generator] = None, dp=None):
         if cfg.remat and gen is not None:
             raise ValueError(
                 "TrainProgram: remat with dropout draws each decoder round's masks "
                 "from clones of the generator made during the step "
                 "(models.bist.decoder_apply), which a CUDA graph cannot register; "
                 "train this configuration with the eager make_train_step")
-        super().__init__(state, make_train_step(cfg, tcfg, tx, grad_accum=grad_accum), gen,
-                         f"train step, grad_accum {grad_accum}")
+        super().__init__(state, make_train_step(cfg, tcfg, tx, grad_accum=grad_accum, dp=dp),
+                         gen, f"train step, grad_accum {grad_accum}", dp)
+        if dp is not None:
+            dp.grad_buffer(self._leaves)    # static, outside the graphs' pool
 
 
 class EvalProgram(_Program):
-    """`make_eval_step(cfg, tcfg)` on `params` (a train program's, so it reads
-    the current weights) as one CUDA graph per geometry: `program(params,
-    batch)` returns the eval step's metrics."""
+    """`make_eval_step(cfg, tcfg, dp)` on `params` (a train program's, so it
+    reads the current weights) as one CUDA graph per geometry:
+    `program(params, batch)` returns the eval step's metrics."""
 
-    def __init__(self, params, cfg: ModelConfig, tcfg: TrainConfig):
-        super().__init__(params, "eval step")
+    def __init__(self, params, cfg: ModelConfig, tcfg: TrainConfig, dp=None):
+        super().__init__(params, "eval step", dp)
         self.params = params
-        self._step = make_eval_step(cfg, tcfg)
+        self._step = make_eval_step(cfg, tcfg, dp=dp)
 
     def _run(self, batch: Batch) -> Metrics:
         return self._step(self.params, batch)

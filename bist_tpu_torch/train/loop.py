@@ -5,7 +5,9 @@ best-checkpoint logic).  As in the JAX package:
 
   * loss normalisation uses the whole batch's token counts, also when the
     batch is split into gradient-accumulation microbatches, so accumulated
-    gradients equal the single-batch ones;
+    gradients equal the single-batch ones, and, data-parallel, the GLOBAL
+    batch's counts on every rank, with the ranks' gradients summed, so n
+    ranks compute the one-device step (`make_grad_step`);
   * checkpoints carry params + optimizer state + step (train/checkpoint.py);
   * CSV artifacts keep the reference's file names and column layout
     (train.py:121-128,151-155).
@@ -34,6 +36,7 @@ import torch
 
 from bist_tpu_torch.config import ModelConfig, TrainConfig
 from bist_tpu_torch.data.batching import Batch
+from bist_tpu_torch.decode.sample import mix_seed
 from bist_tpu_torch.models.model import forward_logprobs, init_model
 from bist_tpu_torch.train.losses import compute_losses
 from bist_tpu_torch.train.schedule import Adam, make_optimizer
@@ -75,23 +78,35 @@ def dropout_generator(cfg: ModelConfig, device) -> Optional[torch.Generator]:
     return None
 
 
-def seed_for_step(seed: int, step: int) -> int:
-    """The dropout seed of one step, the counterpart of jax.random.fold_in."""
-    return (seed << 32) + step
+def seed_for_step(seed: int, step: int, rank: int = 0) -> int:
+    """The dropout seed of one step, the counterpart of jax.random.fold_in.
+    A data-parallel rank r > 0 draws from another stream (the seed mixed
+    with r through every bit: a CPU generator keeps only a seed's low 32
+    bits), so two ranks never apply the same masks to their rows; rank 0
+    draws what a one-process run draws."""
+    base = (seed << 32) + step
+    return base if rank == 0 else mix_seed(base, rank)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, tx: Adam,
-                    grad_accum: int = 1) -> Callable:
-    """Returns (state, batch, gen) → (state, metrics); `gen` is the dropout
-    generator (None without dropout).  metrics are 0-d tensors on the
-    device, read by the caller when it needs them.
+def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
+                   dp=None) -> Callable:
+    """Returns (params, batch, gen) → (loss, metrics, grads): the forward,
+    the losses and `torch.autograd.grad` of the train step, without the
+    update.  `grads` follow `tree_leaves(params)` (zeros where a leaf is not
+    reached).
 
-    grad_accum > 1 splits the batch into `grad_accum` microbatches, runs
-    forward and backward on each, sums the gradients and applies ONE
-    optimizer update: peak activation memory shrinks by the same factor.
-    The loss normalisers (ntokens/qntokens) are counted on the FULL batch
-    before the split, so accumulated gradients and metrics equal the
-    single-big-batch values."""
+    grad_accum > 1 splits the batch into `grad_accum` microbatches and sums
+    their gradients; the loss normalisers (ntokens/qntokens) are counted on
+    the FULL batch before the split, so the sum equals the one-batch
+    gradient.  With `dp` (`parallel.DataParallel.in_group`), `batch` is this
+    rank's rows of a global batch: the two counts are summed across the
+    ranks before the loss (one all-reduce), so every rank normalises on the
+    GLOBAL batch, as `bist_tpu` does; then the gradients are SUMMED across
+    the ranks (`all_reduce_grads`) and so are the metrics (one all-reduce),
+    which makes the n ranks' step the one-device step on the global batch.
+    A mean of per-rank losses (DDP's) would weight a rank's tokens by the
+    inverse of its own count, which is wrong whenever the ranks' rows hold
+    different numbers of tokens."""
 
     def loss_and_grads(params, leaves, batch: Batch, gen, norm_override=None):
         logp, ft = forward_logprobs(params, cfg, batch, rngs=gen)
@@ -103,42 +118,82 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, tx: Adam,
                  for t, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
+    def grad_fn(params, batch: Batch, gen=None):
+        leaves = tree_leaves(params)
+        if grad_accum == 1 and dp is None:
+            return loss_and_grads(params, leaves, batch, gen)
+        norm = (torch.sum(batch.trg_y != PAD), torch.sum(batch.query != PAD))
+        if dp is not None:
+            norm = tuple(dp.all_reduce_sum(norm))
+        grads, loss, metrics = None, 0.0, None
+        for i in range(grad_accum):
+            micro = batch if grad_accum == 1 else Batch(
+                *[None if x is None else x.reshape((grad_accum, -1) + x.shape[1:])[i]
+                  for x in batch])
+            l_i, m_i, g_i = loss_and_grads(params, leaves, micro, gen, norm_override=norm)
+            loss = loss + l_i
+            if grads is None:
+                grads, metrics = g_i, dict(m_i)
+            else:
+                torch._foreach_add_(grads, g_i)
+                metrics = {k: metrics[k] + m_i[k] for k in metrics}
+        # each microbatch reported the GLOBAL counts (norm_override): keep
+        # them once
+        metrics["ntokens"], metrics["qntokens"] = norm
+        if dp is not None:
+            grads = dp.all_reduce_grads(grads)
+            loss, metrics = _sum_over_ranks(dp, loss, metrics)
+        return loss, metrics, grads
+
+    return grad_fn
+
+
+def _sum_over_ranks(dp, loss, metrics):
+    """The loss and the metric sums summed across the ranks in one
+    all-reduce (the counts are global already)."""
+    names = [k for k in metrics if k not in ("ntokens", "qntokens")]
+    parts = [loss] + [metrics[k] for k in names]
+    summed = dp.all_reduce_sum([t.float() for t in parts])
+    out = dict(metrics)
+    for k, v, t in zip(names, summed[1:], parts[1:]):
+        out[k] = v.to(t.dtype)
+    return summed[0].to(loss.dtype), out
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, tx: Adam,
+                    grad_accum: int = 1, dp=None) -> Callable:
+    """Returns (state, batch, gen) → (state, metrics); `gen` is the dropout
+    generator (None without dropout).  metrics are 0-d tensors on the
+    device, read by the caller when it needs them.  The gradients are
+    `make_grad_step`'s (grad_accum microbatches, peak activation memory
+    shrinking by the same factor; with `dp`, this rank's rows of a global
+    batch and the sums across the ranks), then ONE optimizer update."""
+    grad_fn = make_grad_step(cfg, tcfg, grad_accum=grad_accum, dp=dp)
+
     def step_fn(state: TrainState, batch: Batch, gen=None):
-        leaves = tree_leaves(state.params)
-        if grad_accum == 1:
-            loss, metrics, grads = loss_and_grads(state.params, leaves, batch, gen)
-        else:
-            norm = (torch.sum(batch.trg_y != PAD), torch.sum(batch.query != PAD))
-            grads, loss, metrics = None, 0.0, None
-            for i in range(grad_accum):
-                micro = Batch(*[None if x is None
-                                else x.reshape((grad_accum, -1) + x.shape[1:])[i]
-                                for x in batch])
-                l_i, m_i, g_i = loss_and_grads(state.params, leaves, micro, gen,
-                                               norm_override=norm)
-                loss = loss + l_i
-                if grads is None:
-                    grads, metrics = g_i, dict(m_i)
-                else:
-                    torch._foreach_add_(grads, g_i)
-                    metrics = {k: metrics[k] + m_i[k] for k in metrics}
-            # each microbatch reported the GLOBAL counts (norm_override), so
-            # the sum holds them grad_accum times — undo that
-            metrics["ntokens"] = metrics["ntokens"] // grad_accum
-            metrics["qntokens"] = metrics["qntokens"] // grad_accum
-        opt_state = tx.update(leaves, grads, state.opt_state)
+        loss, metrics, grads = grad_fn(state.params, batch, gen)
+        opt_state = tx.update(tree_leaves(state.params), grads, state.opt_state)
         metrics["loss"] = loss
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step_fn
 
 
-def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig, dp=None) -> Callable:
+    """Returns (params, batch) → metrics.  With `dp` (a process group),
+    `batch` is this rank's rows: the counts, the loss and the metric sums
+    are those of the global batch on every rank."""
     @torch.no_grad()
     def step_fn(params, batch: Batch) -> Metrics:
         logp, ft = forward_logprobs(params, cfg, batch, rngs=None)
+        norm = None
+        if dp is not None:
+            norm = tuple(dp.all_reduce_sum((torch.sum(batch.trg_y != PAD),
+                                            torch.sum(batch.query != PAD))))
         loss, metrics = compute_losses(logp, ft, params["embed"]["lut"], cfg,
-                                       batch, tcfg.smoothing)
+                                       batch, tcfg.smoothing, norm_override=norm)
+        if dp is not None:
+            loss, metrics = _sum_over_ranks(dp, loss, metrics)
         metrics = dict(metrics)
         metrics["loss"] = loss
         return metrics
@@ -171,7 +226,7 @@ class EpochStats:
 
 
 def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
-              gen: Optional[torch.Generator] = None, seed: int = 0,
+              gen: Optional[torch.Generator] = None, seed: int = 0, rank: int = 0,
               report_interval: int = 100, train_log_path: Optional[str] = None,
               prepare: Optional[Callable] = None,
               state_holder: Optional[list] = None,
@@ -181,8 +236,9 @@ def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
     (`TrainProgram`, `EvalProgram`), which take the same arguments.  For
     train=True, state_holder is a 1-element list holding the TrainState
     (replaced after every step, so the caller sees updates), and `gen`, if
-    not None, is re-seeded from (seed, step) before every step (the step a
-    Python int on the host, so the loop never waits on the device).
+    not None, is re-seeded from (seed, step, rank) before every step (the
+    step a Python int on the host, so the loop never waits on the device;
+    `rank` is a data-parallel rank's).
     `prepare` (e.g. the move to the device) runs on a background thread for
     the upcoming batches (data.loader.device_prefetch).
 
@@ -209,7 +265,7 @@ def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
             if train:
                 state = state_holder[0]
                 if gen is not None:
-                    gen.manual_seed(seed_for_step(seed, state.step))
+                    gen.manual_seed(seed_for_step(seed, state.step, rank))
                 state, metrics = step_fn(state, batch, gen)
                 state_holder[0] = state
             else:
@@ -224,10 +280,11 @@ def run_epoch(loader, state_or_params, step_fn, epoch: int, *, train: bool,
                     f"{j + 1}; resume the last good checkpoint with --resume")
             nt = max(int(metrics["ntokens"]), 1)
             qt = max(int(metrics["qntokens"]), 1)
-            print(f"Epoch: {epoch + 1} Step: {j + 1} "
-                  f"Loss: {float(metrics['out']) / nt:f} "
-                  f"AETemporalLoss: {float(metrics['temporal_ae']) / qt:f} "
-                  f"AESpatialLoss: {float(metrics['spatial_ae']) / qt:f}")
+            if rank == 0:        # the metrics are the global batch's on every rank
+                print(f"Epoch: {epoch + 1} Step: {j + 1} "
+                      f"Loss: {float(metrics['out']) / nt:f} "
+                      f"AETemporalLoss: {float(metrics['temporal_ae']) / qt:f} "
+                      f"AESpatialLoss: {float(metrics['spatial_ae']) / qt:f}")
             if train_log_path:
                 with open(train_log_path, "a") as f:
                     f.write("{},{},{:e},{:e},{:e}\n".format(

@@ -184,6 +184,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      busy share and top kernels); (d) tests/test_tgifqa.py's held-out Transition proof at its
      tiny configuration (d_model 16: K1 and K2 "tiled"): 400 replayed steps,
      held-out accuracy above 0.6.
+ 14. the data-parallel layer (bist_tpu_torch.parallel) on the one card: (a)
+     phase 6's train program built on a one-rank NCCL process group (made by
+     init_process_group: init_multihost is a no-op at one process), its
+     count, gradient and metric all-reduces captured in each graph, its
+     first 5 calls bit for bit phase 6's program's (metrics and parameters)
+     from the same start on the same batches, the collectives issued from
+     Python (in warm-ups and captures only), ms/step of the two programs'
+     replays alternated in one window, and K1 and K2 by kernel name in 3
+     replays (18 "whole" each); (b) two ranks sharing the card over gloo
+     (this script with --dp-rank, one process each), each on its 16 rows of
+     phase 6's first batch of 32, eager: the loss within 1e-5 and the
+     gradients within 1e-4·max(|g|, 1) of the one-process step at the
+     global batch, the ranks' parameters after Adam bit-identical, K1 and
+     K2 6 times each in each rank's step by kernel name, and a TrainProgram
+     on the gloo group refused; (c) a Responder over [cuda:0, cuda:0]
+     answering phase 8's 256 turns (groups of 64) as the one-device
+     Responder does, K1 by name 6 a replica a batch in 4 batches replayed
+     again under torch.profiler; then a greedy bundle
+     of phase 5's model exported by `serve --export-dp 2` (in the
+     background from the phase's start; batch bucket 8: one program of 4
+     rows) served on the same pair against the one-device greedy Responder
+     of that model, in groups of 8, K1 counted likewise.
+     No data-parallel speed-up is read: the machine has one card.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -192,6 +215,7 @@ name and power limit are printed before them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -3347,6 +3371,417 @@ def phase_tgif(device, root, model_kw=None, dv=DV, s=S, n_train=64, n_test=40, B
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the data-parallel layer
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_train_setup(device, B=32, model_kw=None):
+    """Phase 6's training set-up: the flagship without dropout, Noam-Adam
+    (warm-up 10), the start state from seed 0 and 2 batches of B real turns
+    (numpy seed 1)."""
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.train.loop import create_train_state
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), **dict(model_kw or {}, dropout=0.0, attn_dropout=0.0))
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
+    tcfg = TrainConfig(warmup_steps=10)
+    batches = [to_device(b, device) for b in make_batches(data, 2, B, seed=1, answers=True)]
+    state, tx = create_train_state(0, cfg, tcfg, device=device)
+    return cfg, tcfg, tx, state, batches
+
+
+def nccl_kernels(prof):
+    """NCCL kernels the card ran in a torch.profiler window (a one-rank
+    in-place all-reduce may run none)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and "nccl" in e.name().lower())
+
+
+def dp_world_one(device, calls=5, timed=20, B=32, model_kw=None):
+    """(a) The TrainProgram built on a one-rank process group (NCCL on the
+    card, made by init_process_group directly: init_multihost is a no-op at
+    one process): the count, gradient and metric all-reduces are captured
+    with the step.  Its first `calls` calls (eager warm-ups and replays)
+    against phase 6's program (no group) from the same start on the same
+    batches, bit for bit: metrics and parameters.  The collectives issued
+    from Python (3 a call in each warm-up and each capture, none in a
+    replay), K1 and K2 by kernel name in 3 replays (18 "whole" each), and
+    ms/step of both programs' replays, alternated in one window."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.parallel import DataParallel
+    from bist_tpu_torch.parallel.mesh import canonical_device
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.weights import tree_leaves
+
+    device = canonical_device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, tcfg, tx, start, batches = dp_train_setup(device, B, model_kw)
+    threads = torch.get_num_threads()
+    if cuda:
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)    # the CPU's threaded index_put sums in no fixed order
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        dp = DataParallel.in_group(device)
+
+        def run(prog, state, n, times=None):
+            out = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                state, m = prog(state, batches[i % len(batches)])
+                if times is not None:
+                    sync()
+                    times.append(time.perf_counter() - t0)
+                out.append(m)
+            sync()
+            return state, out
+
+        s6 = copy_state(start)
+        p6 = TrainProgram(s6, cfg, tcfg, tx)
+        s6, m6 = run(p6, s6, calls)
+        s14 = copy_state(start)
+        p14 = TrainProgram(s14, cfg, tcfg, tx, dp=dp)
+        reset_hop1_counts()
+        hop1_bwd.launches, hop1_bwd.variants = 0, {}
+        s14, m14 = run(p14, s14, calls)
+        caps = p14.captures
+        want = 12 * caps if cuda else 0
+        wrappers = {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches}
+        if wrappers != {"hop1_fwd": want, "hop1_bwd": want}:
+            raise AssertionError(f"dp world 1: wrapper launches {wrappers} for {caps} captures, "
+                                 f"expected {want} each (12 a capture)")
+        issued = dp.collectives
+        if issued != (6 * caps if cuda else 3 * calls):
+            raise AssertionError(f"dp world 1: {issued} collectives issued in {calls} calls "
+                                 f"({caps} captures)")
+        for i, (a, b) in enumerate(zip(m14, m6)):
+            if set(a) != set(b) or any(not torch.equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"dp world 1, call {i}: metrics {a} against phase 6's {b}")
+        names = leaf_names(start.params)
+        for name, a, b in zip(names, tree_leaves(s14.params), tree_leaves(s6.params)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"dp world 1: parameter {name} differs from phase 6's "
+                                     f"program's by {(a - b).abs().max().item():.3e}")
+        t6, t14 = [], []
+        for _ in range(2):          # alternated: A, B, A, B
+            s6, _ = run(p6, s6, timed // 2, t6)
+            s14, _ = run(p14, s14, timed // 2, t14)
+        if cuda and (dp.collectives != issued or p14.captures != caps):
+            raise AssertionError("dp world 1: a replay issued a collective from Python or "
+                                 "captured again: it stepped eagerly")
+        out = {"calls_bit_identical": calls, "captures": caps, "geometries": len(p14._entries),
+               "collectives_issued_in_warm_ups_and_captures": issued,
+               "wrapper_launches": wrappers,
+               "ms_per_step": {"phase6_program": statistics.median(t6) * 1e3,
+                               "dp_program": statistics.median(t14) * 1e3},
+               "stats": p14.stats()}
+        if cuda:
+            with profiler_window(device) as prof:
+                s14, _ = run(p14, s14, 3)
+            ran = hop1_ran(prof)
+            if ran != {"k1": {"whole": 18, "tiled": 0}, "k2": {"whole": 18, "tiled": 0}}:
+                raise AssertionError(f"dp world 1: K1, K2 kernels in 3 replays by name {ran}, "
+                                     f"expected 18 \"whole\" each (6 a step)")
+            out.update(replayed_by_name=ran, nccl_kernels_in_3_replays=nccl_kernels(prof))
+        return out
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of (b): `python chip_smoke.py --dp-rank <address> <rank>
+    <dir> <device type> <global rows>`.  Joins a 2-rank gloo group on the device (both
+    ranks share one card), takes its rows of the global batch, runs the
+    data-parallel gradient step eagerly under torch.profiler (K1, K2 by
+    kernel name) and the Adam update, checks the ranks' parameters bit for
+    bit, tries a TrainProgram on the group (refused on the card), and saves
+    what it computed to <dir>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.parallel import DataParallel
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.train.loop import make_grad_step
+    from bist_tpu_torch.weights import tree_leaves
+
+    address, rank, root, kind, B = argv[0], int(argv[1]), argv[2], argv[3], int(argv[4])
+    device = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    if kind == "cpu":
+        torch.set_num_threads(2)     # two ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo on the card too: two NCCL ranks cannot share one card
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", world_size=2, rank=rank)
+    dp = DataParallel.in_group(device)
+    cfg, tcfg, tx, state, batches = dp_train_setup(device, B)
+    (local,) = dp.shard(batches[0])
+    grad_fn = make_grad_step(cfg, tcfg, dp=dp)
+    grad_fn(state.params, local)                  # loads the kernels
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    with profiler_window(device) as prof:
+        loss, metrics, grads = grad_fn(state.params, local)
+        sync()
+    out = {"rows": int(local.query.shape[0]), "loss": loss.cpu(),
+           "metrics": {k: v.cpu() for k, v in metrics.items()},
+           "grads": [g.cpu() for g in grads],
+           "wrappers": {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches},
+           "by_name": hop1_ran(prof) if device.type == "cuda" else None}
+    leaves = tree_leaves(state.params)
+    tx.update(leaves, grads, state.opt_state)
+    out["params"] = [t.detach().cpu() for t in leaves]
+    out["identical"] = dp.replicas_identical(state.params)
+    try:
+        TrainProgram(state, cfg, tcfg, tx, dp=dp)
+        out["program_refused"] = None
+    except ValueError as e:
+        out["program_refused"] = str(e)
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(device, root, B=32, timeout=600, meanwhile=None):
+    """(b) Two ranks sharing the one card over gloo, eager steps
+    (`dp_rank_main`), each on its B/2 rows of phase 6's first batch of B:
+    the loss within 1e-5 and the gradients within 1e-4·max(|g|, 1) of the
+    one-process step at the global batch, the ranks' parameters after Adam
+    bit-identical, K1 and K2 6 times each in each rank's step by kernel name,
+    and a TrainProgram on the gloo group refused on the card.  `meanwhile()`
+    runs in this process while the ranks run.  Returns the readings and
+    what `meanwhile` returned."""
+    import torch
+
+    from bist_tpu_torch.train.loop import make_grad_step
+
+    os.makedirs(root, exist_ok=True)
+    address = f"127.0.0.1:{free_port()}"
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as logf:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--dp-rank", address, str(r), root, device.type,
+                                           str(B)], stdout=logf, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        side = meanwhile() if meanwhile is not None else None
+        for p, path in zip(procs, logs):
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            if p.returncode != 0:
+                with open(path) as f:
+                    raise AssertionError(f"dp rank exited {p.returncode}:\n{f.read()[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    cfg, tcfg, tx, state, batches = dp_train_setup(device, B)
+    loss, metrics, grads = make_grad_step(cfg, tcfg)(state.params, batches[0])
+    names = leaf_names(state.params)
+    worst_loss, worst_grad = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        rel = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+        worst_loss = max(worst_loss, rel)
+        if rel > 1e-5:
+            raise AssertionError(f"dp rank {r}: loss {float(got['loss'])} against the "
+                                 f"one-process {float(loss)}")
+        for name, g, w in zip(names, got["grads"], grads):
+            w = w.cpu()
+            err = (g - w).abs().max().item()
+            bound = 1e-4 * max(w.abs().max().item(), 1.0)
+            worst_grad = max(worst_grad, err / bound)
+            if err > bound:
+                raise AssertionError(f"dp rank {r}: gradient {name} differs from the "
+                                     f"one-process step's by {err:.3e} (bound {bound:.3e})")
+        if not got["identical"]:
+            raise AssertionError(f"dp rank {r}: the ranks' checksums differ after Adam")
+        if device.type == "cuda":
+            if got["by_name"] != {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}:
+                raise AssertionError(f"dp rank {r}: K1, K2 by name {got['by_name']}, "
+                                     f"expected 6 \"whole\" each")
+            if not (got["program_refused"] and "cannot be captured" in got["program_refused"]):
+                raise AssertionError(f"dp rank {r}: a TrainProgram on a gloo group on the card "
+                                     f"was not refused: {got['program_refused']}")
+    a, b = ranks
+    differ = [n for n, x, y in zip(names, a["params"], b["params"]) if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"dp ranks: parameters differ after Adam: {differ[:4]}")
+    return {"ranks": 2, "rows_each": [r["rows"] for r in ranks], "seconds": seconds,
+            "loss_max_rel_err": worst_loss, "grad_max_err_over_bound": worst_grad,
+            "params_bit_identical": True,
+            "by_name": [r["by_name"] for r in ranks],
+            "wrappers": [r["wrappers"] for r in ranks],
+            "program_refused": ranks[0]["program_refused"]}, side
+
+
+def export_dp_bundle(device, cli_root, root, s=S, t_max=T_MAX, maxlen=4):
+    """`export.save_bundle(dp=2)` of phase 5's model <cli_root>/mtn into
+    <root>/dp2_bundle at the serve CLI's geometry for batch bucket 8 (LQ/LH/LC
+    tokens, t_max clips of (s, Dv)): one greedy program of 4 rows, float32
+    cache, `maxlen` steps (the trace grows with them).  Returns its
+    seconds."""
+    from bist_tpu_torch.config import GenerateConfig, load_conf
+    from bist_tpu_torch.export import default_serving_geometries, save_bundle
+    from bist_tpu_torch.weights import load_params
+
+    t0 = time.perf_counter()
+    vocab, cfg, _, _ = load_conf(os.path.join(cli_root, "mtn.conf"))
+    params = load_params(os.path.join(cli_root, "mtn.pt"), device)
+    geoms = default_serving_geometries(cfg, batch_buckets=(8,), Lq=LQ, Lh=LH, Lc=LC,
+                                       T=t_max, S=s, Ta=t_max if cfg.has_audio else None)
+    save_bundle(os.path.join(root, "dp2_bundle"), params, cfg,
+                GenerateConfig(maxlen=maxlen, nbest=1, decode_style="greedy",
+                               cache_dtype="float32"), vocab, geoms, dp=2)
+    return time.perf_counter() - t0
+
+
+def dp_serving(device, model, fields, root, export_s, group=64, dv=DV, s=S, t_max=T_MAX):
+    """(c) A Responder over [device, device] (two replicas on the one card)
+    against the one-device Responder at phase 8's geometry: the same answers
+    and n-best words for every request, in groups of `group`, K1 by kernel
+    name in the replays of 4 batches (6 a replica a batch); then the dp 2
+    bundle (`export_dp_bundle`, one program of 4 rows, exported in
+    `export_s` seconds) served on the same pair against the one-device greedy
+    Responder of its model, in groups of 8, K1 counted likewise."""
+    import torch
+
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.export import load_bundle
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
+    from bist_tpu_torch.parallel.mesh import canonical_device
+    from bist_tpu_torch.serving import Responder
+
+    device = canonical_device(device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    vocab, cfg, params = model
+
+    def buckets(rows, dim):
+        return dict(max_batch=rows, batch_buckets=(rows,),
+                    len_buckets={"q": (LQ,), "h": (LH,), "c": (LC,)}, time_buckets=(t_max,),
+                    feat_tail=(s, dim))
+
+    def answer(rsp, rows):
+        """The answers and n-best words of every request, in groups of `rows`,
+        and the seconds; then K1 by kernel name in the replays of a profiled
+        window of the first 4 groups again (a window of every group of the
+        bundle's greedy decode, ~190,000 kernels, lost some of the trace's
+        records)."""
+        reqs = [rsp.make_request(**f) for f in fields]
+        reset_hop1_counts()
+        before = rsp.stats()
+        t0 = time.perf_counter()
+        for i in range(0, len(reqs), rows):
+            rsp.respond(reqs[i:i + rows])
+        sync()
+        seconds = time.perf_counter() - t0
+        ran = None
+        if cuda:
+            with profiler_window(device) as prof:
+                for i in range(0, 4 * rows, rows):
+                    rsp.respond([rsp.make_request(**f) for f in fields[i:i + rows]])
+                sync()
+            ran = k1_ran(prof)
+        after = rsp.stats()
+        if after["captures"] != before["captures"] or hop1_fused.launches:
+            raise AssertionError(f"dp serving: the window captured or launched K1 eagerly "
+                                 f"({before} -> {after}, {hop1_fused.launches} launches)")
+        return [(r._answer, [w for w, _ in r._nbest]) for r in reqs], ran, seconds
+
+    def agree(what, got, want, ran):
+        bad = [i for i in range(len(want)) if got[i] != want[i]]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} of {len(want)} answers differ from one "
+                                 f"device's, e.g. request {bad[0]}: {got[bad[0]]} against "
+                                 f"{want[bad[0]]}")
+        k1 = {"whole": 6 * 2 * 4, "tiled": 0}       # 6 a replica a batch, 4 batches
+        if cuda and ran != k1:
+            raise AssertionError(f"{what}: K1 by name {ran} in 4 batches of the pair's "
+                                 f"replays, expected {k1}")
+
+    out = {"requests": len(fields), "devices": [str(device)] * 2}
+    beam = GenerateConfig(**GEN)
+    one = Responder(params, cfg, vocab, beam, **buckets(group, dv))
+    two = Responder(params, cfg, vocab, beam, devices=[device, device], **buckets(group, dv))
+    for rsp in (one, two):
+        rsp.warmup(feature_shape=(s, dv), t_clips=min(8, t_max))
+    want, _, t_one = answer(one, group)
+    got, ran, t_two = answer(two, group)
+    agree("dp serving, beam search", got, want, ran)
+    out["responder"] = {"group": group, "identical": len(want), "k1_by_name_4_batches": ran,
+                        "seconds_one": t_one, "seconds_pair": t_two,
+                        "stats_pair": two.stats()}
+    del one, two
+
+    bundle = load_bundle(os.path.join(root, "dp2_bundle"), device)
+    pair = bundle.make_responder(devices=[device, device])
+    pair.warmup_geometries(bundle.geometries.values())
+    one = Responder(bundle.params, bundle.cfg, bundle.vocab, bundle.gcfg,
+                    **buckets(8, bundle.cfg.ft_sizes[0]))
+    one.warmup(feature_shape=(s, bundle.cfg.ft_sizes[0]), t_clips=min(8, t_max))
+    want, _, t_b1 = answer(one, 8)
+    got, ran, t_b = answer(pair, 8)
+    agree("dp 2 bundle", got, want, ran)
+    out["bundle"] = {"dp": bundle.dp, "geometries": sorted(bundle.geometries),
+                     "program_rows": 4, "identical": len(want), "k1_by_name_4_batches": ran,
+                     "export_seconds": export_s, "seconds_one": t_b1, "seconds_pair": t_b}
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_parallel(device, root, model, fields, cli_root, phase6_ms=None, model_kw=None,
+                        B=32, group=64, dv=DV, s=S, t_max=T_MAX):
+    """Phase 14: the data-parallel layer on one card: (a) `dp_world_one`,
+    (b) `dp_two_ranks`, (c) `dp_serving`.  The dp 2 bundle of phase 5's
+    model under <cli_root> is exported in this process while (b)'s two
+    rank processes run.  Returns their readings."""
+    t0 = time.perf_counter()
+    out = {"world_one": dp_world_one(device, B=B, model_kw=model_kw)}
+    out["world_one"]["phase6_replayed_ms_per_step"] = phase6_ms
+    log(f"dp world 1: {json.dumps(out['world_one'])}")
+    out["two_ranks"], export_s = dp_two_ranks(
+        device, os.path.join(root, "ranks"), B=B,
+        meanwhile=lambda: export_dp_bundle(device, cli_root, root, s=s, t_max=t_max))
+    log(f"dp two ranks: {json.dumps(out['two_ranks'])}")
+    out["serving"] = dp_serving(device, model, fields, root, export_s, group=group, dv=dv,
+                                s=s, t_max=t_max)
+    log(f"dp serving: {json.dumps(out['serving'])}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -3433,6 +3868,7 @@ def main() -> int:
     model = serving_model(device)
     fields = serving_requests(256)
     serving = phase_serving_exact(device, model, fields)
+    serving_fields = fields
     print(f"serving at one geometry on {card}: {json.dumps(serving)}", flush=True)
     lap("serving")
 
@@ -3447,7 +3883,6 @@ def main() -> int:
 
     bundles = phase_bundles(device, model, fields,
                             os.path.join(HERE, "build", "chip_smoke", "cli"))
-    del model, fields
     one = bundles["one_geometry"]
     print(f"serving bundles on {card}: export {bundles['export_seconds']:.1f} s for "
           f"{len(bundles['geometries'])} programs ({bundles['beam_export_seconds_per_program']}), "
@@ -3495,6 +3930,28 @@ def main() -> int:
     # K1 and K2 kernels the card ran in each TGIF CLI run, by name
     tgif_runs = {f"{r['task']} dropout {r['dropout']}": r["by_name"] for r in tgif["cli"]}
 
+    dp = phase_data_parallel(device, os.path.join(HERE, "build", "chip_smoke", "dp"), model,
+                             serving_fields, os.path.join(HERE, "build", "chip_smoke", "cli"),
+                             phase6_ms=prog["replayed_ms_per_step"])
+    del model, fields, serving_fields
+    w1, two, dps = dp["world_one"], dp["two_ranks"], dp["serving"]
+    print(f"data parallel on {card}: world-1 NCCL program bit-identical to phase 6's over "
+          f"{w1['calls_bit_identical']} calls ({w1['captures']} captures, "
+          f"{w1['collectives_issued_in_warm_ups_and_captures']} collectives issued), replayed "
+          f"{w1['ms_per_step']['dp_program']:.2f} ms/step against phase 6's program "
+          f"{w1['ms_per_step']['phase6_program']:.2f} in the same window (phase 6 read "
+          f"{prog['replayed_ms_per_step']:.2f}); K1/K2 by name in 3 replays "
+          f"{json.dumps(w1['replayed_by_name'])}; 2 gloo ranks on one card: loss "
+          f"{two['loss_max_rel_err']:.2e} rel, gradients {two['grad_max_err_over_bound']:.3f} "
+          f"of the bound, parameters bit-identical, by name {json.dumps(two['by_name'])}; "
+          f"Responder on 2 replicas: {dps['responder']['identical']} answers identical, K1 "
+          f"in 4 batches {json.dumps(dps['responder']['k1_by_name_4_batches'])}; dp 2 bundle: "
+          f"{dps['bundle']['identical']} identical, K1 in 4 batches "
+          f"{json.dumps(dps['bundle']['k1_by_name_4_batches'])}"
+          f"; {dp['seconds']:.1f} s", flush=True)
+    print(f"data parallel on {card}: {json.dumps(dp)}", flush=True)
+    lap("data parallel")
+
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -3515,7 +3972,14 @@ def main() -> int:
              launches_bundle=bundles["served"]["hop1_fwd_ran"],
              # K1 kernels the card ran, by name, generating from extracted features
              launches_extract_chain=extractor["generate"]["k1_ran"],
-             launches_tgif={k: v["k1"] for k, v in tgif_runs.items()}),
+             launches_tgif={k: v["k1"] for k, v in tgif_runs.items()},
+             # K1 kernels the card ran, by name: 3 replays of the world-1 NCCL
+             # train program, each gloo rank's step, 4 batches of the
+             # 2-replica Responder's and of the dp 2 bundle's replays
+             launches_dp={"world_one_train_replayed": w1["replayed_by_name"]["k1"],
+                          "gloo_ranks": [r["k1"] for r in two["by_name"]],
+                          "responder_pair": dps["responder"]["k1_by_name_4_batches"],
+                          "bundle_pair": dps["bundle"]["k1_by_name_4_batches"]}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],
@@ -3524,7 +3988,11 @@ def main() -> int:
              variants=train["hop1_bwd_variants"],
              # K2 kernels (first pass) the card ran in 3 train replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],
-             launches_tgif={k: v["k2"] for k, v in tgif_runs.items()}),
+             launches_tgif={k: v["k2"] for k, v in tgif_runs.items()},
+             # K2 kernels (first pass) the card ran, by name: 3 replays of the
+             # world-1 NCCL train program and each gloo rank's step
+             launches_dp={"world_one_train_replayed": w1["replayed_by_name"]["k2"],
+                          "gloo_ranks": [r["k2"] for r in two["by_name"]]}),
         dict(kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                           "bist_tpu/ops/flash_attention.py:43", flash_cases,
                           mha_flash["launches"],
@@ -3543,4 +4011,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:          # a rank of phase 14 (b), not a run
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -299,12 +299,15 @@ def test_unsupported_styles_and_dp_raise(setup, tmp_path):
         with pytest.raises(ValueError, match="decode_style"):
             export.save_bundle(str(tmp_path / style), params, cfg,
                                GenerateConfig(decode_style=style), vocab, geoms)
-    with pytest.raises(ValueError, match="item 10"):
+    # data-parallel bundles are ported (tests/test_torch_parallel_cli.py):
+    # a dp that does not divide a geometry's rows is refused, and so is a
+    # device list that is not the bundle's dp wide
+    with pytest.raises(ValueError, match="not divisible by dp=3"):
         export.save_bundle(str(tmp_path / "dp"), params, cfg, GenerateConfig(**GEN), vocab,
-                           geoms, dp=2)
-    with pytest.raises(ValueError, match="item 10"):
+                           geoms, dp=3)
+    with pytest.raises(ValueError, match="exported data-parallel over 2"):
         Responder(params, cfg, vocab, GenerateConfig(**GEN), beam_fn=lambda p, b: None,
-                  beam_fn_devices=2)
+                  beam_fn_devices=2, devices=["cpu"])
     assert not os.listdir(tmp_path)
 
 

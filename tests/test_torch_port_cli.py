@@ -97,7 +97,8 @@ def test_package_imports_neither_jax_nor_bist_tpu():
         "required = ['bist_tpu_torch.models.resnext3d', 'bist_tpu_torch.models.backbones3d',\n"
         "            'bist_tpu_torch.cli.extract_features',\n"
         "             'bist_tpu_torch.cli.generate_result_video',\n"
-        "             'bist_tpu_torch.tasks.tgifqa', 'bist_tpu_torch.cli.train_tgif']\n"
+        "             'bist_tpu_torch.tasks.tgifqa', 'bist_tpu_torch.cli.train_tgif',\n"
+        "             'bist_tpu_torch.parallel.mesh', 'bist_tpu_torch.parallel.multihost']\n"
         "bad += [m for m in required if m not in sys.modules]\n"
         "from bist_tpu_torch.models import resnext3d\n"
         "bad += [n for n in ('STEM_S2D', 'GROUP_CH') if hasattr(resnext3d, n)]\n"

@@ -232,3 +232,23 @@ def test_responder_decodes_through_its_program(rng):
     want = beam.beam_search(params, tcfg, rsp.make_batch(reqs), rsp.gcfg)
     hyps = beam.extract_hyps(want, rsp.id2word, 0, rsp.gcfg.nbest)
     assert reqs[0]._answer == " ".join(hyps[0][0])
+
+
+@pytest.mark.parametrize("beam_fn", [None, lambda p, b: None], ids=["stages", "beam_fn"])
+def test_unused_program_is_freed_without_the_cyclic_collector(model, beam_fn):
+    """A program holds no reference cycle, so dropping it frees its graphs at
+    once: left to the cyclic collector, they could be destroyed while
+    another program captures, which CUDA forbids (the capture fails)."""
+    import gc
+    import weakref
+
+    _, tcfg, _, tp = model
+    gcfg = GenerateConfig(maxlen=4, beam=2, decode_style="greedy" if beam_fn else "beam_search")
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        ref = weakref.ref(DecodeProgram(tp, tcfg, gcfg, beam_fn=beam_fn))
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()

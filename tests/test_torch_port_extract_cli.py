@@ -106,8 +106,10 @@ def test_score_json_and_skip_on_rerun(videos):
 
 
 def test_dp_above_one_refused(videos):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 10"):
-        cli.main(base_args(videos, "dp", "--dp", "2", "--device", "cpu"))
+    # --dp is ported (tests/test_torch_parallel_cli.py); a --dp that does not
+    # divide --batch_size is refused with bist_tpu's message
+    with pytest.raises(SystemExit, match="--batch_size 4 not divisible by --dp 3"):
+        cli.main(base_args(videos, "dp", "--dp", "3", "--device", "cpu"))
 
 
 def test_cuda_default_raises_without_a_card(videos):

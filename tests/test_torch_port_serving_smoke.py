@@ -88,10 +88,12 @@ def test_serve_cli_defaults_to_cuda_and_refuses_unported_options():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--model", "absent"])
-    # bundles and reference checkpoints are ported: what is left refused is
-    # data-parallel export (item 10); a missing reference root is named
-    with pytest.raises(SystemExit, match="item 10"):
-        serve.main(["--export-dp", "2", "--model", "absent", "--device", "cpu"])
+    # bundles, data-parallel ones and reference checkpoints are ported: what
+    # is left refused is a dp that does not divide the batch buckets; a
+    # missing reference root is named
+    with pytest.raises(SystemExit, match="not divisible by --export-dp 3"):
+        serve.main(["--export-dp", "3", "--export-bundle", "absent_b", "--model", "absent",
+                    "--device", "cpu"])
     with pytest.raises(FileNotFoundError, match="no such directory"):
         from bist_tpu_torch.convert import import_reference_checkpoint
         import_reference_checkpoint("absent_best.pth.tar", "absent.conf",

@@ -47,8 +47,11 @@ def test_train_cli_defaults_to_cuda_and_rejects_unported_options():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--model", "absent"])
-    with pytest.raises(SystemExit, match="item 10"):
-        train.main(["--num-devices", "2", "--device", "cpu"])
+    # data parallelism is ported (tests/test_torch_parallel_cli.py); what
+    # it still refuses: microbatches that do not split over the ranks
+    with pytest.raises(SystemExit, match="grad-accum x ranks"):
+        train.main(["--num-devices", "2", "--grad-accum", "2", "--batch-size", "6",
+                    "--device", "cpu"])
     with pytest.raises(SystemExit, match="no reference-format .conf"):
         train.main(["--init-from-ref", "ref", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no such directory"):
