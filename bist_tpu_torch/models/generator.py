@@ -6,6 +6,11 @@ The copy distribution is a one-hot product (attn @ onehot(text)), as in the
 JAX package.  EPS_LOG = 0: the mixture's log is a bare log, as the
 reference's `torch.log`, so a word with zero probability gets -inf (never
 NaN: nothing downstream subtracts two infinities).
+
+Under tensor parallelism (`parallel.tp`) the pointer attention's wq/wk are
+column shards of its one head: Q and K hold this rank's block of the width,
+and the score is the sum of the ranks' partial products
+(`attention_weights(width_sharded=True)`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from bist_tpu_torch.models.layers import (
     Params, attention_weights, linear, linear_init, matmul, mha_init,
     split_heads, upcast_fp8,
 )
+from bist_tpu_torch.parallel import tp
 
 EPS_LOG = 0.0
 
@@ -64,7 +70,7 @@ def _source(name: str, ft, tokens):
 def pointer_k(p_attn: Params, encoded_text: torch.Tensor) -> torch.Tensor:
     """Pre-projected pointer keys (B, 1, Ltext, d), computed once per batch
     by incremental decoding."""
-    return split_heads(linear(p_attn["wk"], encoded_text), 1)
+    return split_heads(linear(p_attn["wk"], tp.copy_to(encoded_text)), 1)
 
 
 def one_hot(text: torch.Tensor, vocab: int, dtype) -> torch.Tensor:
@@ -102,9 +108,9 @@ def apply_generator_step(p: Params, cfg: ModelConfig, lut: torch.Tensor,
     gen_vec_parts = [decoded, encoded_tgt]
     copy_dists = []
     for idx, src in enumerate(ptr_src):
-        Q = split_heads(linear(p["pointer_attn"][idx]["wq"], decoded), 1)
+        Q = split_heads(linear(p["pointer_attn"][idx]["wq"], tp.copy_to(decoded)), 1)
         attn = attention_weights(Q, upcast_fp8(src.k), src.mask[:, None],
-                                 0.0, None)[:, 0]            # (B, K, L)
+                                 0.0, None, width_sharded=True)[:, 0]   # (B, K, L)
         copy_dists.append(torch.matmul(attn.float(), src.onehot.float()))
         gen_vec_parts.append(torch.matmul(attn.to(decoded.dtype),
                                           src.enc.to(decoded.dtype)))
@@ -131,9 +137,9 @@ def apply_generator(p: Params, cfg: ModelConfig, lut: torch.Tensor,
         if cfg.mask_unk:
             mask = mask & (text != 0)[:, None, :].to(mask.dtype)   # ban <unk>
         pa = p["pointer_attn"][idx]
-        Q = split_heads(linear(pa["wq"], x), 1)
+        Q = split_heads(linear(pa["wq"], tp.copy_to(x)), 1)
         attn = attention_weights(Q, pointer_k(pa, enc_text), mask[:, None],
-                                 0.0, None)[:, 0].float()    # (B, Lt, Ltext)
+                                 0.0, None, width_sharded=True)[:, 0].float()  # (B, Lt, Ltext)
         copy_dists.append(torch.matmul(attn, one_hot(text, vocab, attn.dtype)))
         gen_vec_parts.append(matmul(attn.to(x.dtype), enc_text))
     return _mix(p, len(sources), p_vocab, copy_dists, gen_vec_parts, x, encoded_in)

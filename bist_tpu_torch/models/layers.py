@@ -27,6 +27,7 @@ import torch
 
 from bist_tpu_torch.ops import dispatch
 from bist_tpu_torch.ops.flash_attention import flash_attention
+from bist_tpu_torch.parallel import tp
 
 Params = Dict[str, Any]
 
@@ -57,13 +58,20 @@ def upcast_fp8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16) if x.dtype in FP8_DTYPES else x
 
 
-def dropout(x: torch.Tensor, rate: float,
-            rngs: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout; identity when rngs is None or rate == 0."""
+def dropout(x: torch.Tensor, rate: float, rngs: Optional[torch.Generator],
+            shard_dim: Optional[int] = None) -> torch.Tensor:
+    """Inverted dropout; identity when rngs is None or rate == 0.  Under
+    tensor parallelism `x` may be this rank's block of an activation split
+    along `shard_dim`: the mask is drawn at full width and the rank keeps
+    its block, so every rank applies a one-process run's mask
+    (`parallel.tp`)."""
     if rngs is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    m = torch.rand(x.shape, generator=rngs, device=rngs.device) < keep
+    shape = x.shape if shard_dim is None else tp.full_shape(x.shape, shard_dim)
+    m = torch.rand(shape, generator=rngs, device=rngs.device) < keep
+    if shard_dim is not None:
+        m = tp.local_slice(m, shard_dim)
     return torch.where(m.to(x.device), x / keep, torch.zeros_like(x))
 
 
@@ -116,6 +124,17 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != w.dtype:
         w, b = w.to(x.dtype), b.to(x.dtype)
     return torch.matmul(x, w) + b
+
+
+def row_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """`linear` of a row-parallel weight (attention wo, FFN w2): under
+    tensor parallelism `x` and w are this rank's input-feature blocks, the
+    partial products are summed over the model axis and the replicated
+    bias is added once after the sum (`parallel.tp`); `linear` outside it."""
+    w, b = p["w"], p["b"]
+    if x.dtype != w.dtype:
+        w, b = w.to(x.dtype), b.to(x.dtype)
+    return tp.reduce_from(torch.matmul(x, w)) + b
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -174,16 +193,24 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_weights(q: torch.Tensor, k: torch.Tensor,
                       mask: Optional[torch.Tensor], drop_rate: float,
-                      rngs: Optional[torch.Generator]) -> torch.Tensor:
+                      rngs: Optional[torch.Generator], *,
+                      width_sharded: bool = False) -> torch.Tensor:
     """softmax(QKᵀ/√d_k) with -1e9 where mask == 0; scores and softmax in
     float32.  q (..., h, Lq, d_k), k (..., h, Lk, d_k), leading dims
-    broadcast; mask broadcastable to (..., 1, Lq, Lk)."""
-    d_k = q.shape[-1]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d_k)
+    broadcast; mask broadcastable to (..., 1, Lq, Lk).  Under tensor
+    parallelism the heads axis holds this rank's heads, or, with
+    `width_sharded` (the pointer generator's one head), q and k hold this
+    rank's block of d_k: the partial scores are then summed over the model
+    axis and scaled by the full width."""
+    d_k = tp.full_shape(q.shape, -1)[-1] if width_sharded else q.shape[-1]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if width_sharded:
+        scores = tp.reduce_from(scores)
+    scores = scores / math.sqrt(d_k)
     if mask is not None:
         scores = torch.where(mask == 0, NEG_INF, scores)
     p_attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return dropout(p_attn, drop_rate, rngs)
+    return dropout(p_attn, drop_rate, rngs, shard_dim=None if width_sharded else -3)
 
 
 def _flash_path(Q, K, V, mask):
@@ -214,10 +241,17 @@ def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
     query (..., Lq, D), key/value (..., Lk, D).  The projections run on the
     unbroadcast inputs; only the score product sees broadcast shapes.  mask
     broadcastable to (..., Lq, Lk) (a head axis is inserted); 0 = masked.
-    Long kv axes go to the K3 kernel (`ops.dispatch.mha_uses_flash`)."""
-    Q = split_heads(linear(p["wq"], query), h)
-    K = split_heads(linear(p["wk"], key), h)
-    V = split_heads(linear(p["wv"], value), h)
+    Long kv axes go to the K3 kernel (`ops.dispatch.mha_uses_flash`).
+    Under tensor parallelism (`parallel.tp`) `p` holds this rank's shards:
+    it computes its att_h / n heads and the output projection's sum over
+    the model axis."""
+    dh = tp.local_heads(h)
+    q_in = tp.copy_to(query)
+    k_in = q_in if key is query else tp.copy_to(key)
+    v_in = k_in if value is key else tp.copy_to(value)
+    Q = split_heads(linear(p["wq"], q_in), dh)
+    K = split_heads(linear(p["wk"], k_in), dh)
+    V = split_heads(linear(p["wv"], v_in), dh)
     if mask is not None:
         mask = mask[..., None, :, :]                 # head axis
     if allow_flash and dispatch.mha_uses_flash(
@@ -226,9 +260,9 @@ def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
             return_attn=return_attn,
             mask_is_kv_validity=mask is None or mask.shape[-2] == 1):
         x = _flash_path(Q, K, V, mask)
-        return linear(p["wo"], merge_heads(x))
+        return row_linear(p["wo"], merge_heads(x))
     attn = attention_weights(Q, K, mask, drop_rate, rngs)
-    out = linear(p["wo"], merge_heads(matmul(attn, V)))
+    out = row_linear(p["wo"], merge_heads(matmul(attn, V)))
     if return_attn:
         return out, attn
     return out
@@ -236,7 +270,10 @@ def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
 
 def ffn(p: Params, x: torch.Tensor, drop_rate: float,
         rngs: Optional[torch.Generator]) -> torch.Tensor:
-    return linear(p["w2"], dropout(torch.relu(linear(p["w1"], x)), drop_rate, rngs))
+    """W2(dropout(relu(W1 x))); under tensor parallelism on this rank's
+    block of the d_ff hidden features."""
+    hidden = torch.relu(linear(p["w1"], tp.copy_to(x)))
+    return row_linear(p["w2"], dropout(hidden, drop_rate, rngs, shard_dim=-1))
 
 
 def sublayer(p_norm: Params, x: torch.Tensor, fn, drop_rate: float,

@@ -17,6 +17,8 @@ axis, so the context stays at B rows.  Three precision knobs, as in
 `bist_tpu`: the storage of the decode memory (`precompute_decode_ctx`'s and
 `init_cache`'s dtype, float8 read as bfloat16), the precompute's activations
 (`encode_cfg`) and the step's activations (`decode_step`'s compute_dtype).
+Under tensor parallelism (`parallel.tp`) the cross-attention K/V and the
+self-attention cache hold this rank's att_h / n heads.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ from bist_tpu_torch.models.generator import (
 from bist_tpu_torch.models.layers import (
     Params, add_positional, attention_weights, embed, embedding_init, ffn,
     layer_norm, layer_norm_init, linear, linear_init, matmul, merge_heads,
-    positional_encoding_table, split_heads, subsequent_mask, upcast_fp8,
+    positional_encoding_table, row_linear, split_heads, subsequent_mask,
+    upcast_fp8,
 )
+from bist_tpu_torch.parallel import tp
 from bist_tpu_torch.vocab import PAD
 from bist_tpu_torch.weights import tree_map
 
@@ -238,6 +242,7 @@ def step_dtype(name: str) -> torch.dtype:
 
 
 def _cross_kv(p_attn: Params, h: int, memory: torch.Tensor):
+    h, memory = tp.local_heads(h), tp.copy_to(memory)
     return (split_heads(linear(p_attn["wk"], memory), h),
             split_heads(linear(p_attn["wv"], memory), h))
 
@@ -278,7 +283,7 @@ def precompute_decode_ctx(params: Params, cfg: ModelConfig, batch: Batch,
 
 def init_cache(cfg: ModelConfig, rows: int, max_len: int,
                dtype=torch.float32, device=None) -> DecodeCache:
-    shape = (rows, cfg.att_h, max_len, cfg.d_model // cfg.att_h)
+    shape = (rows, tp.local_heads(cfg.att_h), max_len, cfg.d_model // cfg.att_h)
     return DecodeCache(
         k=tuple(torch.zeros(shape, dtype=dtype, device=device)
                 for _ in range(cfg.nb_blocks)),
@@ -292,12 +297,13 @@ def _mha_cached_self(p_attn: Params, h: int, x: torch.Tensor,
     in place at `pos` (rounded to its storage dtype, and read back so).
     x (rows, 1, D) normed; cache (rows, h, Lmax, d_k).  Products in the
     promoted dtype of the activations and the stored values, as jnp's."""
+    h, x = tp.local_heads(h), tp.copy_to(x)
     Q = split_heads(linear(p_attn["wq"], x), h)                   # (rows, h, 1, dk)
     cache_k[:, :, pos:pos + 1] = split_heads(linear(p_attn["wk"], x), h)
     cache_v[:, :, pos:pos + 1] = split_heads(linear(p_attn["wv"], x), h)
     L = pos + 1                        # positions > pos are masked out exactly
     attn = attention_weights(Q, upcast_fp8(cache_k[:, :, :L]), None, 0.0, None)
-    return linear(p_attn["wo"], merge_heads(
+    return row_linear(p_attn["wo"], merge_heads(
         matmul(attn, upcast_fp8(cache_v[:, :, :L]))))
 
 
@@ -308,10 +314,10 @@ def _mha_cross_cached(p_attn: Params, h: int, x: torch.Tensor, KV, mask,
     (B, 1, Lk).  The beam folds into the query-position axis."""
     K, V = upcast_fp8(KV[0]), upcast_fp8(KV[1])
     B = K.shape[0]
-    q = linear(p_attn["wq"], x.reshape(B, beam, x.shape[-1]))    # (B, beam, D)
-    Q = split_heads(q, h)                                         # (B, h, beam, dk)
+    q = linear(p_attn["wq"], tp.copy_to(x.reshape(B, beam, x.shape[-1])))  # (B, beam, D)
+    Q = split_heads(q, tp.local_heads(h))                         # (B, h, beam, dk)
     attn = attention_weights(Q, K, None if mask is None else mask[:, None], 0.0, None)
-    out = linear(p_attn["wo"], merge_heads(matmul(attn, V)))
+    out = row_linear(p_attn["wo"], merge_heads(matmul(attn, V)))
     return out.reshape(x.shape)
 
 

@@ -6,6 +6,12 @@ by `nvcc` into its own shared library, loaded with `ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/bist_tpu_torch/<name>-<hash>.so csrc/<name>.cu
 
+`BUILD_DIR` is `build/bist_tpu_torch/` of the source tree when the package
+runs from one (a checkout: `pyproject.toml` and `chip_smoke.py` beside the
+package), and otherwise, installed from a wheel, a per-user cache
+directory: `$XDG_CACHE_HOME/bist_tpu_torch` (default
+`~/.cache/bist_tpu_torch`), never inside site-packages.
+
 The library name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as built.  `build()` starts
@@ -27,7 +33,17 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bist_tpu_torch"
+
+
+def _build_dir() -> Path:
+    tree = Path(__file__).resolve().parents[2]
+    if (tree / "pyproject.toml").is_file() and (tree / "chip_smoke.py").is_file():
+        return tree / "build" / "bist_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "bist_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 KERNEL_SOURCES = ("hop1_fwd", "hop1_bwd", "flash_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

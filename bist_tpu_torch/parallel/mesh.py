@@ -24,8 +24,12 @@ SUMS the ranks' gradients (`train.loop.make_grad_step`), which makes n
 ranks compute the one-device step.  DDP is not used: it averages gradients
 of an `nn.Module`, and the port's step differentiates a parameter tree.
 
-Tensor and sequence parallelism (`bist_tpu.parallel.tp`, `sp`; a 2-D
-`('data', 'model')` mesh) are ROADMAP queue 1 item 12.
+On a 2-D ('data', 'model') mesh (`make_mesh(model_axis=)`, tensor
+parallelism: `parallel.tp`) the data side is the mesh's data axis:
+`DataParallel.in_group(device, mesh)` splits rows and sums gradients over
+the data subgroup only, and the ranks of one model group take the same
+rows.  Sequence parallelism (`bist_tpu.parallel.sp`) is ROADMAP queue 1
+item 12.
 """
 
 from __future__ import annotations
@@ -70,18 +74,27 @@ def _in_group() -> bool:
 def make_mesh(num_devices: int = 0, axis_name: str = "data", model_axis: int = 1,
               devices: Optional[Sequence] = None, device_type: str = "cuda"):
     """Inside a process group: a 1-D `DeviceMesh` over its ranks, named
-    `axis_name`.  Outside one: the list of devices (`local_devices`, or
-    `devices` cut to `num_devices`).  A 2-D mesh (model_axis > 1) is
-    tensor parallelism, ROADMAP queue 1 item 12."""
-    if model_axis > 1:
-        raise NotImplementedError("a ('data', 'model') mesh is tensor parallelism: "
-                                  "ROADMAP queue 1 item 12")
+    `axis_name`, or with model_axis > 1 a 2-D (world / model_axis,
+    model_axis) one named ('data', 'model'): rank r at data index r //
+    model_axis, model index r % model_axis (tensor parallelism,
+    `parallel.tp`).  Outside one: the list of devices (`local_devices`, or
+    `devices` cut to `num_devices`); a 2-D mesh then raises, as tensor
+    parallelism runs one process per device."""
+    if model_axis > 1 and (devices is not None or not _in_group()):
+        raise RuntimeError("a ('data', 'model') mesh needs one process per device: "
+                           "call parallel.multihost.init_multihost first")
     if devices is None and _in_group():
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
-        return init_device_mesh(device_type, (dist.get_world_size(),),
-                                mesh_dim_names=(axis_name,))
+        world = dist.get_world_size()
+        if model_axis == 1:
+            return init_device_mesh(device_type, (world,), mesh_dim_names=(axis_name,))
+        if world % model_axis:
+            raise ValueError(f"a model axis of {model_axis} does not divide the "
+                             f"{world} processes of the group")
+        return init_device_mesh(device_type, (world // model_axis, model_axis),
+                                mesh_dim_names=(axis_name, "model"))
     devs = [torch.device(d) for d in devices] if devices is not None \
         else local_devices(device_type, num_devices)
     return devs[:num_devices] if num_devices > 0 else devs
@@ -142,8 +155,10 @@ class DataParallel:
 
     `DataParallel(num_devices=0, device_type="cuda")` or
     `DataParallel(devices=[...])`: one process, `n` devices.
-    `DataParallel.in_group(device)`: one process per device in the process
-    group (`n` its world size, `rank` this process's place)."""
+    `DataParallel.in_group(device, mesh=None)`: one process per device in
+    the process group (`n` its world size, `rank` this process's place), or
+    on a ('data', 'model') mesh the data axis (`n` its size, `rank` this
+    process's data index, the collectives over the data subgroup)."""
 
     def __init__(self, num_devices: int = 0, *, devices: Optional[Sequence] = None,
                  device_type: str = "cuda"):
@@ -153,13 +168,16 @@ class DataParallel:
         self.rank = 0
         self.grouped = False     # one process of a process group (in_group)
         self.backend: Optional[str] = None      # the group's backend (nccl, gloo)
+        self.group = None        # the collectives' process group (None: the world)
         self.collectives = 0     # collectives issued from Python (a replay issues none)
         self._flat: Dict[torch.dtype, Tuple[torch.Tensor, List[torch.Tensor], tuple]] = {}
 
     @classmethod
-    def in_group(cls, device) -> "DataParallel":
+    def in_group(cls, device, mesh=None) -> "DataParallel":
         """This process's part of a data-parallel run over the whole process
-        group (its world), on `device`."""
+        group (its world), on `device`; with a 2-D `mesh` (`make_mesh(
+        model_axis=)`), over the mesh's data axis: the ranks that share this
+        process's model index."""
         import torch.distributed as dist
 
         if not _in_group():
@@ -167,9 +185,11 @@ class DataParallel:
                                "parallel.multihost.init_multihost first)")
         dp = cls(devices=[device])
         dp.grouped = True
-        dp.n = dist.get_world_size()
-        dp.rank = dist.get_rank()
-        dp.backend = dist.get_backend()
+        if mesh is not None and mesh.ndim > 1:
+            dp.group = mesh.get_group(mesh.mesh_dim_names[0])
+        dp.n = dist.get_world_size(dp.group)
+        dp.rank = dist.get_rank(dp.group)
+        dp.backend = dist.get_backend(dp.group)
         return dp
 
     def pad_batch_to(self, n_examples: int) -> int:
@@ -241,7 +261,7 @@ class DataParallel:
         views = self.grad_buffer(grads)
         torch._foreach_copy_(views, list(grads))
         for flat, _, _ in self._flat.values():
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             self.collectives += 1
         return views
 
@@ -252,7 +272,7 @@ class DataParallel:
 
         self._check_group("all_reduce_sum")
         v = torch.stack(list(tensors))
-        dist.all_reduce(v)
+        dist.all_reduce(v, group=self.group)
         self.collectives += 1
         return list(v.unbind(0))
 
@@ -261,9 +281,10 @@ class DataParallel:
         import torch.distributed as dist
 
         self._check_group("broadcast_params")
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for t in tree_leaves(tree):
-                dist.broadcast(t, src=0)
+                dist.broadcast(t, src=src, group=self.group)
                 self.collectives += 1
 
     def replicas_identical(self, tree) -> bool:
@@ -282,7 +303,7 @@ class DataParallel:
                 sums.append(torch.stack([words.sum(), (words * pos).sum()]))
             check = torch.stack(sums).view(-1)
             lo, hi = check.clone(), check.clone()
-            dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-            dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=self.group)
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=self.group)
             self.collectives += 2
             return bool(torch.equal(lo, hi))

@@ -38,6 +38,7 @@ from bist_tpu_torch.config import ModelConfig, TrainConfig
 from bist_tpu_torch.data.batching import Batch
 from bist_tpu_torch.decode.sample import mix_seed
 from bist_tpu_torch.models.model import forward_logprobs, init_model
+from bist_tpu_torch.parallel.tp import tensor_parallel, validate_tp_config
 from bist_tpu_torch.train.losses import compute_losses
 from bist_tpu_torch.train.schedule import Adam, make_optimizer
 from bist_tpu_torch.vocab import PAD
@@ -79,17 +80,17 @@ def dropout_generator(cfg: ModelConfig, device) -> Optional[torch.Generator]:
 
 
 def seed_for_step(seed: int, step: int, rank: int = 0) -> int:
-    """The dropout seed of one step, the counterpart of jax.random.fold_in.
-    A data-parallel rank r > 0 draws from another stream (the seed mixed
-    with r through every bit: a CPU generator keeps only a seed's low 32
-    bits), so two ranks never apply the same masks to their rows; rank 0
-    draws what a one-process run draws."""
-    base = (seed << 32) + step
-    return base if rank == 0 else mix_seed(base, rank)
+    """The dropout seed of one step, the counterpart of jax.random.fold_in:
+    (seed, step, rank) mixed through every bit (`decode.sample.mix_seed`),
+    since a CPU generator keeps only a seed's low 32 bits.  A data-parallel
+    rank r draws from its own stream, so two ranks never apply the same
+    masks to their rows; rank 0 draws what a one-process run draws (the
+    ranks of one model group share a data rank, and so their masks)."""
+    return mix_seed(seed, step, rank)
 
 
 def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
-                   dp=None) -> Callable:
+                   dp=None, tp=None) -> Callable:
     """Returns (params, batch, gen) → (loss, metrics, grads): the forward,
     the losses and `torch.autograd.grad` of the train step, without the
     update.  `grads` follow `tree_leaves(params)` (zeros where a leaf is not
@@ -106,7 +107,16 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
     which makes the n ranks' step the one-device step on the global batch.
     A mean of per-rank losses (DDP's) would weight a rank's tokens by the
     inverse of its own count, which is wrong whenever the ranks' rows hold
-    different numbers of tokens."""
+    different numbers of tokens.
+
+    With `tp` (`parallel.tp.TensorParallel`, the model axis of a ('data',
+    'model') mesh; `dp` then its data axis) `params` are this rank's shards
+    (`parallel.tp.shard_params`) and the step runs inside
+    `parallel.tp.tensor_parallel(tp)`: the gradients are this rank's shards
+    of the full ones, those of replicated leaves equal on every model rank,
+    and only the data axis sums them."""
+    if tp is not None:
+        validate_tp_config(cfg, tp.size)
 
     def loss_and_grads(params, leaves, batch: Batch, gen, norm_override=None):
         logp, ft = forward_logprobs(params, cfg, batch, rngs=gen)
@@ -119,6 +129,10 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def grad_fn(params, batch: Batch, gen=None):
+        with tensor_parallel(tp):
+            return local_grad_fn(params, batch, gen)
+
+    def local_grad_fn(params, batch: Batch, gen=None):
         leaves = tree_leaves(params)
         if grad_accum == 1 and dp is None:
             return loss_and_grads(params, leaves, batch, gen)
@@ -161,14 +175,15 @@ def _sum_over_ranks(dp, loss, metrics):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, tx: Adam,
-                    grad_accum: int = 1, dp=None) -> Callable:
+                    grad_accum: int = 1, dp=None, tp=None) -> Callable:
     """Returns (state, batch, gen) → (state, metrics); `gen` is the dropout
     generator (None without dropout).  metrics are 0-d tensors on the
     device, read by the caller when it needs them.  The gradients are
     `make_grad_step`'s (grad_accum microbatches, peak activation memory
     shrinking by the same factor; with `dp`, this rank's rows of a global
-    batch and the sums across the ranks), then ONE optimizer update."""
-    grad_fn = make_grad_step(cfg, tcfg, grad_accum=grad_accum, dp=dp)
+    batch and the sums across the ranks; with `tp`, this rank's shards),
+    then ONE optimizer update (of the local shards, under TP)."""
+    grad_fn = make_grad_step(cfg, tcfg, grad_accum=grad_accum, dp=dp, tp=tp)
 
     def step_fn(state: TrainState, batch: Batch, gen=None):
         loss, metrics, grads = grad_fn(state.params, batch, gen)

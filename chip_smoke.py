@@ -207,6 +207,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      rows) served on the same pair against the one-device greedy Responder
      of that model, in groups of 8, K1 counted likewise.
      No data-parallel speed-up is read: the machine has one card.
+ 15. tensor parallelism (bist_tpu_torch.parallel.tp) on the one card: two
+     ranks sharing it over gloo (this script with --tp-rank, one process
+     each) at a (1 data × 2 model) mesh of the flagship (4 heads a rank):
+     one train step at dropout 0 on phase 6's first batch of 32 against the
+     one-device eager step (the loss within 5e-4 relative, each gathered
+     gradient within 5e-4 + 5e-3·|g|), K1 and K2 0 times under TP by kernel
+     name where the one-device step runs 6 each, 5 eager TP Adam steps
+     timed (a smoke reading: gloo on one card says nothing about NVLink),
+     and beam search (beam 5, maxlen 12) of phase 3's model on one batch of
+     64 turns inside `tensor_parallel`: the tokens of one device.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -3782,6 +3792,295 @@ def phase_data_parallel(device, root, model, fields, cli_root, phase6_ms=None, m
 
 
 # ---------------------------------------------------------------------------
+# phase 15: tensor parallelism
+
+
+def tp_beam_setup(device, rows=64, model_kw=None):
+    """Phase 3's model (the flagship, random weights from seed 0) and its
+    first batch of `rows` undisclosed test turns (numpy seed 0), with
+    phase 3's beam search settings."""
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), **(model_kw or {}))
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
+                     undisclosed_only=True)
+    batch = to_device(make_batches(data, 1, rows, seed=0)[0], device)
+    return cfg, GenerateConfig(**GEN), init_model(0, cfg, device=device), batch
+
+
+def eager_steps_ms(step, state, batches, steps, sync):
+    """`steps` eager train steps on the batches in turn, each timed from
+    the host with the device synchronised after it: (state, ms a step)."""
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[i % len(batches)])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of phase 15: `python chip_smoke.py --tp-rank <address> <rank>
+    <dir> <device type> <train rows> <beam rows> <steps> [<model widths as
+    JSON>]`.  Joins a 2-rank gloo group on the device (both ranks share one
+    card), builds a (1 data × 2 model) mesh, and on this rank's shards of
+    phase 6's start state runs the gradient step eagerly under
+    torch.profiler (K1, K2 by kernel name), its gradients gathered to full
+    leaves, then, once the parent process has left the card
+    (<dir>/refs.done), `steps` eager Adam steps (timed), the same again
+    with each model-axis all-reduce timed between two synchronisations of
+    the device, then beam search of phase 3's model on one batch inside
+    `tensor_parallel`; saves what it computed to <dir>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.parallel import (DataParallel, TensorParallel, gather_params,
+                                         make_mesh, shard_params, tensor_parallel)
+    from bist_tpu_torch.parallel import tp as tp_mod
+    from bist_tpu_torch.train.loop import (TrainState, make_grad_step, make_train_step,
+                                           trainable)
+    from bist_tpu_torch.weights import tree_leaves, tree_map
+
+    address, rank, root, kind = argv[0], int(argv[1]), argv[2], argv[3]
+    B, rows, steps = int(argv[4]), int(argv[5]), int(argv[6])
+    model_kw = json.loads(argv[7]) if len(argv) > 7 else None
+    device = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    if kind == "cpu":
+        torch.set_num_threads(2)     # two ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo on the card too: two NCCL ranks cannot share one card
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", world_size=2, rank=rank)
+    mesh = make_mesh(model_axis=2, device_type=kind)
+    tp = TensorParallel.from_mesh(mesh)
+    dp = DataParallel.in_group(device, mesh)
+    cfg, tcfg, tx, state, batches = dp_train_setup(device, B, model_kw)
+    local = [dp.shard(b)[0] for b in batches]
+    params = trainable(shard_params(state.params, tp))
+    del state
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    grad_fn = make_grad_step(cfg, tcfg, dp=dp, tp=tp)
+    grad_fn(params, local[0])                     # warm-up
+    sync()
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    tp_mod.counts.update(all_reduces=0, bytes=0)
+    with profiler_window(device) as prof:
+        loss, _, grads = grad_fn(params, local[0])
+        sync()
+    step_reduces = dict(tp_mod.counts)
+    it = iter(grads)
+    full = gather_params(tree_map(lambda _: next(it).clone(), params), tp)
+    out = {"mesh": (mesh.mesh.tolist(), mesh.mesh_dim_names), "model": (tp.rank, tp.size),
+           "data": (dp.rank, dp.n), "loss": loss.cpu(),
+           "grads": [g.cpu() for g in tree_leaves(full)],
+           "wrappers": {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches},
+           "by_name": hop1_ran(prof) if device.type == "cuda" else None,
+           "model_all_reduces_a_step": step_reduces}
+    st = TrainState(params, tx.init(tree_leaves(params)), 0)
+    step = make_train_step(cfg, tcfg, tx, dp=dp, tp=tp)
+    flag, deadline = os.path.join(root, "refs.done"), time.monotonic() + 300
+    while not os.path.exists(flag):         # the parent's references off the card
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {flag} after 300 s")
+        time.sleep(0.05)
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        st, m = step(st, local[i % 2])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    out["ms_per_step"] = statistics.median(times[1:] or times)
+    out["step_ms"], out["losses"] = times, losses
+    # the same steps with every model-axis all-reduce timed, the device
+    # synchronised before and after it (the wait for the peer rank included)
+    reduce_s, untimed = [0.0], tp_mod._all_reduce
+
+    def timed_reduce(x, group):
+        sync()
+        t0 = time.perf_counter()
+        y = untimed(x, group)
+        sync()
+        reduce_s[0] += time.perf_counter() - t0
+        return y
+
+    tp_mod._all_reduce = timed_reduce
+    try:
+        timed = []
+        for i in range(steps):
+            reduce_s[0] = 0.0
+            t0 = time.perf_counter()
+            st, _ = step(st, local[i % 2])
+            sync()
+            timed.append(((time.perf_counter() - t0) * 1e3, reduce_s[0] * 1e3))
+    finally:
+        tp_mod._all_reduce = untimed
+    out["timed_step_ms"] = [t for t, _ in timed]
+    out["reduce_ms"] = [r for _, r in timed]
+    out["reduce_share"] = statistics.median(r / t for t, r in (timed[1:] or timed))
+    del st, step, grad_fn, params
+    bcfg, gcfg, bparams, bbatch = tp_beam_setup(device, rows, model_kw)
+    shards = shard_params(bparams, tp)
+    del bparams
+    reset_hop1_counts()
+    tp_mod.counts.update(all_reduces=0, bytes=0)
+    t0 = time.perf_counter()
+    with tensor_parallel(tp):
+        res = beam_search(shards, bcfg, bbatch, gcfg)
+    sync()
+    out["beam_seconds"] = time.perf_counter() - t0
+    out["beam_model_all_reduces"] = dict(tp_mod.counts)
+    out["beam_k1_wrapper"] = hop1_fused.launches
+    out["beam_tokens"] = res.tokens.cpu()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
+                          model_kw=None):
+    """Phase 15: tensor parallelism on one card.  Two ranks sharing the card
+    over gloo (`tp_rank_main`) at a (1 data × 2 model) mesh of the flagship
+    (4 of its 8 heads a rank): one train step at dropout 0 on phase 6's
+    first batch of B against the one-device eager step (this process, while
+    the ranks run): the loss within 5e-4 relative and each gathered
+    gradient within phase 6's bound (5e-4 + 5e-3·|g|); K1 and K2 0 times in
+    the TP step, by kernel name, where the one-device step launches 6 each;
+    then one `rows`-row beam batch of phase 3's model (beam 5, maxlen 12):
+    the tokens of one device.  Returns the readings, the eager TP ms/step a
+    smoke reading (gloo on one card, not NVLink), with the share of the TP
+    step spent in the model axis's all-reduces and, after the ranks exit,
+    the one-device eager step with K1/K2 and under `force_plain` (TP's
+    hop 1)."""
+    import torch
+
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.loop import make_grad_step, make_train_step
+
+    t_start = time.perf_counter()
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    os.makedirs(root, exist_ok=True)
+    flag = os.path.join(root, "refs.done")
+    if os.path.exists(flag):
+        os.remove(flag)
+    address = f"127.0.0.1:{free_port()}"
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    extra = [json.dumps(model_kw)] if model_kw else []
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank", address, str(r), root,
+                 device.type, str(B), str(rows), str(steps), *extra],
+                stdout=logf, stderr=subprocess.STDOUT))
+    try:
+        # the one-device references while the ranks start
+        cfg, tcfg, tx, state, batches = dp_train_setup(device, B, model_kw)
+        make_grad_step(cfg, tcfg)(state.params, batches[0])          # warm-up
+        sync()
+        reset_hop1_counts()
+        hop1_bwd.launches, hop1_bwd.variants = 0, {}
+        with profiler_window(device) as prof:
+            loss, _, grads = make_grad_step(cfg, tcfg)(state.params, batches[0])
+            sync()
+        one = {"loss": float(loss), "grads": [g.cpu() for g in grads],
+               "wrappers": {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches},
+               "by_name": hop1_ran(prof) if cuda else None}
+        names = leaf_names(state.params)
+        del grads
+        bcfg, gcfg, bparams, bbatch = tp_beam_setup(device, rows, model_kw)
+        tokens = beam_search(bparams, bcfg, bbatch, gcfg).tokens.cpu()
+        del bparams
+        sync()
+        open(flag, "w").close()             # the ranks' timed steps may start
+        for p, path in zip(procs, logs):
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t_start)))
+            if p.returncode != 0:
+                with open(path) as f:
+                    raise AssertionError(f"tp rank exited {p.returncode}:\n{f.read()[-6000:]}")
+        # the one-device eager step alone on the card, as the ranks time it
+        step = make_train_step(cfg, tcfg, tx)
+        state, kernel_ms = eager_steps_ms(step, state, batches, steps, sync)
+        with dispatch.force_plain():
+            state, plain_ms = eager_steps_ms(step, state, batches, steps, sync)
+        one["ms_per_step"] = {"kernels": statistics.median(kernel_ms[1:] or kernel_ms),
+                              "plain": statistics.median(plain_ms[1:] or plain_ms)}
+        del state
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    if cuda:
+        want = {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}
+        if one["by_name"] != want or one["wrappers"] != {"hop1_fwd": 6, "hop1_bwd": 6}:
+            raise AssertionError(f"tp: the one-device step ran K1, K2 {one['by_name']} by "
+                                 f"name ({one['wrappers']}), expected 6 \"whole\" each")
+    worst_loss, worst_grad = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        if got["mesh"] != ([[0, 1]], ("data", "model")) or got["model"] != (r, 2):
+            raise AssertionError(f"tp rank {r}: mesh {got['mesh']}, model place {got['model']}")
+        rel = abs(float(got["loss"]) - one["loss"]) / abs(one["loss"])
+        worst_loss = max(worst_loss, rel)
+        if rel > 5e-4:
+            raise AssertionError(f"tp rank {r}: loss {float(got['loss'])} against one "
+                                 f"device's {one['loss']}")
+        for name, a, b in zip(names, got["grads"], one["grads"]):
+            rtol = 0.0 if name.endswith("wk.b") else 5e-3   # wk.b: zero, residue
+            err = (a - b).abs()
+            bound = 5e-4 + rtol * b.abs()
+            worst_grad = max(worst_grad, float((err / bound).max()))
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"tp rank {r}: gradient {name} differs from one "
+                                     f"device's by {err.max().item():.3e}")
+        if cuda and (got["by_name"] != {"k1": {"whole": 0, "tiled": 0},
+                                        "k2": {"whole": 0, "tiled": 0}}
+                     or got["wrappers"] != {"hop1_fwd": 0, "hop1_bwd": 0}
+                     or got["beam_k1_wrapper"] != 0):
+            raise AssertionError(f"tp rank {r}: K1, K2 ran under TP: by name {got['by_name']}, "
+                                 f"wrappers {got['wrappers']}, beam {got['beam_k1_wrapper']}")
+        if not all(np.isfinite(got["losses"])):
+            raise AssertionError(f"tp rank {r}: non-finite losses {got['losses']}")
+        if not torch.equal(got["beam_tokens"], tokens):
+            diff = int((got["beam_tokens"] != tokens).any(-1).any(-1).sum())
+            raise AssertionError(f"tp rank {r}: beam tokens differ from one device's in "
+                                 f"{diff} of {rows} rows")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"tp: the model ranks' losses differ: {ranks[0]['losses']} "
+                             f"against {ranks[1]['losses']}")
+    return {"mesh": "1 data x 2 model, gloo, both ranks on one device",
+            "heads_a_rank": bcfg.att_h // 2, "train_rows": B, "beam_rows": rows,
+            "loss_rel_err": worst_loss, "grad_max_err_over_bound": worst_grad,
+            "one_device_by_name": one["by_name"], "tp_by_name": [r["by_name"] for r in ranks],
+            "beam_tokens_identical_rows": rows,
+            "eager_tp_ms_per_step": [r["ms_per_step"] for r in ranks],
+            "eager_tp_step_ms": [r["step_ms"] for r in ranks],
+            "timed_tp_step_ms": [r["timed_step_ms"] for r in ranks],
+            "model_all_reduce_ms": [r["reduce_ms"] for r in ranks],
+            "model_all_reduce_share": [r["reduce_share"] for r in ranks],
+            "one_device_eager_ms_per_step": one["ms_per_step"],
+            "model_all_reduces_a_step": ranks[0]["model_all_reduces_a_step"],
+            "beam_model_all_reduces": ranks[0]["beam_model_all_reduces"],
+            "tp_losses": ranks[0]["losses"],
+            "beam_seconds": [r["beam_seconds"] for r in ranks],
+            "seconds": time.perf_counter() - t_start}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, cases, launches, path):
@@ -3952,6 +4251,22 @@ def main() -> int:
     print(f"data parallel on {card}: {json.dumps(dp)}", flush=True)
     lap("data parallel")
 
+    tpr = phase_tensor_parallel(device, os.path.join(HERE, "build", "chip_smoke", "tp"))
+    print(f"tensor parallel on {card}: 2 gloo ranks on one card, (1 data x 2 model) mesh, "
+          f"{tpr['heads_a_rank']} heads a rank: loss {tpr['loss_rel_err']:.2e} rel, "
+          f"gradients {tpr['grad_max_err_over_bound']:.3f} of phase 6's bound, K1/K2 by name "
+          f"under TP {json.dumps(tpr['tp_by_name'])} (one device "
+          f"{json.dumps(tpr['one_device_by_name'])}); beam 5 on {tpr['beam_rows']} rows: tokens "
+          f"identical; eager TP step {[round(x, 2) for x in tpr['eager_tp_ms_per_step']]} "
+          f"ms (smoke: gloo on one card) with {tpr['model_all_reduces_a_step']['all_reduces']} "
+          f"model-axis all-reduces of {tpr['model_all_reduces_a_step']['bytes'] / 1e6:.1f} MB "
+          f"a rank, {[round(x, 3) for x in tpr['model_all_reduce_share']]} of a timed step in "
+          f"them; one device eager {tpr['one_device_eager_ms_per_step']['kernels']:.2f} ms, "
+          f"plain hop 1 {tpr['one_device_eager_ms_per_step']['plain']:.2f} ms; "
+          f"{tpr['seconds']:.1f} s", flush=True)
+    print(f"tensor parallel on {card}: {json.dumps(tpr)}", flush=True)
+    lap("tensor parallel")
+
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -4013,4 +4328,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:          # a rank of phase 14 (b), not a run
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:          # a rank of phase 15, not a run
+        sys.exit(tp_rank_main(sys.argv[2:]))
     sys.exit(main())

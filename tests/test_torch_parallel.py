@@ -96,7 +96,7 @@ def test_pad_batch_to_mesh_and_placements():
     assert [type(p).__name__ for p in batch_sharding()] == ["Shard"]
     assert batch_sharding()[0].dim == 0
     assert [type(p).__name__ for p in replicate()] == ["Replicate"]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="needs one process per device"):
         make_mesh(model_axis=2, device_type="cpu")
     with pytest.raises(ValueError, match="does not split over 3"):
         DataParallel(devices=[CPU] * 3).shard(as_torch(tiny_batch(np.random.default_rng(0))))
