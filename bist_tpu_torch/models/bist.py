@@ -11,6 +11,10 @@ model/decoder.py:11-186).
     under a gradient through `hop1_trainable` (K1 forward, K2 backward).
   * `cfg.remat` recomputes each decoder round in the backward pass
     (`torch.utils.checkpoint`), with the same dropout masks.
+  * Under sequence parallelism (`parallel.sp`) 'video_grid' is this rank's
+    T block and FULL_GRID the whole grid: s2t hop 1 (over S, one group a
+    temporal step) runs on the block and its output is gathered for hop 2
+    (over T); t2s hop 1 (over T) runs on the whole grid.
 
 Per layer, query x (B, Lq, D), grid V (B, T, S, D):
   t2s: self-attn(x) → attend along T per spatial region (temporal mask)
@@ -33,10 +37,13 @@ from bist_tpu_torch.models.layers import (
 )
 from bist_tpu_torch.ops import dispatch
 from bist_tpu_torch.ops.bist_kernels import hop1_fused, hop1_trainable
+from bist_tpu_torch.parallel import sp
 
 Masks = Dict[str, Optional[torch.Tensor]]
 FT = Dict[str, torch.Tensor]
 Gen = Optional[torch.Generator]
+# the whole video grid under sequence parallelism (`models.model.encode`)
+FULL_GRID = "video_grid_full"
 
 
 # ---------------------------------------------------------------------------
@@ -80,9 +87,11 @@ def _self_attn_sublayer(p: Params, h: int, x: torch.Tensor, mask, drop: float,
 
 
 def _hop1(p_hop: Params, h: int, drop: float, adrop: float, rngs: Gen,
-          x: torch.Tensor, kv_groups: torch.Tensor, mask) -> torch.Tensor:
+          x: torch.Tensor, kv_groups: torch.Tensor, mask,
+          seq_sharded: bool = False) -> torch.Tensor:
     """Hop 1: x (B,Lq,D), kv_groups (B,G,Lk,D), mask (B,1,Lk) or None →
-    x[:,None] + MHA(LN(x), kv, kv) of shape (B,G,Lq,D)."""
+    x[:,None] + MHA(LN(x), kv, kv) of shape (B,G,Lq,D).  `seq_sharded`: G
+    is this rank's block of a seq-sharded axis (the dropout masks')."""
     normed = layer_norm(p_hop["norm"], x)
     a = p_hop["attn"]
     if dispatch.hop1_uses_kernel(dropout_active=rngs is not None):
@@ -91,10 +100,11 @@ def _hop1(p_hop: Params, h: int, drop: float, adrop: float, rngs: Gen,
         if dispatch.needs_grad(x, q, kv_groups, *w):
             return hop1_trainable.apply(x, q, kv_groups, *w, h, mask)
         return hop1_fused(x, q, kv_groups, a, h, mask)
+    seq_dim = 1 if seq_sharded else None
     attn_out = mha(a, h, normed[:, None], kv_groups, kv_groups,
                    mask=None if mask is None else mask[:, None],
-                   drop_rate=adrop, rngs=rngs)
-    return x[:, None] + dropout(attn_out, drop, rngs)
+                   drop_rate=adrop, rngs=rngs, seq_dim=seq_dim)
+    return x[:, None] + dropout(attn_out, drop, rngs, seq_dim=seq_dim)
 
 
 def temporal2spatial(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -119,12 +129,15 @@ def temporal2spatial(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def spatial2temporal(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      grid: torch.Tensor, temporal_mask: torch.Tensor,
                      rngs: Gen) -> torch.Tensor:
-    """Two-hop spatial→temporal attention (encoder.py:141-170)."""
+    """Two-hop spatial→temporal attention (encoder.py:141-170).  Under
+    sequence parallelism `grid` is this rank's T block and temporal_mask
+    the whole one."""
     h, drop, adrop = cfg.att_h, cfg.dropout, cfg.attn_dropout
     # hop 1: per temporal step, along S (spatial positions always valid)
-    s_out = _hop1(p["s2t_hop1"], h, drop, adrop, rngs, x, grid, None)  # (B,T,Lq,D)
+    s_out = _hop1(p["s2t_hop1"], h, drop, adrop, rngs, x, grid, None,
+                  seq_sharded=True)                             # (B,T,Lq,D)
     # hop 2: per query token, over the T per-step summaries, temporal mask
-    per_tok = s_out.transpose(1, 2)                             # (B, Lq, T, D)
+    per_tok = sp.gather_seq(s_out, 1).transpose(1, 2)           # (B, Lq, T, D)
     normed2 = layer_norm(p["s2t_hop2"]["norm"], x)
     attn_out2 = mha(p["s2t_hop2"]["attn"], h, normed2[:, :, None],
                     per_tok, per_tok, mask=temporal_mask[:, None],   # (B,1,1,T)
@@ -145,7 +158,8 @@ def vid_layer_apply(p: Params, cfg: ModelConfig, in_ft: FT, ft: FT,
     if cfg.t2s:
         t2s = _self_attn_sublayer(p["t2s_self"], h, in_ft["t2s"],
                                   masks["query_mask"], drop, adrop, rngs)
-        t2s = temporal2spatial(p, cfg, t2s, grid, masks["temporal_mask"], rngs)
+        t2s = temporal2spatial(p, cfg, t2s, ft.get(FULL_GRID, grid),
+                               masks["temporal_mask"], rngs)
         in_ft["t2s"] = t2s
     if cfg.s2t:
         s2t = _self_attn_sublayer(p["s2t_self"], h, in_ft["s2t"],

@@ -27,7 +27,7 @@ import torch
 
 from bist_tpu_torch.ops import dispatch
 from bist_tpu_torch.ops.flash_attention import flash_attention
-from bist_tpu_torch.parallel import tp
+from bist_tpu_torch.parallel import sp, tp
 
 Params = Dict[str, Any]
 
@@ -58,20 +58,38 @@ def upcast_fp8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16) if x.dtype in FP8_DTYPES else x
 
 
+def dropout_mask(shape, rate: float, rngs: torch.Generator,
+                 shard_dim: Optional[int] = None,
+                 seq_dim: Optional[int] = None) -> torch.Tensor:
+    """The keep mask of a dropout on a tensor of `shape`: drawn at the
+    activation's full shape (its model-axis block along `shard_dim`, its
+    seq-axis block along `seq_dim` widened back) from `rngs`, then this
+    rank's block of each kept, so every rank of a tensor- or
+    sequence-parallel run keeps what a one-process run keeps
+    (`parallel.tp`, `parallel.sp`)."""
+    if shard_dim is not None:
+        shape = tp.full_shape(shape, shard_dim)
+    if seq_dim is not None:
+        shape = sp.full_shape(shape, seq_dim)
+    m = torch.rand(shape, generator=rngs, device=rngs.device) < 1.0 - rate
+    if shard_dim is not None:
+        m = tp.local_slice(m, shard_dim)
+    if seq_dim is not None:
+        m = sp.local_slice(m, seq_dim)
+    return m
+
+
 def dropout(x: torch.Tensor, rate: float, rngs: Optional[torch.Generator],
-            shard_dim: Optional[int] = None) -> torch.Tensor:
+            shard_dim: Optional[int] = None,
+            seq_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout; identity when rngs is None or rate == 0.  Under
     tensor parallelism `x` may be this rank's block of an activation split
-    along `shard_dim`: the mask is drawn at full width and the rank keeps
-    its block, so every rank applies a one-process run's mask
-    (`parallel.tp`)."""
+    along `shard_dim`, under sequence parallelism along `seq_dim`: the mask
+    is drawn whole and the rank keeps its block (`dropout_mask`)."""
     if rngs is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    shape = x.shape if shard_dim is None else tp.full_shape(x.shape, shard_dim)
-    m = torch.rand(shape, generator=rngs, device=rngs.device) < keep
-    if shard_dim is not None:
-        m = tp.local_slice(m, shard_dim)
+    m = dropout_mask(x.shape, rate, rngs, shard_dim, seq_dim)
     return torch.where(m.to(x.device), x / keep, torch.zeros_like(x))
 
 
@@ -172,10 +190,12 @@ def positional_encoding_table(d_model: int, max_len: int,
 
 
 def add_positional(pe: torch.Tensor, x: torch.Tensor, rate: float,
-                   rngs: Optional[torch.Generator], offset: int = 0) -> torch.Tensor:
-    """x + pe[offset:offset+L] then dropout."""
+                   rngs: Optional[torch.Generator], offset: int = 0,
+                   seq_dim: Optional[int] = None) -> torch.Tensor:
+    """x + pe[offset:offset+L] then dropout (`seq_dim`: x is a seq-sharded
+    block, `dropout`)."""
     L = x.shape[-2]
-    return dropout(x + pe[offset:offset + L], rate, rngs)
+    return dropout(x + pe[offset:offset + L], rate, rngs, seq_dim=seq_dim)
 
 
 def split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -194,14 +214,17 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def attention_weights(q: torch.Tensor, k: torch.Tensor,
                       mask: Optional[torch.Tensor], drop_rate: float,
                       rngs: Optional[torch.Generator], *,
-                      width_sharded: bool = False) -> torch.Tensor:
+                      width_sharded: bool = False,
+                      seq_dim: Optional[int] = None) -> torch.Tensor:
     """softmax(QKᵀ/√d_k) with -1e9 where mask == 0; scores and softmax in
     float32.  q (..., h, Lq, d_k), k (..., h, Lk, d_k), leading dims
     broadcast; mask broadcastable to (..., 1, Lq, Lk).  Under tensor
     parallelism the heads axis holds this rank's heads, or, with
     `width_sharded` (the pointer generator's one head), q and k hold this
     rank's block of d_k: the partial scores are then summed over the model
-    axis and scaled by the full width."""
+    axis and scaled by the full width.  `seq_dim`: the scores' leading
+    axis that holds this rank's block of a seq-sharded grid (the dropout
+    mask's, `dropout`)."""
     d_k = tp.full_shape(q.shape, -1)[-1] if width_sharded else q.shape[-1]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if width_sharded:
@@ -210,7 +233,8 @@ def attention_weights(q: torch.Tensor, k: torch.Tensor,
     if mask is not None:
         scores = torch.where(mask == 0, NEG_INF, scores)
     p_attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return dropout(p_attn, drop_rate, rngs, shard_dim=None if width_sharded else -3)
+    return dropout(p_attn, drop_rate, rngs, shard_dim=None if width_sharded else -3,
+                   seq_dim=seq_dim)
 
 
 def _flash_path(Q, K, V, mask):
@@ -235,7 +259,8 @@ def _flash_path(Q, K, V, mask):
 def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
         value: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
         drop_rate: float = 0.1, rngs: Optional[torch.Generator] = None,
-        return_attn: bool = False, allow_flash: bool = True):
+        return_attn: bool = False, allow_flash: bool = True,
+        seq_dim: Optional[int] = None):
     """Multi-head attention with broadcastable leading batch dims.
 
     query (..., Lq, D), key/value (..., Lk, D).  The projections run on the
@@ -244,7 +269,8 @@ def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
     Long kv axes go to the K3 kernel (`ops.dispatch.mha_uses_flash`).
     Under tensor parallelism (`parallel.tp`) `p` holds this rank's shards:
     it computes its att_h / n heads and the output projection's sum over
-    the model axis."""
+    the model axis.  `seq_dim`: a leading axis of key/value that holds this
+    rank's block of a seq-sharded grid (`attention_weights`)."""
     dh = tp.local_heads(h)
     q_in = tp.copy_to(query)
     k_in = q_in if key is query else tp.copy_to(key)
@@ -261,7 +287,7 @@ def mha(p: Params, h: int, query: torch.Tensor, key: torch.Tensor,
             mask_is_kv_validity=mask is None or mask.shape[-2] == 1):
         x = _flash_path(Q, K, V, mask)
         return row_linear(p["wo"], merge_heads(x))
-    attn = attention_weights(Q, K, mask, drop_rate, rngs)
+    attn = attention_weights(Q, K, mask, drop_rate, rngs, seq_dim=seq_dim)
     out = row_linear(p["wo"], merge_heads(matmul(attn, V)))
     if return_attn:
         return out, attn

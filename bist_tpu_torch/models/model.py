@@ -18,7 +18,12 @@ axis, so the context stays at B rows.  Three precision knobs, as in
 `init_cache`'s dtype, float8 read as bfloat16), the precompute's activations
 (`encode_cfg`) and the step's activations (`decode_step`'s compute_dtype).
 Under tensor parallelism (`parallel.tp`) the cross-attention K/V and the
-self-attention cache hold this rank's att_h / n heads.
+self-attention cache hold this rank's att_h / n heads.  Under sequence
+parallelism (`parallel.sp`) the batch holds this rank's block of the
+history, video and audio axes: the masks, the encoded history and audio,
+the history's ids and (for t2s) the video grid are gathered here, once a
+batch, so every later stage, the decode memory included, is the one-device
+one.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from bist_tpu_torch.models.layers import (
     positional_encoding_table, row_linear, split_heads, subsequent_mask,
     upcast_fp8,
 )
-from bist_tpu_torch.parallel import tp
+from bist_tpu_torch.parallel import sp, tp
 from bist_tpu_torch.vocab import PAD
 from bist_tpu_torch.weights import tree_map
 
@@ -87,10 +92,13 @@ def _valid(x: torch.Tensor) -> torch.Tensor:
 
 def build_masks(cfg: ModelConfig, batch: Batch) -> Dict[str, Optional[torch.Tensor]]:
     """(B, 1, L) int32 validity masks; the feature masks come from feature
-    sums, so zero-padded clips and regions are masked (int8 grids: |max|)."""
+    sums, so zero-padded clips and regions are masked (int8 grids: |max|).
+    Under sequence parallelism the spatial mask's partial sums (maxima) over
+    this rank's T block are combined over the seq axis before the test, and
+    the per-position masks of the sharded axes are gathered whole."""
     masks: Dict[str, Optional[torch.Tensor]] = {
         "query_mask": _valid(batch.query != PAD),
-        "his_mask": _valid(batch.his != PAD),
+        "his_mask": sp.gather_seq(_valid(batch.his != PAD), 2),
         "cap_mask": _valid(batch.cap != PAD) if batch.cap is not None else None,
     }
     Lt = batch.trg.shape[-1]
@@ -99,14 +107,14 @@ def build_masks(cfg: ModelConfig, batch: Batch) -> Dict[str, Optional[torch.Tens
         f = batch.fts
         if not torch.is_floating_point(f):
             a = f.abs().to(torch.int32)
-            masks["spatial_mask"] = _valid(a.amax(dim=(1, 3)) != 0)
-            masks["temporal_mask"] = _valid(a.amax(dim=(2, 3)) != 0)
+            spatial, temporal = sp.seq_all_reduce(a.amax(dim=(1, 3)), "max"), a.amax(dim=(2, 3))
         else:
-            masks["spatial_mask"] = _valid(f.sum(dim=(1, 3)) != 0)
-            masks["temporal_mask"] = _valid(f.sum(dim=(2, 3)) != 0)
+            spatial, temporal = sp.seq_all_reduce(f.sum(dim=(1, 3))), f.sum(dim=(2, 3))
+        masks["spatial_mask"] = _valid(spatial != 0)
+        masks["temporal_mask"] = sp.gather_seq(_valid(temporal != 0), 2)
     else:
         masks["spatial_mask"] = masks["temporal_mask"] = None
-    masks["audio_mask"] = (_valid(batch.audio_fts.sum(dim=-1) != 0)
+    masks["audio_mask"] = (sp.gather_seq(_valid(batch.audio_fts.sum(dim=-1) != 0), 2)
                            if batch.audio_fts is not None else None)
     return masks
 
@@ -120,11 +128,18 @@ def activation_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _embed_seq(params: Params, cfg: ModelConfig, pe: torch.Tensor,
-               ids: Optional[torch.Tensor], rngs: Gen) -> Optional[torch.Tensor]:
+               ids: Optional[torch.Tensor], rngs: Gen,
+               seq_sharded: bool = False) -> Optional[torch.Tensor]:
+    """Embedding, positional encoding and dropout of a token sequence;
+    `seq_sharded`: `ids` is this rank's block of a seq-sharded axis, whose
+    positions start at the block's global offset."""
     if ids is None:
         return None
     x = embed(params["embed"], ids, cfg.d_model).to(activation_dtype(cfg))
-    return add_positional(pe, x, cfg.dropout, rngs)
+    if not seq_sharded:
+        return add_positional(pe, x, cfg.dropout, rngs)
+    return add_positional(pe, x, cfg.dropout, rngs, offset=sp.offset(ids.shape[1]),
+                          seq_dim=1)
 
 
 def _pe(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -133,11 +148,15 @@ def _pe(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def encode(params: Params, cfg: ModelConfig, batch: Batch, rngs: Gen = None) -> FT:
-    """Text norms + video/audio input projections."""
+    """Text norms + video/audio input projections.  Under sequence
+    parallelism the history, video and audio run on this rank's blocks; the
+    encoded history and audio are gathered whole, and the video grid stays
+    this rank's T block (s2t hop 1's) with the whole grid (t2s hop 1's)
+    under `bist.FULL_GRID`."""
     pe = _pe(params, cfg)
     q_emb = _embed_seq(params, cfg, pe, batch.query, rngs)
     c_emb = _embed_seq(params, cfg, pe, batch.cap, rngs)
-    h_emb = _embed_seq(params, cfg, pe, batch.his, rngs)
+    h_emb = _embed_seq(params, cfg, pe, batch.his, rngs, seq_sharded=True)
     # the norm index advances only over present inputs (encoder.py:19-41)
     norms = params["text_enc"]["norms"]
     ft: FT = {"encoded_query": layer_norm(norms[0], q_emb)}
@@ -145,7 +164,7 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, rngs: Gen = None) -> 
     if c_emb is not None:
         ft["encoded_cap"] = layer_norm(norms[i], c_emb)
         i += 1
-    ft["encoded_his"] = layer_norm(norms[i], h_emb)
+    ft["encoded_his"] = sp.gather_seq(layer_norm(norms[i], h_emb), 1)
 
     adt = activation_dtype(cfg)
     if cfg.has_video and batch.fts is not None:
@@ -154,15 +173,19 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, rngs: Gen = None) -> 
             fts = fts.to(adt) * batch.fts_scale.to(adt)
         v = torch.relu(linear(params["vid_enc"]["W"], fts.to(adt)))
         ft["video_grid"] = layer_norm(params["vid_enc"]["in_norm"], v)
+        if sp.active() is not None:
+            ft[bist.FULL_GRID] = sp.gather_seq(ft["video_grid"], 1)
     if cfg.has_audio and batch.audio_fts is not None:
         a = torch.relu(linear(params["vid_enc"]["a_W"], batch.audio_fts.to(adt)))
-        ft["encoded_audio"] = layer_norm(params["vid_enc"]["a_in_norm"], a)
+        ft["encoded_audio"] = sp.gather_seq(layer_norm(params["vid_enc"]["a_in_norm"], a), 1)
     return ft
 
 
 def generator_tokens(batch: Batch, masks) -> Dict[str, torch.Tensor]:
+    """The pointer sources' ids and masks (the history's gathered whole
+    under sequence parallelism)."""
     toks = {"query": batch.query, "query_mask": masks["query_mask"],
-            "his": batch.his, "his_mask": masks["his_mask"]}
+            "his": sp.gather_seq(batch.his, 1), "his_mask": masks["his_mask"]}
     if batch.cap is not None:
         toks["cap"] = batch.cap
         toks["cap_mask"] = masks["cap_mask"]

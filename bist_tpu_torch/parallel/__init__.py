@@ -6,3 +6,6 @@ from bist_tpu_torch.parallel.tp import (
     TensorParallel, gather_params, param_specs, shard_params, tensor_parallel,
     validate_tp_config,
 )
+from bist_tpu_torch.parallel.sp import (
+    SequenceParallel, batch_specs, sequence_parallel, validate_sp_batch,
+)

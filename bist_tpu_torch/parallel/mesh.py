@@ -28,8 +28,11 @@ On a 2-D ('data', 'model') mesh (`make_mesh(model_axis=)`, tensor
 parallelism: `parallel.tp`) the data side is the mesh's data axis:
 `DataParallel.in_group(device, mesh)` splits rows and sums gradients over
 the data subgroup only, and the ranks of one model group take the same
-rows.  Sequence parallelism (`bist_tpu.parallel.sp`) is ROADMAP queue 1
-item 12.
+rows.  On a ('data', 'seq') or ('data', 'model', 'seq') mesh
+(`make_mesh(seq_axis=)`, sequence parallelism: `parallel.sp`) the same
+holds: the ranks of one data index take the same rows and split their long
+axes, and the gradients are summed over the data × seq ranks
+(`DataParallel.over_group`).
 """
 
 from __future__ import annotations
@@ -72,29 +75,44 @@ def _in_group() -> bool:
 
 
 def make_mesh(num_devices: int = 0, axis_name: str = "data", model_axis: int = 1,
-              devices: Optional[Sequence] = None, device_type: str = "cuda"):
+              seq_axis: int = 1, devices: Optional[Sequence] = None,
+              device_type: str = "cuda"):
     """Inside a process group: a 1-D `DeviceMesh` over its ranks, named
-    `axis_name`, or with model_axis > 1 a 2-D (world / model_axis,
-    model_axis) one named ('data', 'model'): rank r at data index r //
-    model_axis, model index r % model_axis (tensor parallelism,
-    `parallel.tp`).  Outside one: the list of devices (`local_devices`, or
-    `devices` cut to `num_devices`); a 2-D mesh then raises, as tensor
-    parallelism runs one process per device."""
-    if model_axis > 1 and (devices is not None or not _in_group()):
-        raise RuntimeError("a ('data', 'model') mesh needs one process per device: "
+    `axis_name`; with model_axis > 1 a 2-D (world / model_axis, model_axis)
+    one named ('data', 'model'): rank r at data index r // model_axis,
+    model index r % model_axis (tensor parallelism, `parallel.tp`); with
+    seq_axis > 1 a 3-D (world / (model_axis·seq_axis), model_axis,
+    seq_axis) one named ('data', 'model', 'seq'), its 'model' axis dropped
+    when it has one rank: rank r at data index r // (model_axis·seq_axis),
+    model index (r // seq_axis) % model_axis, seq index r % seq_axis
+    (sequence parallelism, `parallel.sp`; `np.reshape(devices, (dp, tp,
+    sp))`'s order, as `bist_tpu` lays its mesh out).  Outside one: the list
+    of devices (`local_devices`, or `devices` cut to `num_devices`); a mesh
+    of more than one axis then raises, as tensor and sequence parallelism
+    run one process per device."""
+    if (model_axis > 1 or seq_axis > 1) and (devices is not None or not _in_group()):
+        axes = "('data', 'model')" if seq_axis == 1 else "('data', 'model', 'seq')"
+        raise RuntimeError(f"a {axes} mesh needs one process per device: "
                            "call parallel.multihost.init_multihost first")
     if devices is None and _in_group():
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
         world = dist.get_world_size()
-        if model_axis == 1:
+        if model_axis == 1 and seq_axis == 1:
             return init_device_mesh(device_type, (world,), mesh_dim_names=(axis_name,))
-        if world % model_axis:
-            raise ValueError(f"a model axis of {model_axis} does not divide the "
-                             f"{world} processes of the group")
-        return init_device_mesh(device_type, (world // model_axis, model_axis),
-                                mesh_dim_names=(axis_name, "model"))
+        for name, n in (("model", model_axis), ("seq", seq_axis)):
+            if world % n:
+                raise ValueError(f"a {name} axis of {n} does not divide the "
+                                 f"{world} processes of the group")
+        if world % (model_axis * seq_axis):
+            raise ValueError(f"a model axis of {model_axis} and a seq axis of {seq_axis} "
+                             f"do not divide the {world} processes of the group")
+        shape, names = (world // (model_axis * seq_axis), model_axis, seq_axis), \
+            (axis_name, "model", "seq")
+        keep = [i for i, n in enumerate(shape) if i == 0 or n > 1]
+        return init_device_mesh(device_type, tuple(shape[i] for i in keep),
+                                mesh_dim_names=tuple(names[i] for i in keep))
     devs = [torch.device(d) for d in devices] if devices is not None \
         else local_devices(device_type, num_devices)
     return devs[:num_devices] if num_devices > 0 else devs
@@ -178,18 +196,26 @@ class DataParallel:
         group (its world), on `device`; with a 2-D `mesh` (`make_mesh(
         model_axis=)`), over the mesh's data axis: the ranks that share this
         process's model index."""
-        import torch.distributed as dist
-
         if not _in_group():
             raise RuntimeError("DataParallel.in_group: no process group (call "
                                "parallel.multihost.init_multihost first)")
+        group = mesh.get_group(mesh.mesh_dim_names[0]) \
+            if mesh is not None and mesh.ndim > 1 else None
+        return cls.over_group(device, group)
+
+    @classmethod
+    def over_group(cls, device, group) -> "DataParallel":
+        """This process's part of the sums over `group`, a process group it
+        belongs to (None: the world); `in_group`'s data axis, or the data ×
+        seq ranks over which sequence parallelism sums its gradients."""
+        import torch.distributed as dist
+
         dp = cls(devices=[device])
         dp.grouped = True
-        if mesh is not None and mesh.ndim > 1:
-            dp.group = mesh.get_group(mesh.mesh_dim_names[0])
-        dp.n = dist.get_world_size(dp.group)
-        dp.rank = dist.get_rank(dp.group)
-        dp.backend = dist.get_backend(dp.group)
+        dp.group = group
+        dp.n = dist.get_world_size(group)
+        dp.rank = dist.get_rank(group)
+        dp.backend = dist.get_backend(group)
         return dp
 
     def pad_batch_to(self, n_examples: int) -> int:

@@ -38,6 +38,8 @@ from bist_tpu_torch.config import ModelConfig, TrainConfig
 from bist_tpu_torch.data.batching import Batch
 from bist_tpu_torch.decode.sample import mix_seed
 from bist_tpu_torch.models.model import forward_logprobs, init_model
+from bist_tpu_torch.parallel.mesh import DataParallel
+from bist_tpu_torch.parallel.sp import sequence_parallel
 from bist_tpu_torch.parallel.tp import tensor_parallel, validate_tp_config
 from bist_tpu_torch.train.losses import compute_losses
 from bist_tpu_torch.train.schedule import Adam, make_optimizer
@@ -84,13 +86,14 @@ def seed_for_step(seed: int, step: int, rank: int = 0) -> int:
     (seed, step, rank) mixed through every bit (`decode.sample.mix_seed`),
     since a CPU generator keeps only a seed's low 32 bits.  A data-parallel
     rank r draws from its own stream, so two ranks never apply the same
-    masks to their rows; rank 0 draws what a one-process run draws (the
-    ranks of one model group share a data rank, and so their masks)."""
+    masks to their rows; rank 0 draws what a one-process run draws.  The
+    rank is the DATA rank: the ranks of one model or seq group share it,
+    and so their masks (`parallel.tp`, `parallel.sp`)."""
     return mix_seed(seed, step, rank)
 
 
 def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
-                   dp=None, tp=None) -> Callable:
+                   dp=None, tp=None, sp=None) -> Callable:
     """Returns (params, batch, gen) → (loss, metrics, grads): the forward,
     the losses and `torch.autograd.grad` of the train step, without the
     update.  `grads` follow `tree_leaves(params)` (zeros where a leaf is not
@@ -114,27 +117,39 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
     (`parallel.tp.shard_params`) and the step runs inside
     `parallel.tp.tensor_parallel(tp)`: the gradients are this rank's shards
     of the full ones, those of replicated leaves equal on every model rank,
-    and only the data axis sums them."""
+    and only the data axis sums them.
+
+    With `sp` (`parallel.sp.SequenceParallel`, the seq axis of a ('data',
+    'seq') or ('data', 'model', 'seq') mesh) `batch` holds this rank's
+    block of the long axes (`parallel.sp.shard_batch`) and the step runs
+    inside `parallel.sp.sequence_parallel(sp)`: every seq rank computes the
+    same loss, the backward starts from loss / n, and the gradients are
+    summed over the data × seq ranks in one all-reduce (the scheme and its
+    reason: `parallel.sp`); the counts, the loss and the metrics are summed
+    over the data axis only."""
     if tp is not None:
         validate_tp_config(cfg, tp.size)
+    scale = 1.0 if sp is None else 1.0 / sp.size
+    reducer = []        # sp: the data × seq ranks' sum, made at the first call
 
     def loss_and_grads(params, leaves, batch: Batch, gen, norm_override=None):
         logp, ft = forward_logprobs(params, cfg, batch, rngs=gen)
         loss, metrics = compute_losses(logp, ft, params["embed"]["lut"], cfg,
                                        batch, tcfg.smoothing,
                                        norm_override=norm_override)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss if sp is None else loss * scale, leaves,
+                                    allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def grad_fn(params, batch: Batch, gen=None):
-        with tensor_parallel(tp):
+        with tensor_parallel(tp), sequence_parallel(sp):
             return local_grad_fn(params, batch, gen)
 
     def local_grad_fn(params, batch: Batch, gen=None):
         leaves = tree_leaves(params)
-        if grad_accum == 1 and dp is None:
+        if grad_accum == 1 and dp is None and sp is None:
             return loss_and_grads(params, leaves, batch, gen)
         norm = (torch.sum(batch.trg_y != PAD), torch.sum(batch.query != PAD))
         if dp is not None:
@@ -154,8 +169,13 @@ def make_grad_step(cfg: ModelConfig, tcfg: TrainConfig, grad_accum: int = 1,
         # each microbatch reported the GLOBAL counts (norm_override): keep
         # them once
         metrics["ntokens"], metrics["qntokens"] = norm
-        if dp is not None:
+        if sp is not None:
+            if not reducer:
+                reducer.append(DataParallel.over_group(leaves[0].device, sp.grad_group))
+            grads = reducer[0].all_reduce_grads(grads)
+        elif dp is not None:
             grads = dp.all_reduce_grads(grads)
+        if dp is not None:
             loss, metrics = _sum_over_ranks(dp, loss, metrics)
         return loss, metrics, grads
 
@@ -175,15 +195,16 @@ def _sum_over_ranks(dp, loss, metrics):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, tx: Adam,
-                    grad_accum: int = 1, dp=None, tp=None) -> Callable:
+                    grad_accum: int = 1, dp=None, tp=None, sp=None) -> Callable:
     """Returns (state, batch, gen) → (state, metrics); `gen` is the dropout
     generator (None without dropout).  metrics are 0-d tensors on the
     device, read by the caller when it needs them.  The gradients are
     `make_grad_step`'s (grad_accum microbatches, peak activation memory
     shrinking by the same factor; with `dp`, this rank's rows of a global
-    batch and the sums across the ranks; with `tp`, this rank's shards),
-    then ONE optimizer update (of the local shards, under TP)."""
-    grad_fn = make_grad_step(cfg, tcfg, grad_accum=grad_accum, dp=dp, tp=tp)
+    batch and the sums across the ranks; with `tp`, this rank's shards;
+    with `sp`, this rank's block of the long axes), then ONE optimizer
+    update (of the local shards, under TP)."""
+    grad_fn = make_grad_step(cfg, tcfg, grad_accum=grad_accum, dp=dp, tp=tp, sp=sp)
 
     def step_fn(state: TrainState, batch: Batch, gen=None):
         loss, metrics, grads = grad_fn(state.params, batch, gen)

@@ -217,6 +217,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      timed (a smoke reading: gloo on one card says nothing about NVLink),
      and beam search (beam 5, maxlen 12) of phase 3's model on one batch of
      64 turns inside `tensor_parallel`: the tokens of one device.
+ 16. sequence parallelism (bist_tpu_torch.parallel.sp) on the one card: (a)
+     two ranks sharing it over gloo (this script with --sp-rank, one
+     process each) at a (1 data × 2 seq) mesh of the flagship, each rank
+     holding half of the history (128 of 256 tokens) and of the clips:
+     one train step at dropout 0 on phase 6's first batch of 32 against
+     the one-device eager step (phase 15's bounds), K1 and K2 6 times each
+     on each rank by kernel name, all "whole" (t2s over the whole T, s2t
+     over the rank's T/2 groups), the peak memory the step adds on each
+     rank against one device, the seq axis's collectives (`sp.counts`), 5
+     eager SP Adam steps timed (a smoke reading), and beam search of phase
+     3's model on 64 turns inside `sequence_parallel`: the tokens of one
+     device, K1 6 times a rank; (b) four ranks at a (1 × 2 model × 2 seq)
+     mesh at tests/test_sp.py's widths, started with (a): one step, the
+     loss and gradients against one device.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -1935,17 +1949,35 @@ def serve_window(device, rsp, fields, n, clients, profiled):
     return out
 
 
+def warm_table(device, rsp):
+    """Capture (on the card) each geometry of `traffic_table` over the
+    geometries `rsp` has entered that it has not entered yet; returns the
+    table's size and how many of it were new."""
+    seen = rsp.program.geometries()
+    table = traffic_table(seen, rsp.batch_buckets)
+    new = [g for g in table if g not in seen]
+    if device.type == "cuda":
+        rsp.warmup_geometries(new)
+    return len(table), len(new)
+
+
 def settled_window(device, rsp, fields, n, clients, profiled, what, reads=3):
     """`serve_window`, read again (up to `reads` times in all) while a read
-    captured a geometry (its time then holds the capture, not serving):
-    returns the first read that captured nothing, with each read's captures
-    and program stats before and after it; raises when every read captured."""
+    captured a geometry (its time then holds the capture, not serving),
+    with `warm_table`'s new geometries captured before each further read
+    (a captured group adds its buckets at every batch size, and their
+    maxima with the groups before): returns the first read that captured
+    nothing, with each read's captures, the geometries it entered, the
+    table's new geometries after it and the program stats before and after
+    it; raises when every read captured."""
     tried = []
     for _ in range(reads):
-        before = rsp.program.stats()
+        before, seen = rsp.program.stats(), rsp.program.geometries()
         w = serve_window(device, rsp, fields, n, clients, profiled)
         after = rsp.program.stats()
         tried.append({"captures": w["captures"], "requests_per_s": w["requests_per_s"],
+                      "new_geometries": [g for g in rsp.program.geometries()
+                                         if g not in seen],
                       "program_before": before, "program_after": after})
         log(f"serving load, {what}, read {len(tried)}: {w['requests_per_s']:.2f} "
             f"requests/s, {w['captures']} captures in the window "
@@ -1953,6 +1985,7 @@ def settled_window(device, rsp, fields, n, clients, profiled, what, reads=3):
         if w["captures"] == 0:
             log(f"serving load, {what}: reporting read {len(tried)}, which captured nothing")
             return dict(w, reads=tried)
+        tried[-1]["table_after"] = dict(zip(("geometries", "new"), warm_table(device, rsp)))
     raise AssertionError(f"serving load, {what}: each of {reads} reads captured a geometry: "
                          f"{json.dumps(tried)}")
 
@@ -2015,9 +2048,9 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
                        clients=64, dv=DV, s=S):
     """Serving at the serve CLI's defaults (batch buckets 8-64, its length
     and time buckets, bfloat16 cache, beam 5, warmup over every batch
-    bucket, then the requests of `fields` once and `traffic_table`'s
-    geometries by `warmup_geometries`, so that the geometries of their
-    traffic are captured before the windows): n_req requests by beam
+    bucket, then the requests of `fields` once and a pass at the window's
+    own size, each followed by `warm_table`, so that the geometries of
+    their traffic are captured before the windows): n_req requests by beam
     search, then n_other greedily and n_other by beam search with a
     bfloat16 precompute (K1 on a bfloat16 grid), each read bare; then n_prof more of each under torch.profiler
     for the card's busy share; on the card, the parts of one beam-search
@@ -2045,16 +2078,19 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
         at_warmup = rsp.program.stats()
         # the traffic's own geometries (warmup() takes one length and time
         # bucket a batch bucket) captured before the windows are read: one
-        # pass of its requests, then `traffic_table` (the batches' sizes,
-        # and so the groups' bucket maxima, follow the host's timing: on a
-        # slow host a pass alone left a new geometry for each of 3 reads);
-        # on the CPU nothing is captured, so the table is only counted
+        # pass of its requests, then `warm_table` (the batches' sizes, and
+        # so the groups' bucket maxima, follow the host's timing: on a slow
+        # host a pass alone, and then a pass and one table, left a new
+        # geometry for each of 3 reads); on the CPU nothing is captured, so
+        # the table is only counted
         traffic = serve_window(device, rsp, fields, len(fields), clients, profiled=False)
         at_traffic = rsp.program.stats()
-        table = traffic_table(rsp.program.geometries(), rsp.batch_buckets)
         t0 = time.perf_counter()
-        if device.type == "cuda":
-            rsp.warmup_geometries(table)
+        table, _ = warm_table(device, rsp)
+        # one more pass at the window's own size (its groups follow its
+        # request count), its new groups' table captured as well
+        serve_window(device, rsp, fields, n, clients, profiled=False)
+        table, _ = warm_table(device, rsp)
         table_s = time.perf_counter() - t0
         at_table = rsp.program.stats()
         out[name] = dict(settled_window(device, rsp, fields, n, clients, False, name),
@@ -2066,7 +2102,7 @@ def phase_serving_load(device, model, fields, n_req=512, n_other=128, n_prof=128
                              "capture_seconds": at_traffic["capture_seconds"]
                              - at_warmup["capture_seconds"]},
                          traffic_table={
-                             "geometries": len(table), "seconds": table_s,
+                             "geometries": table, "seconds": table_s,
                              "captures": at_table["captures"] - at_traffic["captures"],
                              "capture_seconds": at_table["capture_seconds"]
                              - at_traffic["capture_seconds"]},
@@ -3795,6 +3831,22 @@ def phase_data_parallel(device, root, model, fields, cli_root, phase6_ms=None, m
 # phase 15: tensor parallelism
 
 
+def grads_within_bound(what, names, got, want):
+    """Each gradient leaf within phase 6's bound, 5e-4 + 5e-3·|g| (wk.b, a
+    zero gradient with round-off, 5e-4); returns the largest error over
+    the bound."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        rtol = 0.0 if name.endswith("wk.b") else 5e-3
+        err = (a - b).abs()
+        bound = 5e-4 + rtol * b.abs()
+        worst = max(worst, float((err / bound).max()))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{what}: gradient {name} differs from one device's by "
+                                 f"{err.max().item():.3e}")
+    return worst
+
+
 def tp_beam_setup(device, rows=64, model_kw=None):
     """Phase 3's model (the flagship, random weights from seed 0) and its
     first batch of `rows` undisclosed test turns (numpy seed 0), with
@@ -4039,14 +4091,8 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
         if rel > 5e-4:
             raise AssertionError(f"tp rank {r}: loss {float(got['loss'])} against one "
                                  f"device's {one['loss']}")
-        for name, a, b in zip(names, got["grads"], one["grads"]):
-            rtol = 0.0 if name.endswith("wk.b") else 5e-3   # wk.b: zero, residue
-            err = (a - b).abs()
-            bound = 5e-4 + rtol * b.abs()
-            worst_grad = max(worst_grad, float((err / bound).max()))
-            if not bool((err <= bound).all()):
-                raise AssertionError(f"tp rank {r}: gradient {name} differs from one "
-                                     f"device's by {err.max().item():.3e}")
+        worst_grad = max(worst_grad, grads_within_bound(f"tp rank {r}", names, got["grads"],
+                                                        one["grads"]))
         if cuda and (got["by_name"] != {"k1": {"whole": 0, "tiled": 0},
                                         "k2": {"whole": 0, "tiled": 0}}
                      or got["wrappers"] != {"hop1_fwd": 0, "hop1_bwd": 0}
@@ -4077,6 +4123,309 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
             "beam_model_all_reduces": ranks[0]["beam_model_all_reduces"],
             "tp_losses": ranks[0]["losses"],
             "beam_seconds": [r["beam_seconds"] for r in ranks],
+            "seconds": time.perf_counter() - t_start}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: sequence parallelism
+
+# (b)'s widths: tests/test_sp.py's model on phase 6's batches
+SP_TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)
+
+
+def sp_rank_main(argv) -> int:
+    """One rank of phase 16: `python chip_smoke.py --sp-rank <address> <world>
+    <rank> <dir> <device type> <train rows> <beam rows> <steps> <model axis>
+    <seq axis> [<model widths as JSON>]`.  Joins a gloo group of <world>
+    ranks on the device (all share one card), builds the (data, [model,]
+    seq) mesh, takes its block of the long axes of phase 6's first batch
+    and runs the gradient step eagerly under torch.profiler (K1, K2 by
+    kernel name; with a model axis on this rank's shards, the gradients
+    gathered to full leaves), reading the peak memory the step added; then,
+    with <steps> > 0, once the parent process has left the card
+    (<dir>/refs.done), <steps> eager Adam steps (timed); with <beam rows>
+    > 0, beam search of phase 3's model on one batch inside
+    `sequence_parallel`; saves what it computed to <dir>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.parallel import (DataParallel, SequenceParallel, TensorParallel,
+                                         gather_params, make_mesh, sequence_parallel,
+                                         shard_params)
+    from bist_tpu_torch.parallel import sp as sp_mod
+    from bist_tpu_torch.train.loop import (TrainState, make_grad_step, make_train_step,
+                                           trainable)
+    from bist_tpu_torch.weights import tree_leaves, tree_map
+
+    address, world, rank, root, kind = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    B, rows, steps, model_axis, seq_axis = (int(a) for a in argv[5:10])
+    model_kw = json.loads(argv[10]) if len(argv) > 10 else None
+    device = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    cuda = device.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1 if world > 2 else 2)     # the ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo on the card too: NCCL ranks cannot share one card
+    dist.init_process_group("gloo", init_method=f"tcp://{address}", world_size=world, rank=rank)
+    mesh = make_mesh(model_axis=model_axis, seq_axis=seq_axis, device_type=kind)
+    tp = TensorParallel.from_mesh(mesh) if model_axis > 1 else None
+    sp = SequenceParallel.from_mesh(mesh)
+    dp = DataParallel.in_group(device, mesh)
+    cfg, tcfg, tx, state, batches = dp_train_setup(device, B, model_kw)
+    local = [sp_mod.shard_batch(dp.shard(b)[0], sp) for b in batches]
+    params = trainable(state.params if tp is None else shard_params(state.params, tp))
+    del state
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grad_fn = make_grad_step(cfg, tcfg, dp=dp, tp=tp, sp=sp)
+    grad_fn(params, local[0])                     # warm-up
+    sync()
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    sp_mod.counts.update(all_gathers=0, all_reduces=0, bytes=0)
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with profiler_window(device) as prof:
+        loss, _, grads = grad_fn(params, local[0])
+        sync()
+    out = {"mesh": (mesh.mesh.tolist(), mesh.mesh_dim_names), "seq": (sp.rank, sp.size),
+           "data": (dp.rank, dp.n), "model": None if tp is None else (tp.rank, tp.size),
+           "his_block": int(local[0].his.shape[1]), "t_block": int(local[0].fts.shape[1]),
+           "loss": loss.cpu(), "step_counts": dict(sp_mod.counts),
+           "wrappers": {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches},
+           "variants": {"hop1_fwd": dict(hop1_fused.variants),
+                        "hop1_bwd": dict(hop1_bwd.variants)},
+           "by_name": hop1_ran(prof) if cuda else None,
+           "peak_mb": torch.cuda.max_memory_allocated(device) / 2**20 if cuda else None,
+           "step_peak_mb": (torch.cuda.max_memory_allocated(device) - before) / 2**20
+           if cuda else None}
+    it = iter(grads)
+    full = tree_map(lambda _: next(it).clone(), params)
+    out["grads"] = [g.cpu() for g in tree_leaves(full if tp is None else
+                                                 gather_params(full, tp))]
+    del grads, full
+    if steps > 0:
+        st = TrainState(params, tx.init(tree_leaves(params)), 0)
+        step = make_train_step(cfg, tcfg, tx, dp=dp, tp=tp, sp=sp)
+        flag, deadline = os.path.join(root, "refs.done"), time.monotonic() + 300
+        while not os.path.exists(flag):         # the parent's references off the card
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {flag} after 300 s")
+            time.sleep(0.05)
+        times, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            st, m = step(st, local[i % 2])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        out["ms_per_step"] = statistics.median(times[1:] or times)
+        out["step_ms"], out["losses"] = times, losses
+        del st, step
+    del grad_fn, params
+    if rows > 0:
+        bcfg, gcfg, bparams, bbatch = tp_beam_setup(device, rows, model_kw)
+        bbatch = sp_mod.shard_batch(dp.shard(bbatch)[0], sp)
+        reset_hop1_counts()
+        sp_mod.counts.update(all_gathers=0, all_reduces=0, bytes=0)
+        t0 = time.perf_counter()
+        with sequence_parallel(sp):
+            res = beam_search(bparams, bcfg, bbatch, gcfg)
+        sync()
+        out["beam_seconds"] = time.perf_counter() - t0
+        out["beam_counts"] = dict(sp_mod.counts)
+        out["beam_k1_wrapper"] = hop1_fused.launches
+        out["beam_tokens"] = res.tokens.cpu()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def start_sp_ranks(device, root, world, B, rows, steps, model_axis, seq_axis, model_kw):
+    """`world` processes of `sp_rank_main` on the device, their logs under
+    `root`; returns (processes, log paths)."""
+    os.makedirs(root, exist_ok=True)
+    flag = os.path.join(root, "refs.done")
+    if os.path.exists(flag):
+        os.remove(flag)
+    address = f"127.0.0.1:{free_port()}"
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(world)]
+    extra = [json.dumps(model_kw)] if model_kw else []
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sp-rank", address, str(world),
+                 str(r), root, device.type, str(B), str(rows), str(steps), str(model_axis),
+                 str(seq_axis), *extra], stdout=logf, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def wait_ranks(procs, logs, deadline, what):
+    for p, path in zip(procs, logs):
+        p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        if p.returncode != 0:
+            with open(path) as f:
+                raise AssertionError(f"{what} rank exited {p.returncode}:\n{f.read()[-6000:]}")
+
+
+def one_device_grads(device, B, model_kw, profiled=False):
+    """Phase 6's one-device eager gradient step at dropout 0 (K1/K2 as
+    dispatched): loss, gradients, leaf names, the peak memory the step
+    added; with `profiled`, K1/K2 by kernel name; and the set-up."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.loop import make_grad_step
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    setup = dp_train_setup(device, B, model_kw)
+    cfg, tcfg, _, state, batches = setup
+    make_grad_step(cfg, tcfg)(state.params, batches[0])          # warm-up
+    sync()
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with profiler_window(device) if profiled else contextlib.nullcontext() as prof:
+        loss, _, grads = make_grad_step(cfg, tcfg)(state.params, batches[0])
+        sync()
+    return {"loss": float(loss), "grads": [g.cpu() for g in grads],
+            "names": leaf_names(state.params),
+            "step_peak_mb": (torch.cuda.max_memory_allocated(device) - before) / 2**20
+            if cuda else None,
+            "wrappers": {"hop1_fwd": hop1_fused.launches, "hop1_bwd": hop1_bwd.launches},
+            "by_name": hop1_ran(prof) if cuda and profiled else None}, setup
+
+
+def phase_sequence_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
+                            model_kw=None, tiny_kw=SP_TINY, tiny_B=8):
+    """Phase 16: sequence parallelism on one card, its ranks sharing the card
+    over gloo (`sp_rank_main`).  (a) Two ranks at a (1 data × 2 seq) mesh of
+    the flagship (`model_kw` widths; his and T even, each rank a half): one
+    train step at dropout 0 on phase 6's first batch of B against the
+    one-device eager step (this process, while the ranks run): the loss
+    within 5e-4 relative and each gradient within phase 6's bound; K1 and
+    K2 6 times each on each rank by kernel name, all "whole" (t2s at the
+    whole T, s2t at T/2 groups), as on one device; the peak memory the step
+    added on each rank and on one device; `sp.counts`; then 5 eager SP Adam
+    steps timed, and beam search (beam 5, maxlen 12) of phase 3's model on
+    one batch of `rows` turns inside `sequence_parallel`: the tokens of one
+    device, K1 6 times on each rank.  (b) Four ranks at (1 × 2 model × 2
+    seq) at `tiny_kw` widths on phase 6's first `tiny_B` rows, started with
+    (a) and done before (a)'s timed steps: one step, the loss and gradients
+    against one device.  Returns the readings; ms/step is a smoke reading
+    (gloo through the host on one card)."""
+    import torch
+
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.train.loop import make_train_step
+
+    t_start = time.perf_counter()
+    deadline = t_start + timeout
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root_a, root_b = os.path.join(root, "a"), os.path.join(root, "b")
+    procs_a, logs_a = start_sp_ranks(device, root_a, 2, B, rows, steps, 1, 2, model_kw)
+    procs_b, logs_b = start_sp_ranks(device, root_b, 4, tiny_B, 0, 0, 2, 2, tiny_kw)
+    try:
+        # the one-device references while the ranks start
+        one, (cfg, tcfg, tx, state, batches) = one_device_grads(device, B, model_kw,
+                                                                profiled=True)
+        tiny, _ = one_device_grads(device, tiny_B, tiny_kw)
+        bcfg, gcfg, bparams, bbatch = tp_beam_setup(device, rows, model_kw)
+        tokens = beam_search(bparams, bcfg, bbatch, gcfg).tokens.cpu()
+        del bparams
+        sync()
+        wait_ranks(procs_b, logs_b, deadline, "sp (b)")
+        open(os.path.join(root_a, "refs.done"), "w").close()     # (a)'s timed steps may start
+        wait_ranks(procs_a, logs_a, deadline, "sp (a)")
+        # the one-device eager step alone on the card, as the ranks time it
+        state, one_ms = eager_steps_ms(make_train_step(cfg, tcfg, tx), state, batches,
+                                       steps, sync)
+        one["ms_per_step"] = statistics.median(one_ms[1:] or one_ms)
+        del state
+    finally:
+        for p in procs_a + procs_b:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(os.path.join(root_a, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    ranks_b = [torch.load(os.path.join(root_b, f"rank{r}.pt"), weights_only=False)
+               for r in range(4)]
+    whole6 = {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}
+    if cuda and (one["by_name"] != whole6 or one["wrappers"] != {"hop1_fwd": 6,
+                                                                  "hop1_bwd": 6}):
+        raise AssertionError(f"sp: the one-device step ran K1, K2 {one['by_name']} by name "
+                             f"({one['wrappers']}), expected 6 \"whole\" each")
+    worst_loss, worst_grad = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        what = f"sp (a) rank {r}"
+        if got["mesh"] != ([[0, 1]], ("data", "seq")) or got["seq"] != (r, 2):
+            raise AssertionError(f"{what}: mesh {got['mesh']}, seq place {got['seq']}")
+        rel = abs(float(got["loss"]) - one["loss"]) / abs(one["loss"])
+        worst_loss = max(worst_loss, rel)
+        if rel > 5e-4:
+            raise AssertionError(f"{what}: loss {float(got['loss'])} against one device's "
+                                 f"{one['loss']}")
+        worst_grad = max(worst_grad, grads_within_bound(what, one["names"], got["grads"],
+                                                        one["grads"]))
+        if cuda and (got["wrappers"] != {"hop1_fwd": 6, "hop1_bwd": 6}
+                     or got["beam_k1_wrapper"] != 6 or got["by_name"] != whole6):
+            raise AssertionError(f"{what}: K1, K2 launched {got['wrappers']} in the step "
+                                 f"({got['by_name']} by name), K1 {got['beam_k1_wrapper']} in "
+                                 f"the beam precompute, expected 6 \"whole\" each")
+        if not all(np.isfinite(got["losses"])):
+            raise AssertionError(f"{what}: non-finite losses {got['losses']}")
+        if not torch.equal(got["beam_tokens"], tokens):
+            diff = int((got["beam_tokens"] != tokens).any(-1).any(-1).sum())
+            raise AssertionError(f"{what}: beam tokens differ from one device's in {diff} "
+                                 f"of {rows} rows")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"sp: the seq ranks' losses differ: {ranks[0]['losses']} "
+                             f"against {ranks[1]['losses']}")
+    worst_b = 0.0
+    for r, got in enumerate(ranks_b):
+        what = f"sp (b) rank {r}"
+        if (got["mesh"] != ([[[0, 1], [2, 3]]], ("data", "model", "seq"))
+                or got["model"] != (r // 2, 2) or got["seq"] != (r % 2, 2)):
+            raise AssertionError(f"{what}: mesh {got['mesh']}, model {got['model']}, "
+                                 f"seq {got['seq']}")
+        rel = abs(float(got["loss"]) - tiny["loss"]) / abs(tiny["loss"])
+        worst_b = max(worst_b, rel)
+        if rel > 5e-4:
+            raise AssertionError(f"{what}: loss {float(got['loss'])} against one device's "
+                                 f"{tiny['loss']}")
+        grads_within_bound(what, tiny["names"], got["grads"], tiny["grads"])
+        if got["wrappers"] != {"hop1_fwd": 0, "hop1_bwd": 0}:
+            raise AssertionError(f"{what}: K1, K2 ran under TP x SP: {got['wrappers']}")
+    return {"mesh": "1 data x 2 seq, gloo, both ranks on one device",
+            "train_rows": B, "beam_rows": rows,
+            "blocks": {"his": ranks[0]["his_block"], "t": ranks[0]["t_block"]},
+            "loss_rel_err": worst_loss, "grad_max_err_over_bound": worst_grad,
+            "one_device_by_name": one["by_name"], "sp_by_name": [r["by_name"] for r in ranks],
+            "sp_variants": [r["variants"] for r in ranks],
+            "beam_tokens_identical_rows": rows,
+            "beam_k1_wrapper": [r["beam_k1_wrapper"] for r in ranks],
+            "eager_sp_ms_per_step": [r["ms_per_step"] for r in ranks],
+            "eager_sp_step_ms": [r["step_ms"] for r in ranks],
+            "one_device_eager_ms_per_step": one["ms_per_step"],
+            "step_peak_mb": {"one_device": one["step_peak_mb"],
+                             "sp_ranks": [r["step_peak_mb"] for r in ranks]},
+            "sp_rank_peak_mb": [r["peak_mb"] for r in ranks],
+            "seq_collectives_a_step": ranks[0]["step_counts"],
+            "beam_seq_collectives": ranks[0]["beam_counts"],
+            "sp_losses": ranks[0]["losses"],
+            "beam_seconds": [r["beam_seconds"] for r in ranks],
+            "tp_sp": {"mesh": "1 data x 2 model x 2 seq, gloo, four ranks on one device",
+                      "widths": tiny_kw, "rows": tiny_B, "loss_rel_err": worst_b,
+                      "seq_collectives_a_step": ranks_b[0]["step_counts"]},
             "seconds": time.perf_counter() - t_start}
 
 
@@ -4267,6 +4616,24 @@ def main() -> int:
     print(f"tensor parallel on {card}: {json.dumps(tpr)}", flush=True)
     lap("tensor parallel")
 
+    spr = phase_sequence_parallel(device, os.path.join(HERE, "build", "chip_smoke", "sp"))
+    mem = spr["step_peak_mb"]
+    print(f"sequence parallel on {card}: 2 gloo ranks on one card, (1 data x 2 seq) mesh, "
+          f"blocks of {spr['blocks']['his']} history tokens and {spr['blocks']['t']} clips a "
+          f"rank: loss {spr['loss_rel_err']:.2e} rel, gradients "
+          f"{spr['grad_max_err_over_bound']:.3f} of phase 6's bound, K1/K2 by name under SP "
+          f"{json.dumps(spr['sp_by_name'])} (one device {json.dumps(spr['one_device_by_name'])}"
+          f"); beam 5 on {spr['beam_rows']} rows: tokens identical, K1 "
+          f"{spr['beam_k1_wrapper']} a rank; eager SP step "
+          f"{[round(x, 2) for x in spr['eager_sp_ms_per_step']]} ms (smoke: gloo on one card; "
+          f"one device {spr['one_device_eager_ms_per_step']:.2f}) with "
+          f"{json.dumps(spr['seq_collectives_a_step'])} on the seq axis; peak memory a step "
+          f"adds {[round(x, 1) for x in mem['sp_ranks']]} MB a rank against "
+          f"{mem['one_device']:.1f} on one device; (1 x 2 x 2) TP x SP at tiny widths: loss "
+          f"{spr['tp_sp']['loss_rel_err']:.2e} rel; {spr['seconds']:.1f} s", flush=True)
+    print(f"sequence parallel on {card}: {json.dumps(spr)}", flush=True)
+    lap("sequence parallel")
+
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -4294,7 +4661,12 @@ def main() -> int:
              launches_dp={"world_one_train_replayed": w1["replayed_by_name"]["k1"],
                           "gloo_ranks": [r["k1"] for r in two["by_name"]],
                           "responder_pair": dps["responder"]["k1_by_name_4_batches"],
-                          "bundle_pair": dps["bundle"]["k1_by_name_4_batches"]}),
+                          "bundle_pair": dps["bundle"]["k1_by_name_4_batches"]},
+             # K1 kernels the card ran, by name, in each seq rank's train step
+             # (phase 16); K1 launches through the wrapper in each seq rank's
+             # beam-search precompute
+             launches_sp={"seq_ranks_train": [r["k1"] for r in spr["sp_by_name"]],
+                          "seq_ranks_beam": spr["beam_k1_wrapper"]}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
                           train["launches"]["hop1_bwd"],
@@ -4307,7 +4679,10 @@ def main() -> int:
              # K2 kernels (first pass) the card ran, by name: 3 replays of the
              # world-1 NCCL train program and each gloo rank's step
              launches_dp={"world_one_train_replayed": w1["replayed_by_name"]["k2"],
-                          "gloo_ranks": [r["k2"] for r in two["by_name"]]}),
+                          "gloo_ranks": [r["k2"] for r in two["by_name"]]},
+             # K2 kernels (first pass) the card ran, by name, in each seq
+             # rank's train step (phase 16)
+             launches_sp={"seq_ranks_train": [r["k2"] for r in spr["sp_by_name"]]}),
         dict(kernel_entry("flash_fwd", "bist_tpu_torch/csrc/flash_fwd.cu",
                           "bist_tpu/ops/flash_attention.py:43", flash_cases,
                           mha_flash["launches"],
@@ -4330,4 +4705,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:          # a rank of phase 15, not a run
         sys.exit(tp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sp-rank"]:          # a rank of phase 16, not a run
+        sys.exit(sp_rank_main(sys.argv[2:]))
     sys.exit(main())

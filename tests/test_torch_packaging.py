@@ -7,6 +7,8 @@ package (`ops/_build.py`)."""
 import fnmatch
 import importlib
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -61,6 +63,20 @@ def test_every_port_cli_has_a_bist_torch_command():
         assert callable(getattr(importlib.import_module(mod_name), attr)), name
     assert not set(cmds) & set(project["scripts"])
     assert all(t.startswith("bist_tpu.cli.") for t in project["scripts"].values())
+
+
+@pytest.mark.parametrize("name", PORT_CLIS)
+def test_every_port_cli_runs_as_a_module(name):
+    """Each `bist_tpu_torch.cli.<name>` behind a gui-script runs under
+    `python -m` (what a gui-script runs: on Linux, where the kernels build,
+    it is an ordinary console command): `--help` exits 0 and prints its
+    usage."""
+    target = _project()["project"]["gui-scripts"][f"bist-torch-{name.replace('_', '-')}"]
+    assert target == f"bist_tpu_torch.cli.{name}:main"
+    res = subprocess.run([sys.executable, "-m", f"bist_tpu_torch.cli.{name}", "--help"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "usage" in res.stdout.lower(), res.stdout[-2000:]
 
 
 def test_build_dir_in_the_tree_and_in_a_user_cache(monkeypatch, tmp_path):

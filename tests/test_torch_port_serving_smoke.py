@@ -69,6 +69,66 @@ def test_traffic_table_crosses_every_batch_bucket_with_the_reached_buckets():
     assert g(32, 32, 128, 32) not in table
 
 
+class _Program:
+    def __init__(self, geoms):
+        self.geoms = list(geoms)
+
+    def geometries(self):
+        return list(self.geoms)
+
+    def stats(self):
+        return {"geometries": len(self.geoms), "captures": len(self.geoms)}
+
+
+class _Responder:
+    """What warm_table and settled_window read of a Responder: its
+    program's geometries, its batch buckets, and warmup_geometries (which
+    enters each geometry it is given)."""
+    batch_buckets = (8, 16)
+
+    def __init__(self, geoms):
+        self.program = _Program(geoms)
+        self.warmed = []
+
+    def warmup_geometries(self, geoms):
+        self.warmed.append(list(geoms))
+        self.program.geoms += geoms
+
+
+def test_a_read_that_captured_is_followed_by_the_new_part_of_the_table(monkeypatch):
+    """warm_table captures only the table's geometries not entered yet; a
+    read that captured has them captured before the next read, which is
+    the one reported when it captures nothing."""
+    def g(B, Lh, T):
+        return dict(B=B, Lq=16, Lh=Lh, Lt=1, T=T, S=16, Dv=2048, int8=False)
+
+    cuda = torch.device("cuda")                          # a type, no card needed
+    rsp = _Responder([g(8, 128, 48), g(16, 128, 48)])
+    assert chip_smoke.warm_table(cuda, rsp) == (2, 0) and rsp.warmed == [[]]
+    rsp.program.geoms.append(g(8, 256, 32))              # a group the table lacked
+    assert chip_smoke.warm_table(cuda, rsp) == (6, 3)
+    assert g(16, 256, 48) in rsp.warmed[-1] and g(8, 256, 32) not in rsp.warmed[-1]
+
+    captures = iter([1, 0])
+
+    def window(device, rsp_, fields, n, clients, profiled):
+        c = next(captures)
+        if c:
+            rsp_.program.geoms.append(g(8, 512, 32))
+        return {"captures": c, "requests_per_s": 1.0}
+
+    monkeypatch.setattr(chip_smoke, "serve_window", window)
+    out = chip_smoke.settled_window(cuda, rsp, [], 4, 2, False, "fake")
+    first, second = out["reads"]
+    assert first["new_geometries"] == [g(8, 512, 32)] and first["table_after"]["new"] > 0
+    assert second["captures"] == 0 and "table_after" not in second
+    assert g(16, 512, 48) in rsp.warmed[-1]
+    monkeypatch.setattr(chip_smoke, "serve_window",
+                        lambda *a: {"captures": 1, "requests_per_s": 1.0})
+    with pytest.raises(AssertionError, match="each of 3 reads captured"):
+        chip_smoke.settled_window(cuda, rsp, [], 4, 2, False, "fake")
+
+
 def test_serve_and_evaluate_cli_phase(tmp_path):
     root = str(tmp_path / "tiny")
     test_set = chip_smoke.write_tiny_dataset(root, 4, TINY, t_max=9, **SMALL)
