@@ -112,7 +112,8 @@
 //      dv rows of the workspace, 64 x 64 output tiles.
 //   2. hop1_bwd_dw_kernel: dWk, dWv = kvᵀ [dk, dv] over all B·G·Lk rows, in
 //      64 x 64 output tiles, the rows cut into a fixed number of chunks (one
-//      partial each, enough blocks to fill the card); dbk, dbv ride along.
+//      partial each, enough blocks to fill the card; within a chunk a
+//      three-level sum of 16-row steps); dbk, dbv ride along.
 // Both variants end with
 //   3. sum_middle_kernel: the partials summed in a fixed order (dq over g,
 //      the weight gradients over the row chunks).
@@ -530,7 +531,11 @@ hop1_bwd_dkv_kernel(const float* __restrict__ dk_rows, const float* __restrict__
 }
 
 // Pass 2: part[chunk] = (kvᵀ dk, kvᵀ dv, Σ dk, Σ dv) over the chunk's rows
-// (D x Dp each, Σ Dp each; dk and dv rows of stride Dp).
+// (D x Dp each, Σ Dp each; dk and dv rows of stride Dp).  A chunk holds
+// thousands of rows (6,827 at D 512 and B·G·Lk = 20,480), and one float32
+// sum a row at a time drifts from float32's blocked sums by ~7e-4 there:
+// each 16-row step is summed apart, 16 steps into a middle sum, and those
+// into the chunk's, so that no sum takes more than 16 terms of its level.
 template <typename TKV>
 __global__ void __launch_bounds__(kThreads)
 hop1_bwd_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
@@ -548,8 +553,9 @@ hop1_bwd_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
   const long long r_end = min(nrows, r_begin + chunk);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const bool bias = i0 == 0 && tid < kDwTile;
-  float acc[4][4] = {};
-  float bsum = 0.f;
+  float acc[4][4] = {}, mid[4][4] = {};
+  float bsum = 0.f, bmid = 0.f;
+  int steps = 0;
   for (long long r0 = r_begin; r0 < r_end; r0 += kDwRows) {
     for (int e = tid; e < kDwRows * kDwTile; e += kThreads) {
       const int rr = e / kDwTile, cc = e % kDwTile;
@@ -566,6 +572,8 @@ hop1_bwd_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
       b_s[rr][cc] = d;
     }
     __syncthreads();
+    float step[4][4] = {};
+    float bstep = 0.f;
 #pragma unroll 4
     for (int rr = 0; rr < kDwRows; ++rr) {
       const float4 a4 = *reinterpret_cast<const float4*>(&a_s[rr][ty * 4]);
@@ -575,11 +583,32 @@ hop1_bwd_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-      if (bias) bsum += b_s[rr][tid];
+        for (int j = 0; j < 4; ++j) step[i][j] = fmaf(av[i], bw[j], step[i][j]);
+      if (bias) bstep += b_s[rr][tid];
+    }
+    const bool flush = ++steps % 16 == 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mid[i][j] += step[i][j];
+        if (flush) {
+          acc[i][j] += mid[i][j];
+          mid[i][j] = 0.f;
+        }
+      }
+    bmid += bstep;
+    if (flush) {
+      bsum += bmid;
+      bmid = 0.f;
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += mid[i][j];
+  bsum += bmid;
   float* out = part + blockIdx.y * (2 * (size_t)D * Dp + 2 * (size_t)Dp);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -795,69 +824,6 @@ __host__ __device__ inline BwdLayout bwd_layout(int Lq, int Lk, int D, int h, in
   s.mask_off = s.dv_off + rows * s.ld;
   s.floats = s.mask_off + kWholeMaxLk;
   return s;
-}
-
-// Issue chunk c of [Wk | Wv] (rows c·kWChunk.., 2D floats each) into buf.
-template <int D>
-__device__ __forceinline__ void issue_wkv(float* buf, const float* __restrict__ wk,
-                                          const float* __restrict__ wv, int c, int ldw) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < kWChunk * 2 * n4; i += kThreads) {
-    const int r = i / (2 * n4), f = i % (2 * n4);
-    const size_t row = (size_t)(c * kWChunk + r) * D;
-    cp_async16(buf + r * ldw + 4 * f, f < n4 ? wk + row + 4 * f : wv + row + 4 * (f - n4));
-  }
-}
-
-// Issue chunk c of a row-major (., D) matrix (rows c·kWChunk..) into buf.
-template <int D>
-__device__ __forceinline__ void issue_w(float* buf, const float* __restrict__ w, int c,
-                                        int ld) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < kWChunk * n4; i += kThreads) {
-    const int r = i / n4, f = i % n4;
-    cp_async16(buf + r * ld + 4 * f, w + (size_t)(c * kWChunk + r) * D + 4 * f);
-  }
-}
-
-// Issue the kv rows of groups g0 .. g0 + ng - 1 (group j's row t to row
-// j·Lk + t of kv_s) and zero the rows after them up to `rows`.
-template <typename TKV, int D>
-__device__ __forceinline__ void issue_kv(TKV* kv_s, int ldkv, const TKV* __restrict__ kv_b,
-                                         long long kv_sg, long long kv_st, int Lk, int ng,
-                                         int rows) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < rows * n4; i += kThreads) {
-    const int r = i / n4, e = i % n4 * 4;
-    TKV* dst = kv_s + r * ldkv + e;
-    const TKV* src = kv_b + (r / Lk) * kv_sg + (r % Lk) * kv_st + e;
-    if (sizeof(TKV) == 4) {
-      if (r < ng * Lk)
-        cp_async16(dst, src);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      if (r < ng * Lk)
-        cp_async8(dst, src);
-      else
-        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-    }
-  }
-}
-
-// Issue rows 0 .. nr - 1 of a row-major (., D) block into dst (row stride
-// ld) and zero its rows from nr up to n.
-template <int D>
-__device__ __forceinline__ void issue_rows(float* dst, int ld, const float* __restrict__ src,
-                                           int nr, int n) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < n * n4; i += kThreads) {
-    const int r = i / n4, e = i % n4 * 4;
-    if (r < nr)
-      cp_async16(dst + r * ld + e, src + (size_t)r * D + e);
-    else
-      *reinterpret_cast<float4*>(dst + r * ld + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 }
 
 // A warp's 16-row staging tile (row stride ldp) of score-shaped D fragments:
@@ -1106,7 +1072,7 @@ hop1_bwd_whole_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
   HOP1_BWD_MARK(0);
   // The kv rows and weight chunk 0 in flight; the mask flags; dk, dv zeroed.
   issue_kv<TKV, D>(kv_s, L.ldkv, kv + b * kv_sb + g0 * kv_sg, kv_sg, kv_st, Lk, ng, rows);
-  issue_wkv<D>(ring, wk, wv, 0, L.ldw);
+  issue_wkv<D, kWChunk>(ring, wk, wv, 0, L.ldw);
   cp_async_commit();
   int any_valid = 0;
   for (int t = tid; t < Lk; t += kThreads) {
@@ -1126,7 +1092,7 @@ hop1_bwd_whole_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
     cp_async_wait<0>();
     __syncthreads();   // chunk c landed for all; chunk c - 1's stage is free
     if (c + 1 < nchunk) {
-      issue_wkv<D>(ring + (c + 1) % 2 * kWChunk * L.ldw, wk, wv, c + 1, L.ldw);
+      issue_wkv<D, kWChunk>(ring + (c + 1) % 2 * kWChunk * L.ldw, wk, wv, c + 1, L.ldw);
       cp_async_commit();
     }
     if (!kExact && c == 0) {
@@ -1209,9 +1175,9 @@ hop1_bwd_whole_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
   for (int q0 = 0; q0 < Lq; q0 += qc) {
     const int nq = min(qc, Lq - q0);
     __syncthreads();   // K and V stored; the previous chunk's readers are done
-    issue_rows<D>(q_s, ld, q + ((size_t)b * Lq + q0) * D, nq, qc);
+    issue_rows<D>(q_s, ld, q + ((size_t)b * Lq + q0) * D, D, nq, qc);
     for (int j = 0; j < ng; ++j)
-      issue_rows<D>(c_s + j * qc * ld, ld, dcc + ((bg0 + j) * Lq + q0) * D, nq, qc);
+      issue_rows<D>(c_s + j * qc * ld, ld, dcc + ((bg0 + j) * Lq + q0) * D, D, nq, qc);
     cp_async_commit();
     for (int i = tid; i < ng * qc * h; i += kThreads) {
       const int j = i / (qc * h), r = i / h % qc, hd = i % h;
@@ -1235,7 +1201,7 @@ hop1_bwd_whole_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
   HOP1_BWD_MARK(4);
 
   // 3. The dk and dv rows for the dW pass, and dkv = [dk | dv] [Wkᵀ ; Wvᵀ].
-  issue_w<D>(ring, wkv_t, 0, L.ldt);
+  issue_w<D, kWChunk>(ring, wkv_t, D, 0, L.ldt);
   cp_async_commit();
   {
     constexpr int n4 = D / 4;
@@ -1262,7 +1228,7 @@ hop1_bwd_whole_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
     cp_async_wait<0>();
     __syncthreads();
     if (c + 1 < nwc) {
-      issue_w<D>(ring + (c + 1) % 2 * kWChunk * L.ldt, wkv_t, c + 1, L.ldt);
+      issue_w<D, kWChunk>(ring + (c + 1) % 2 * kWChunk * L.ldt, wkv_t, D, c + 1, L.ldt);
       cp_async_commit();
     }
     const float* wb = ring + c % 2 * kWChunk * L.ldt;

@@ -10,8 +10,9 @@
 //     per head: softmax(q_h k_hᵀ / √d_k, -1e9 on masked columns) v_h
 //     out[b,g] = x[b] + concat_heads(...) Wo + bo                 (Lq, D)
 //
-// with the projected K/V and the (h, Lq, Lk) scores kept in shared memory:
-// only kv is read from device memory and only `out` is written.  For
+// ("whole", "tiled") with the projected K/V and the (h, Lq, Lk) scores kept
+// in shared memory: only kv is read from device memory and only `out` is
+// written ("wide" passes K/V and concat through a workspace).  For
 // training (`hop1_trainable`) it also writes the residuals the backward
 // kernel (hop1_bwd.cu) reads: concat, the normalised attention output
 // before Wo, and per (row, head) lse = m + log(l); the evaluation path
@@ -20,8 +21,10 @@
 // Pallas kernel also counted its padding columns there): no column at or
 // past Lk is ever part of a softmax.
 //
-// Two kernels, chosen by shape before any launch (`hop1_variant`, exported
-// as bist_hop1_fwd_variant):
+// Three variants, chosen by shape and kv's alignment before any launch
+// (`hop1_variant`, exported as bist_hop1_fwd_variant): "whole" at D 64/128,
+// "wide" at D 256/512 (both with d_k a multiple of 8, Lk <= 64 and kv rows
+// of aligned 4-element vectors) and "tiled" at every other width.
 //
 // "whole" (hop1_fwd_whole_kernel), for D 64 or 128, a head width d_k a
 // multiple of 8 up to 32 and Lk <= 64: the main path's widths
@@ -75,8 +78,38 @@
 // the MMA's 8-wide dimension (no padding, 17 % fewer MMAs) ran slower: its
 // row tiles split the products into stretches of 2 dependent chains.
 //
+// "wide" (D 256 or 512, d_k a multiple of 8 up to 64: 8, 16, 32 or 64; Lk
+// <= 64; bist_tpu's default d_model 512 with 8 heads): "whole"'s one block a
+// group cannot hold the group at these widths (at D 512 the kv tile alone
+// is 99 KB and K with V 198 KB), and "tiled" streams [Wk | Wv] (2 MB) and Wo
+// (1 MB) through every (b, g, query chunk) block to serve 40 kv and 32
+// query rows.  More than 85 % of the operations are the two weight
+// products (t2s D 512 B64: 42.9 GFLOP of projection, 17.2 of Wo, 2.7 of
+// attention), so "wide" runs them as GEMMs over every row of the launch,
+// each weight tile serving 128 rows, in three kernels on one stream:
+//   1. hop1_fwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] over
+//      the B·G·Lk kv rows (read through kv's strides: t2s's strided view),
+//      into a float32 workspace;
+//   2. hop1_fwd_wide_attn_kernel: one block of 4 warps a (b, g, 128
+//      columns, 32 query rows), the heads' q kᵀ, softmax and p v through
+//      "whole"'s attention_task (3xTF32 MMAs, base-2 softmax on the
+//      fragments, a fully masked row uniform over the true Lk); writes
+//      concat (the training residual, or the workspace) and lse;
+//   3. hop1_fwd_wide_out_kernel: out = x + (concat Wo + bo) over the B·G·Lq
+//      rows, x broadcast over g in the epilogue.
+// Stages 1 and 3 share one GEMM (wide_gemm): 128 x 128 block tiles, 8
+// warps of 64 x 32, a 3-stage 16-byte cp.async ring over 32-deep chunks of
+// the contraction, every product an m16n8k8 3xTF32 MMA (two passes on a
+// bfloat16 grid, exact in TF32) in float32 accumulators, 2 blocks an SM;
+// the blocks walk a row tile's column tiles one after the other, so the
+// rows are read from device memory once.  The workspace ([K | V], B·G·Lk x
+// 2D floats, and concat where it is not a residual) comes from the
+// caller's allocator (ops/bist_kernels.py), so a CUDA graph's capture keeps
+// it in its pool.  Bound: the tensor cores as mma.sync drives them
+// (PERF.md).
+//
 // "tiled" (hop1_fwd_tiles_kernel): every other width, any D with D % h ==
-// 0 (and every grid "whole" cannot copy in 16-byte pieces).  One block of
+// 0 (and every grid "whole" and "wide" cannot copy in 16-byte pieces).  One block of
 // 256 threads per (b, g, chunk of up to 32 query rows) takes the heads in
 // groups (`hop1_plan`: as few as shared memory allows, one at the main
 // path's widths and at D = 1024, h = 8) and, for each group, loops over kv
@@ -101,6 +134,7 @@
 
 #include <algorithm>
 #include <initializer_list>
+#include <utility>
 
 #include "hop1_mma.cuh"
 #include "hop1_tiles.cuh"
@@ -460,69 +494,6 @@ __host__ __device__ inline WholeLayout whole_layout(int Lq, int Lk, int D, int n
   return s;
 }
 
-// Issue chunk c of [Wk | Wv] (rows c·kChunk.., 2D floats each) into buf.
-template <int D>
-__device__ __forceinline__ void issue_wkv(float* buf, const float* __restrict__ wk,
-                                          const float* __restrict__ wv, int c, int ldw) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < kChunk * 2 * n4; i += kWholeThreads) {
-    const int r = i / (2 * n4), f = i % (2 * n4);
-    const size_t row = (size_t)(c * kChunk + r) * D;
-    cp_async16(buf + r * ldw + 4 * f, f < n4 ? wk + row + 4 * f : wv + row + 4 * (f - n4));
-  }
-}
-
-// Issue chunk c of Wo (rows c·kWoChunk.., D floats each) into buf.
-template <int D>
-__device__ __forceinline__ void issue_wo(float* buf, const float* __restrict__ wo, int c,
-                                         int ldo) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < kWoChunk * n4; i += kWholeThreads) {
-    const int r = i / n4, f = i % n4;
-    cp_async16(buf + r * ldo + 4 * f, wo + (size_t)(c * kWoChunk + r) * D + 4 * f);
-  }
-}
-
-// Issue the kv rows of groups g0 .. g0 + ng - 1 (group j's row t to row
-// j·Lk + t of kv_s) and zero the rows after them up to `rows`.
-template <typename TKV, int D>
-__device__ __forceinline__ void issue_kv(TKV* kv_s, int ldkv, const TKV* __restrict__ kv_b,
-                                         long long kv_sg, long long kv_st, int Lk, int ng,
-                                         int rows) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < rows * n4; i += kWholeThreads) {
-    const int r = i / n4, e = i % n4 * 4;
-    TKV* dst = kv_s + r * ldkv + e;
-    const TKV* src = kv_b + (r / Lk) * kv_sg + (r % Lk) * kv_st + e;
-    if (sizeof(TKV) == 4) {
-      if (r < ng * Lk)
-        cp_async16(dst, src);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      if (r < ng * Lk)
-        cp_async8(dst, src);
-      else
-        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-    }
-  }
-}
-
-// Issue query rows q0 .. q0 + nq - 1 of batch row b into q_s and zero the
-// rest up to qc.
-template <int D>
-__device__ __forceinline__ void issue_q(float* q_s, int ld, const float* __restrict__ q_b,
-                                        int nq, int qc) {
-  constexpr int n4 = D / 4;
-  for (int i = threadIdx.x; i < qc * n4; i += kWholeThreads) {
-    const int r = i / n4, e = i % n4 * 4;
-    if (r < nq)
-      cp_async16(q_s + r * ld + e, q_b + (size_t)r * D + e);
-    else
-      *reinterpret_cast<float4*>(q_s + r * ld + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
 // One attention task of the whole kernel: kQT tiles of 16 query rows (from
 // tile mi0) x one head of one group, in one warp.  Scores q kᵀ and p v are
 // m16n8k8 3xTF32 products whose operands come from shared memory (q, K, V)
@@ -700,15 +671,15 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
   HOP1_MARK(0);
   // Copy group 0: the kv rows, the mask and weight chunk 0.  Chunk c lies
   // in ring stage (c + nchunk) % 2, so that the last one is in stage 1.
-  issue_kv<TKV, D>(kv_s, L.ldkv, kv + b * kv_sb + g0 * kv_sg, kv_sg, kv_st, Lk, ng,
-                   16 * L.mt);
+  issue_kv<TKV, D, kWholeThreads>(kv_s, L.ldkv, kv + b * kv_sb + g0 * kv_sg, kv_sg, kv_st,
+                                  Lk, ng, 16 * L.mt);
   for (int t = tid; t < Lk; t += kWholeThreads) {
     if (mask_b != nullptr)
       cp_async4(valid_s + t, mask_b + t);
     else
       valid_s[t] = 1;
   }
-  issue_wkv<D>(ring + nchunk % 2 * stage, wk, wv, 0, L.ldw);
+  issue_wkv<D, kChunk, kWholeThreads>(ring + nchunk % 2 * stage, wk, wv, 0, L.ldw);
   cp_async_commit();
 
   HOP1_MARK(1);
@@ -721,9 +692,10 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
     cp_async_wait<0>();
     __syncthreads();   // chunk c landed for all; chunk c - 1's stage is free
     if (c + 1 < nchunk)
-      issue_wkv<D>(ring + (c + 1 + nchunk) % 2 * stage, wk, wv, c + 1, L.ldw);
+      issue_wkv<D, kChunk, kWholeThreads>(ring + (c + 1 + nchunk) % 2 * stage, wk, wv, c + 1,
+                                          L.ldw);
     else   // the query rows, into stage 0
-      issue_q<D>(q_s, ld, q + ((size_t)b * Lq + q0) * D, nq, qc);
+      issue_rows<D, kWholeThreads>(q_s, ld, q + ((size_t)b * Lq + q0) * D, D, nq, qc);
     cp_async_commit();
     if (!proj) continue;
     const float* wb = ring + (c + nchunk) % 2 * stage;
@@ -750,7 +722,7 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 
   HOP1_MARK(2);
   // Wo's first chunk streams in behind the bias and the attention.
-  issue_wo<D>(wo_ring, wo, 0, L.ldo);
+  issue_w<D, kWoChunk, kWholeThreads>(wo_ring, wo, D, 0, L.ldo);
   cp_async_commit();
 
   HOP1_MARK(3);
@@ -846,10 +818,12 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
   for (int c = 0; c < nwo; ++c) {
     cp_async_wait<0>();
     __syncthreads();
-    if (c + 1 < nwo) issue_wo<D>(wo_ring + (c + 1) % 2 * kWoChunk * L.ldo, wo, c + 1, L.ldo);
+    if (c + 1 < nwo)
+      issue_w<D, kWoChunk, kWholeThreads>(wo_ring + (c + 1) % 2 * kWoChunk * L.ldo, wo, D,
+                                          c + 1, L.ldo);
     // x's rows for the epilogue, into q_s (dead since the attention), with
     // the next chunk
-    if (c == 0) issue_q<D>(q_s, ld, x + ((size_t)b * Lq + q0) * D, nq, qc);
+    if (c == 0) issue_rows<D, kWholeThreads>(q_s, ld, x + ((size_t)b * Lq + q0) * D, D, nq, qc);
     cp_async_commit();
     const float* wb = wo_ring + c % 2 * kWoChunk * L.ldo;
     const float* ac = acc_s + c * kWoChunk;
@@ -897,9 +871,315 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// "wide": D 256 or 512 in three kernels, the weight products as two GEMMs
+// over every row of the launch.
+
+constexpr int kWideThreads = 256;      // a GEMM block: 8 warps, 2 (rows) x 4 (columns)
+constexpr int kGM = 128, kGN = 128;    // a GEMM block's tile
+constexpr int kGK = 32;                // contraction rows a ring stage
+constexpr int kGStages = 3;            // cp.async ring stages
+constexpr int kWideCols = 128;         // q, K, V and concat columns an attention block
+constexpr int kWideAttnThreads = 128;  // an attention block: 4 warps
+constexpr int kWideMaxLk = 64;
+
+// Shared memory of a GEMM block, in floats: kGStages stages of an A tile
+// (kGM x kGK in TA, rows padded to 4 words (mod 32) for A fragments) and a
+// W tile (kGK x kGN, rows padded to 8 words (mod 32) for B fragments), then
+// the A tile's kGM row offsets (long long).
+template <typename TA>
+struct GemmLayout {
+  static constexpr int lda = sizeof(TA) == 4 ? kGK + 4 : kGK + 8;   // in TA elements
+  static constexpr int a_floats = kGM * lda * (int)sizeof(TA) / 4;
+  static constexpr int ldb = kGN + 8;
+  static constexpr int stage = a_floats + kGK * ldb;
+  static constexpr int rows_off = kGStages * stage;
+  static constexpr size_t bytes = (size_t)rows_off * sizeof(float) + kGM * sizeof(long long);
+};
+
+// acc += this warp's 64 x 32 piece of A[m0 .., :K] W[:K, :kGN]: A's kGM rows
+// by their element offsets from `a` (rows_s; -1 for a row past the
+// matrix, read as zeros), W row-major (row stride ldw) from its tile's first
+// column.  Both stream through a kGStages-stage cp.async ring, one barrier
+// a stage; every product is an m16n8k8 3xTF32 MMA (kExactA: A is bfloat16,
+// exact in TF32, two passes).  A warp's step loads the 4 W fragments, then
+// per 16-row tile one A fragment for 4 independent accumulator chains.
+template <typename TA, bool kExactA>
+__device__ __forceinline__ void wide_gemm(const TA* __restrict__ a, const long long* rows_s,
+                                          const float* __restrict__ w, int ldw, int K,
+                                          float* smem, float (&acc)[4][4][4]) {
+  using L = GemmLayout<TA>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int nk = K / kGK;
+  auto issue = [&](int c) {
+    float* st = smem + c % kGStages * L::stage;
+    TA* as = reinterpret_cast<TA*>(st);
+    for (int i = tid; i < kGM * kGK / 4; i += kWideThreads) {
+      const int r = i / (kGK / 4), e = i % (kGK / 4) * 4;
+      TA* dst = as + r * L::lda + e;
+      const long long off = rows_s[r];
+      if (sizeof(TA) == 4) {
+        if (off >= 0)
+          cp_async16(dst, a + off + c * kGK + e);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        if (off >= 0)
+          cp_async8(dst, a + off + c * kGK + e);
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      }
+    }
+    issue_w<kGN, kGK, kWideThreads>(st + L::a_floats, w, ldw, c, L::ldb);
+  };
+  for (int c = 0; c < kGStages - 1; ++c) {
+    if (c < nk) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();   // chunk c landed for all; chunk c - 1's stage is free
+    if (c + kGStages - 1 < nk) issue(c + kGStages - 1);
+    cp_async_commit();
+    const float* st = smem + c % kGStages * L::stage;
+    const TA* as = reinterpret_cast<const TA*>(st) + wm * 64 * L::lda;
+    const float* bs = st + L::a_floats + wn * 32;
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        load_b(bs + ks * 8 * L::ldb + j * 8, L::ldb, fg, ft, bh[j], bl[j]);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t ah[4], al[4];
+        load_a_rows<kExactA>(as + m * 16 * L::lda + ks * 8, L::lda, fg, ft, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_3xtf32<kExactA>(acc[m][j], ah, al, bh[j], bl[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Stage 1: [K | V] = kv [Wk | Wv] + [bk | bv] over the launch's M = B·G·Lk
+// kv rows (row r is kv[b, g, t] with r = (b·G + g)·Lk + t, read through
+// kv's strides), into kvp (M x 2D, row-major).  Block i takes column tile
+// i % (2D / kGN) of row tile i / (2D / kGN): the blocks resident together
+// share their kv rows in L2, and the weights (2 MB at D 512) stay there.
+template <typename TKV>
+__global__ void __launch_bounds__(kWideThreads, 2)
+hop1_fwd_wide_proj_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
+                          long long kv_st, const float* __restrict__ wk,
+                          const float* __restrict__ bk, const float* __restrict__ wv,
+                          const float* __restrict__ bv, float* __restrict__ kvp, int G,
+                          int Lk, int D, int M) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  long long* rows_s = reinterpret_cast<long long*>(smem + GemmLayout<TKV>::rows_off);
+  const int nt = 2 * D / kGN;
+  const int n0 = blockIdx.x % nt * kGN, m0 = blockIdx.x / nt * kGM;
+  for (int r = threadIdx.x; r < kGM; r += kWideThreads) {
+    const int row = m0 + r, bg = row / Lk;
+    rows_s[r] = row < M ? bg / G * kv_sb + bg % G * kv_sg + row % Lk * kv_st : -1;
+  }
+  __syncthreads();
+  const bool is_v = n0 >= D;
+  const int c0 = n0 - (is_v ? D : 0);   // the tile's first column of Wk or Wv
+  float acc[4][4][4] = {};
+  wide_gemm<TKV, sizeof(TKV) == 2>(kv, rows_s, (is_v ? wv : wk) + c0, D, D, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int fg = lane / 4, ft = lane % 4, wm = warp / 4, wn = warp % 4;
+  const float* bias = (is_v ? bv : bk) + c0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = wn * 32 + j * 8 + 2 * ft;
+    const float2 b2 = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + wm * 64 + m * 16 + half * 8 + fg;
+        if (r < M)
+          *reinterpret_cast<float2*>(kvp + (size_t)r * 2 * D + n0 + c) =
+              make_float2(acc[m][j][2 * half] + b2.x, acc[m][j][2 * half + 1] + b2.y);
+      }
+  }
+}
+
+// Stage 2: attention for one (b, g), kWideCols columns (kWideCols / d_k
+// heads) and up to 32 query rows a block: q's rows, K's and V's (from
+// kvp, rows past Lk zeroed up to the next 8) and the mask's flags in
+// shared memory, one warp a (head, 16-row tile) task (the whole kernel's
+// attention_task: q kᵀ and p v as 3xTF32 MMAs, base-2 softmax on the
+// fragments); each task writes its concat columns over the q columns it
+// read, and the block then copies its rows into concat (B, G, Lq, D) and,
+// for training, lse.  kDk8 = d_k / 8.
+template <int kDk8>
+__global__ void __launch_bounds__(kWideAttnThreads)
+hop1_fwd_wide_attn_kernel(const float* __restrict__ q, const float* __restrict__ kvp,
+                          const int* __restrict__ mask, float* __restrict__ concat,
+                          float* __restrict__ lse_out, int G, int Lq, int Lk, int D, int h,
+                          float scale) {
+  constexpr int ld = kWideCols + 4;     // 4 words (mod 32): A and B fragments
+  constexpr int dk = 8 * kDk8, hg = kWideCols / dk;
+  constexpr int kNT = kWideMaxLk / 8;   // 8-column tiles of the scores
+  extern __shared__ float4 smem4[];
+  const int qc = Lq <= 16 ? 16 : 32, rows = (Lk + 7) / 8 * 8;
+  float* q_s = reinterpret_cast<float*>(smem4);   // qc x ld: q, then concat
+  float* k_s = q_s + qc * ld;                     // rows x ld
+  float* v_s = k_s + rows * ld;                   // rows x ld
+  int* valid_s = reinterpret_cast<int*>(v_s + rows * ld);   // Lk column flags
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;
+  const int bg = blockIdx.x, b = bg / G, cg = blockIdx.y * kWideCols;
+  const int q0 = blockIdx.z * qc, nq = min(qc, Lq - q0);
+  const float* kb = kvp + (size_t)bg * Lk * 2 * D + cg;
+  issue_rows<kWideCols, kWideAttnThreads>(q_s, ld, q + ((size_t)b * Lq + q0) * D + cg, D, nq,
+                                          qc);
+  issue_rows<kWideCols, kWideAttnThreads>(k_s, ld, kb, 2 * D, Lk, rows);
+  issue_rows<kWideCols, kWideAttnThreads>(v_s, ld, kb + D, 2 * D, Lk, rows);
+  for (int t = tid; t < Lk; t += kWideAttnThreads) {
+    if (mask != nullptr)
+      cp_async4(valid_s + t, mask + (size_t)b * Lk + t);
+    else
+      valid_s[t] = 1;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // this thread's score columns n·8 + 2·ft + e: bit 2n + e set inside Lk
+  // (`inside`) and where unmasked (`valid`)
+  uint32_t valid = 0, inside = 0;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = n * 8 + 2 * ft + e;
+      if (t < Lk) {
+        inside |= 1u << (2 * n + e);
+        if (valid_s[t] != 0) valid |= 1u << (2 * n + e);
+      }
+    }
+  float* lse_row = lse_out == nullptr ? nullptr
+                                      : lse_out + ((size_t)bg * Lq + q0) * h + cg / dk;
+  const int mq = qc / 16;
+  for (int task = warp; task < hg * mq; task += kWideAttnThreads / 32)
+    attention_task<kNT, kDk8, 1>(q_s, k_s, v_s, q_s, ld, task / hg, task % hg, dk, 0, Lk,
+                                 valid, inside, scale, lse_row, h, nq, fg, ft);
+  __syncthreads();
+  constexpr int n4 = kWideCols / 4;
+  for (int i = tid; i < nq * n4; i += kWideAttnThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    *reinterpret_cast<float4*>(concat + ((size_t)bg * Lq + q0 + r) * D + cg + e) =
+        *reinterpret_cast<const float4*>(q_s + r * ld + e);
+  }
+}
+
+// Stage 3: out = x + (concat Wo + bo) over the launch's B·G·Lq rows (row r
+// = (b·G + g)·Lq + i reads x[b, i]), tiled as stage 1.
+__global__ void __launch_bounds__(kWideThreads, 2)
+hop1_fwd_wide_out_kernel(const float* __restrict__ concat, const float* __restrict__ wo,
+                         const float* __restrict__ bo, const float* __restrict__ x,
+                         float* __restrict__ out, int G, int Lq, int D, int M) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  long long* rows_s = reinterpret_cast<long long*>(smem + GemmLayout<float>::rows_off);
+  const int nt = D / kGN;
+  const int n0 = blockIdx.x % nt * kGN, m0 = blockIdx.x / nt * kGM;
+  for (int r = threadIdx.x; r < kGM; r += kWideThreads)
+    rows_s[r] = m0 + r < M ? (long long)(m0 + r) * D : -1;
+  __syncthreads();
+  float acc[4][4][4] = {};
+  wide_gemm<float, false>(concat, rows_s, wo + n0, D, D, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int fg = lane / 4, ft = lane % 4, wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm * 64 + m * 16 + half * 8 + fg;
+      if (r >= M) continue;
+      const float* xr = x + ((size_t)(r / (G * Lq)) * Lq + r % Lq) * D + n0;
+      float* o = out + (size_t)r * D + n0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn * 32 + j * 8 + 2 * ft;
+        const float2 x2 = *reinterpret_cast<const float2*>(xr + c);
+        const float2 b2 = *reinterpret_cast<const float2*>(bo + n0 + c);
+        *reinterpret_cast<float2*>(o + c) =
+            make_float2(x2.x + (acc[m][j][2 * half] + b2.x),
+                        x2.y + (acc[m][j][2 * half + 1] + b2.y));
+      }
+    }
+}
+
+// The attention kernel for head width d_k (8, 16, 32 or 64).
+const void* wide_attn_kernel(int dk) {
+  switch (dk) {
+    case 8: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<1>);
+    case 16: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<2>);
+    case 32: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<4>);
+    default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<8>);
+  }
+}
+
+size_t wide_attn_smem(int Lq, int Lk) {
+  const int qc = Lq <= 16 ? 16 : 32, rows = (Lk + 7) / 8 * 8;
+  return ((size_t)(qc + 2 * rows) * (kWideCols + 4) + Lk) * sizeof(float);
+}
+
+// Floats of the workspace "wide" needs: [K | V] (B·G·Lk x 2D) and, where
+// concat is not a residual the caller keeps, concat (B·G·Lq x D).
+size_t wide_workspace(int B, int G, int Lq, int Lk, int D, bool residuals) {
+  return (size_t)B * G * Lk * 2 * D + (residuals ? 0 : (size_t)B * G * Lq * D);
+}
+
+// The three kernels, in order on `stream`; ws holds wide_workspace floats.
+template <typename TKV>
+int launch_wide(const float* x, const float* q, const TKV* kv, long long kv_sb,
+                long long kv_sg, long long kv_st, const int* mask, const float* wk,
+                const float* bk, const float* wv, const float* bv, const float* wo,
+                const float* bo, float* out, float* concat, float* lse, float* ws, int B,
+                int G, int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
+  const int M1 = B * G * Lk, M3 = B * G * Lq, dk = D / h;
+  float* kvp = ws;
+  float* cc = concat != nullptr ? concat : ws + (size_t)M1 * 2 * D;
+  const size_t smem_proj = GemmLayout<TKV>::bytes, smem_out = GemmLayout<float>::bytes;
+  const size_t smem_attn = wide_attn_smem(Lq, Lk);
+  const void* attn = wide_attn_kernel(dk);
+  const std::pair<const void*, size_t> fns[] = {
+      {reinterpret_cast<const void*>(hop1_fwd_wide_proj_kernel<TKV>), smem_proj},
+      {attn, smem_attn},
+      {reinterpret_cast<const void*>(hop1_fwd_wide_out_kernel), smem_out}};
+  for (const auto& f : fns) {
+    if (f.second > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(f.first, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)f.second);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  hop1_fwd_wide_proj_kernel<TKV><<<(2 * D / kGN) * ((M1 + kGM - 1) / kGM), kWideThreads,
+                                   smem_proj, stream>>>(kv, kv_sb, kv_sg, kv_st, wk, bk, wv,
+                                                        bv, kvp, G, Lk, D, M1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int qc = Lq <= 16 ? 16 : 32;
+  const dim3 grid((unsigned)(B * G), (unsigned)(D / kWideCols), (unsigned)((Lq + qc - 1) / qc));
+  const float* kvp_c = kvp;
+  void* attn_args[] = {&q, &kvp_c, &mask, &cc, &lse, &G, &Lq, &Lk, &D, &h, &scale};
+  e = cudaLaunchKernel(attn, grid, dim3(kWideAttnThreads), attn_args, smem_attn, stream);
+  if (e != cudaSuccess) return (int)e;
+  hop1_fwd_wide_out_kernel<<<(D / kGN) * ((M3 + kGM - 1) / kGM), kWideThreads, smem_out,
+                             stream>>>(cc, wo, bo, x, out, G, Lq, D, M3);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Variant choice and launch
 
-enum Variant { kVariantNone = 0, kVariantTiled = 1, kVariantWhole = 2 };
+enum Variant { kVariantNone = 0, kVariantTiled = 1, kVariantWhole = 2, kVariantWide = 3 };
 
 // The whole kernel's two instantiations by kv length: "short" (two groups
 // of one batch row a block, at most 32 projected rows: Lk <= 16, the s2t
@@ -915,9 +1195,11 @@ size_t whole_smem(int Lq, int Lk, int D, int G, int kv_bytes) {
 }
 
 // The kernel a launch at these widths takes; decided by shape and by
-// whether kv's rows are aligned 4-element vectors ("whole" copies them in
-// 16-byte and 8-byte pieces) alone (the float32 grid's shared memory at two
-// groups, the most it can need), never by an error.
+// whether kv's rows are aligned 4-element vectors ("whole" and "wide" copy
+// them in 16-byte and 8-byte pieces) alone ("whole": the float32 grid's
+// shared memory at two groups, the most it can need), never by an error.
+// "wide"'s head widths at D 256 and 512 (a multiple of 8 up to 64) are
+// 8, 16, 32 and 64: whole heads in its 128-column attention blocks.
 int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
@@ -925,6 +1207,8 @@ int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
       whole_rows(1, Lk) <= kWholeMaxRows &&
       whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
     return kVariantWhole;
+  if (kv_vec && (D == 256 || D == 512) && dk % 8 == 0 && dk <= 64 && Lk <= kWideMaxLk)
+    return kVariantWide;
   int qc, tk, hg;
   size_t smem;
   return hop1_plan(Lq, Lk, D, h, &qc, &tk, &hg, &smem) ? kVariantTiled : kVariantNone;
@@ -966,7 +1250,8 @@ struct LaunchSpec {
 };
 
 // `variant` is hop1_variant's choice, or the kernel a measurement asks for:
-// "tiled" takes every width hop1_variant takes, "whole" only its own.
+// "tiled" takes every width hop1_variant takes, "whole" only its own ("wide"
+// launches through launch_wide).
 template <typename TKV>
 bool launch_spec(int variant, int B, int G, int Lq, int Lk, int D, int h, bool kv_vec,
                  LaunchSpec* s) {
@@ -998,10 +1283,16 @@ template <typename TKV>
 int launch(int variant, const float* x, const float* q, const TKV* kv, long long kv_sb,
            long long kv_sg, long long kv_st, const int* mask, const float* wk,
            const float* bk, const float* wv, const float* bv, const float* wo,
-           const float* bo, float* out, float* concat, float* lse, int B, int G,
-           int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
+           const float* bo, float* out, float* concat, float* lse, float* ws, int B,
+           int G, int Lq, int Lk, int D, int h, float scale, cudaStream_t stream) {
   LaunchSpec s;
   const bool kv_vec = rows_vec4(kv, kv_sb, kv_sg, kv_st, D);
+  if (variant == kVariantWide) {
+    if (hop1_variant(Lq, Lk, D, h, kv_vec) != kVariantWide || ws == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_wide(x, q, kv, kv_sb, kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out,
+                       concat, lse, ws, B, G, Lq, Lk, D, h, scale, stream);
+  }
   if (!launch_spec<TKV>(variant, B, G, Lq, Lk, D, h, kv_vec, &s))
     return (int)cudaErrorInvalidValue;
   if (s.smem > 48 * 1024) {
@@ -1024,27 +1315,55 @@ int launch(int variant, const float* x, const float* q, const TKV* kv, long long
   return (int)cudaGetLastError();
 }
 
-template <typename TKV>
-int resources(int G, int Lq, int Lk, int D, int h, int* info) {
-  LaunchSpec s;
-  if (!launch_spec<TKV>(hop1_variant(Lq, Lk, D, h, true), 1, G, Lq, Lk, D, h, true, &s))
-    return (int)cudaErrorInvalidValue;
-  if (s.smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        s.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+// One kernel's dynamic shared memory, registers and local bytes a thread and
+// resident blocks per SM, into out[0..3].
+int kernel_resources(const void* fn, int threads, size_t smem, int* out) {
+  if (smem > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, s.fn);
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, s.fn, s.threads, s.smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
   if (e != cudaSuccess) return (int)e;
-  info[0] = hop1_variant(Lq, Lk, D, h, true);
-  info[1] = (int)s.smem;
-  info[2] = attr.numRegs;
-  info[3] = (int)attr.localSizeBytes;
-  info[4] = blocks;
+  out[0] = (int)smem;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = blocks;
+  return 0;
+}
+
+template <typename TKV>
+int resources(int G, int Lq, int Lk, int D, int h, int* info) {
+  const int variant = hop1_variant(Lq, Lk, D, h, true);
+  for (int i = 0; i < 19; ++i) info[i] = 0;
+  info[0] = variant;
+  if (variant == kVariantWide) {
+    // info[1..4] the projection's, then each stage's at [7 + 4·stage]
+    const std::pair<const void*, size_t> stages[] = {
+        {reinterpret_cast<const void*>(hop1_fwd_wide_proj_kernel<TKV>),
+         GemmLayout<TKV>::bytes},
+        {wide_attn_kernel(D / h), wide_attn_smem(Lq, Lk)},
+        {reinterpret_cast<const void*>(hop1_fwd_wide_out_kernel), GemmLayout<float>::bytes}};
+    const int threads[] = {kWideThreads, kWideAttnThreads, kWideThreads};
+    for (int i = 0; i < 3; ++i) {
+      const int rc = kernel_resources(stages[i].first, threads[i], stages[i].second,
+                                      info + 7 + 4 * i);
+      if (rc != 0) return rc;
+    }
+    for (int k = 0; k < 4; ++k) info[1 + k] = info[7 + k];
+    info[5] = 1;
+    info[6] = kWideCols / (D / h);
+    return 0;
+  }
+  LaunchSpec s;
+  if (!launch_spec<TKV>(variant, 1, G, Lq, Lk, D, h, true, &s))
+    return (int)cudaErrorInvalidValue;
+  const int rc = kernel_resources(s.fn, s.threads, s.smem, info + 1);
+  if (rc != 0) return rc;
   info[5] = info[0] == kVariantWhole ? s.tk : 1;
   info[6] = info[0] == kVariantWhole ? h : s.hg;
   return 0;
@@ -1068,56 +1387,68 @@ int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv
                      int kv_bf16, long long kv_sb, long long kv_sg, long long kv_st,
                      const int* mask, const float* wk, const float* bk,
                      const float* wv, const float* bv, const float* wo,
-                     const float* bo, float* out, float* concat, float* lse, int B,
-                     int G, int Lq, int Lk, int D, int h, float scale, void* stream);
+                     const float* bo, float* out, float* concat, float* lse, float* ws,
+                     int B, int G, int Lq, int Lk, int D, int h, float scale, void* stream);
 
 int bist_hop1_fwd(const float* x, const float* q, const void* kv, int kv_bf16,
                   long long kv_sb, long long kv_sg, long long kv_st,
                   const int* mask, const float* wk, const float* bk,
                   const float* wv, const float* bv, const float* wo,
-                  const float* bo, float* out, float* concat, float* lse, int B,
-                  int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
+                  const float* bo, float* out, float* concat, float* lse, float* ws,
+                  int B, int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
   const bool vec = kv_bf16 ? rows_vec4(static_cast<const __nv_bfloat16*>(kv), kv_sb,
                                        kv_sg, kv_st, D)
                            : rows_vec4(static_cast<const float*>(kv), kv_sb, kv_sg,
                                        kv_st, D);
   return bist_hop1_fwd_as(hop1_variant(Lq, Lk, D, h, vec), x, q, kv, kv_bf16, kv_sb,
-                          kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse,
+                          kv_sg, kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, ws,
                           B, G, Lq, Lk, D, h, scale, stream);
 }
 
-// bist_hop1_fwd through the named kernel (1 "tiled", 2 "whole"), for
-// measurements that hold the two against each other; cudaErrorInvalidValue
+// bist_hop1_fwd through the named kernel (1 "tiled", 2 "whole", 3 "wide"),
+// for measurements that hold them against each other; cudaErrorInvalidValue
 // where that kernel does not take the widths.
 int bist_hop1_fwd_as(int variant, const float* x, const float* q, const void* kv,
                      int kv_bf16, long long kv_sb, long long kv_sg, long long kv_st,
                      const int* mask, const float* wk, const float* bk,
                      const float* wv, const float* bv, const float* wo,
-                     const float* bo, float* out, float* concat, float* lse, int B,
-                     int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
+                     const float* bo, float* out, float* concat, float* lse, float* ws,
+                     int B, int G, int Lq, int Lk, int D, int h, float scale, void* stream) {
   if (B < 1 || G < 1 || Lq < 1 || Lk < 1 || (concat == nullptr) != (lse == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_bf16)
     return launch(variant, x, q, static_cast<const __nv_bfloat16*>(kv), kv_sb, kv_sg,
-                  kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk,
-                  D, h, scale, s);
+                  kv_st, mask, wk, bk, wv, bv, wo, bo, out, concat, lse, ws, B, G, Lq,
+                  Lk, D, h, scale, s);
   return launch(variant, x, q, static_cast<const float*>(kv), kv_sb, kv_sg, kv_st, mask,
-                wk, bk, wv, bv, wo, bo, out, concat, lse, B, G, Lq, Lk, D, h, scale, s);
+                wk, bk, wv, bv, wo, bo, out, concat, lse, ws, B, G, Lq, Lk, D, h, scale, s);
 }
 
 // The kernel bist_hop1_fwd launches at these widths, kv's rows aligned
-// 4-element vectors or not (kv_vec): 2 "whole", 1 "tiled", 0 none (it would
-// return cudaErrorInvalidValue).
+// 4-element vectors or not (kv_vec): 3 "wide", 2 "whole", 1 "tiled", 0 none
+// (it would return cudaErrorInvalidValue).
 int bist_hop1_fwd_variant(int Lq, int Lk, int D, int h, int kv_vec) {
   return hop1_variant(Lq, Lk, D, h, kv_vec != 0);
+}
+
+// Floats of the workspace `ws` a launch through `variant` needs (0: none,
+// and ws may be null): "wide"'s projected [K | V] and, without the training
+// residuals, its concat.
+long long bist_hop1_fwd_workspace(int variant, int B, int G, int Lq, int Lk, int D, int h,
+                                  int residuals) {
+  return variant == kVariantWide ? (long long)wide_workspace(B, G, Lq, Lk, D, residuals != 0)
+                                 : 0;
 }
 
 // What that kernel takes on the current device at G groups (aligned kv
 // rows): info[0] variant, [1] dynamic shared memory bytes, [2] registers a
 // thread, [3] local memory bytes a thread (spills and stack), [4] resident
-// blocks per SM, [5] groups a block, [6] heads a head group.  Returns the
-// CUDA error code (cudaErrorInvalidValue for widths the kernels do not take).
+// blocks per SM, [5] groups a block, [6] heads a head group (an attention
+// block's, for "wide"); for "wide", [1..4] are its projection kernel's and
+// [7 + 4·s ..] its three kernels' (s 0 projection, 1 attention, 2 output)
+// in the order of [1..4]; info holds 19 ints.  Returns the CUDA error code
+// (cudaErrorInvalidValue for widths the kernels do not take).
 int bist_hop1_fwd_resources(int G, int Lq, int Lk, int D, int h, int kv_bf16,
                             int* info) {
   return kv_bf16 ? resources<__nv_bfloat16>(G, Lq, Lk, D, h, info)

@@ -1,7 +1,8 @@
-// Tensor-core and asynchronous-copy pieces of the whole-tile hop-1 kernels
-// (hop1_fwd.cu, hop1_bwd.cu): 16- and 8-byte cp.async copies into shared
-// memory, the 3xTF32 split of float32 operands and the m16n8k8 TF32
-// tensor-core product with its fragment loads.
+// Tensor-core and asynchronous-copy pieces of the whole-tile and wide hop-1
+// kernels (hop1_fwd.cu, hop1_bwd.cu): 16- and 8-byte cp.async copies into
+// shared memory and the tile copies built on them, the 3xTF32 split of
+// float32 operands and the m16n8k8 TF32 tensor-core product with its
+// fragment loads.
 //
 // 3xTF32: a float32 value a is split into hi = a with its low 13 mantissa
 // bits cleared (a TF32 value: 10 explicit mantissa bits) and lo = a - hi
@@ -58,6 +59,76 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tiles into shared memory by 16-byte (a bfloat16 grid: 8-byte) cp.async,
+// issued by a block of kNThreads threads; the caller commits and waits.
+
+// Chunk c of [Wk | Wv], both (., D) row-major: rows c·kRows.. of each, side
+// by side (2D floats a row) into buf (row stride ldw).
+template <int D, int kRows, int kNThreads = kThreads>
+__device__ __forceinline__ void issue_wkv(float* buf, const float* __restrict__ wk,
+                                          const float* __restrict__ wv, int c, int ldw) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < kRows * 2 * n4; i += kNThreads) {
+    const int r = i / (2 * n4), f = i % (2 * n4);
+    const size_t row = (size_t)(c * kRows + r) * D;
+    cp_async16(buf + r * ldw + 4 * f, f < n4 ? wk + row + 4 * f : wv + row + 4 * (f - n4));
+  }
+}
+
+// Chunk c of a row-major matrix w (row stride ldg floats): rows c·kRows..,
+// its first kCols columns, into buf (row stride ld).
+template <int kCols, int kRows, int kNThreads = kThreads>
+__device__ __forceinline__ void issue_w(float* buf, const float* __restrict__ w, size_t ldg,
+                                        int c, int ld) {
+  constexpr int n4 = kCols / 4;
+  for (int i = threadIdx.x; i < kRows * n4; i += kNThreads) {
+    const int r = i / n4, f = i % n4;
+    cp_async16(buf + r * ld + 4 * f, w + (size_t)(c * kRows + r) * ldg + 4 * f);
+  }
+}
+
+// The kv rows of groups g0 .. g0 + ng - 1 of one batch row (kv_b: group
+// g0's row 0; group j's row t to row j·Lk + t of kv_s, row stride ldkv), the
+// rows after them up to `rows` zeroed.
+template <typename TKV, int D, int kNThreads = kThreads>
+__device__ __forceinline__ void issue_kv(TKV* kv_s, int ldkv, const TKV* __restrict__ kv_b,
+                                         long long kv_sg, long long kv_st, int Lk, int ng,
+                                         int rows) {
+  constexpr int n4 = D / 4;
+  for (int i = threadIdx.x; i < rows * n4; i += kNThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    TKV* dst = kv_s + r * ldkv + e;
+    const TKV* src = kv_b + (r / Lk) * kv_sg + (r % Lk) * kv_st + e;
+    if (sizeof(TKV) == 4) {
+      if (r < ng * Lk)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (r < ng * Lk)
+        cp_async8(dst, src);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+    }
+  }
+}
+
+// Rows 0 .. nr - 1 of a row-major block (row stride lds floats), their
+// first kCols columns, into dst (row stride ld); dst's rows nr .. n - 1
+// zeroed.
+template <int kCols, int kNThreads = kThreads>
+__device__ __forceinline__ void issue_rows(float* dst, int ld, const float* __restrict__ src,
+                                           size_t lds, int nr, int n) {
+  constexpr int n4 = kCols / 4;
+  for (int i = threadIdx.x; i < n * n4; i += kNThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    if (r < nr)
+      cp_async16(dst + r * ld + e, src + (size_t)r * lds + e);
+    else
+      *reinterpret_cast<float4*>(dst + r * ld + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;   // sign, exponent, 10 mantissa bits

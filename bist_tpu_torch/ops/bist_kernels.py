@@ -12,11 +12,13 @@ with the query projection `q_proj` = LN(x) Wq + bq computed once outside
 (it is group-invariant).  K1 keeps the projected K/V and the scores on chip
 and, for training, also writes the residuals `concat` (the attention output
 before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
-gradients of q_proj, kv and the K/V weights.  K1 and K2 have two kernels
-each, which their launchers choose by shape (`hop1_variant`,
-`hop1_bwd_variant`): "whole" at the main path's widths (every product on
-the tensor cores as 3xTF32, which keeps float32 accuracy) and "tiled" at
-every other width with D % h == 0.  The kernels
+gradients of q_proj, kv and the K/V weights.  Their launchers choose a
+kernel by shape (`hop1_variant`, `hop1_bwd_variant`): "whole" at the
+flagship's widths (D 64/128: every product on the tensor cores as 3xTF32,
+which keeps float32 accuracy), for K1 "wide" at D 256/512 (the weight
+products as two tensor-core GEMMs over every row of the launch, the
+attention between them, through a workspace this module allocates) and
+"tiled" at every other width with D % h == 0.  The kernels
 hold each head's columns padded with zeros to a multiple of 4; the wrappers
 hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
 the padding off what comes back, which changes no number.  See the sources
@@ -168,13 +170,15 @@ _F = ctypes.c_float
 
 def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/hop1_fwd.cu."""
-    args = [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    args = [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _I, _F, _P]
-    for fn, argtypes in (("bist_hop1_fwd", args), ("bist_hop1_fwd_as", [_I] + args),
-                         ("bist_hop1_fwd_variant", [_I] * 5),
-                         ("bist_hop1_fwd_resources", [_I] * 6 + [_P])):
+    for fn, argtypes, restype in (
+            ("bist_hop1_fwd", args, _I), ("bist_hop1_fwd_as", [_I] + args, _I),
+            ("bist_hop1_fwd_variant", [_I] * 5, _I),
+            ("bist_hop1_fwd_workspace", [_I] * 8, _L),
+            ("bist_hop1_fwd_resources", [_I] * 6 + [_P], _I)):
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = restype
     return lib
 
 
@@ -183,8 +187,10 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib if lib.bist_hop1_fwd.argtypes else bind_fwd(lib)
 
 
-# K1's two kernels (csrc/hop1_fwd.cu), by the code its launcher's choice returns
-HOP1_VARIANTS = {1: "tiled", 2: "whole"}
+# K1's kernels (csrc/hop1_fwd.cu), by the code its launcher's choice returns;
+# K2's take the first two codes
+HOP1_VARIANTS = {1: "tiled", 2: "whole", 3: "wide"}
+_VARIANT_CODES = {n: c for c, n in HOP1_VARIANTS.items()}
 
 
 def _rows_vec4(kv: torch.Tensor) -> bool:
@@ -200,9 +206,11 @@ def hop1_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
     it from the shape and kv's alignment (`kv_vec`: rows of aligned
     4-element vectors) alone: "whole" (all kv rows of a group in one tile,
     every product on the tensor cores in 3xTF32; D 64 or 128, d_k a multiple
-    of 8 up to 32, Lk <= 64, aligned rows) or "tiled" (head groups, kv tiles
-    with an online softmax, FMAs; every other width); ValueError for widths
-    neither takes.  Builds the library on first use."""
+    of 8 up to 32, Lk <= 64, aligned rows), "wide" (a projection GEMM, an
+    attention kernel and a Wo GEMM, 3xTF32 on the tensor cores; D 256 or
+    512, d_k a multiple of 8 up to 64, Lk <= 64, aligned rows) or "tiled"
+    (head groups, kv tiles with an online softmax, FMAs; every other width);
+    ValueError for widths none takes.  Builds the library on first use."""
     code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
         raise ValueError(f"hop1_fused: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
@@ -213,15 +221,20 @@ def hop1_resources(G: int, Lq: int, Lk: int, D: int, h: int, bf16: bool = False)
     """What the K1 kernel chosen at these widths takes on the current CUDA
     device: its variant, dynamic shared memory, registers and local memory
     (spills, stack) a thread, resident blocks per SM, groups a block and
-    heads a head group."""
-    info = (ctypes.c_int * 7)()
+    heads a head group; for "wide" those of its projection kernel, and each
+    of its three kernels' under "stages"."""
+    info = (ctypes.c_int * 19)()
     rc = _fwd_lib().bist_hop1_fwd_resources(G, Lq, Lk, D, h, int(bf16), info)
     if rc != 0:
         raise RuntimeError(f"hop1_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} "
                            f"D={D} h={h})")
-    return {"variant": HOP1_VARIANTS[info[0]], "smem_bytes": info[1],
-            "registers": info[2], "local_bytes": info[3], "blocks_per_sm": info[4],
-            "groups_per_block": info[5], "heads_per_group": info[6]}
+    keys = ("smem_bytes", "registers", "local_bytes", "blocks_per_sm")
+    out = {"variant": HOP1_VARIANTS[info[0]], **dict(zip(keys, info[1:5])),
+           "groups_per_block": info[5], "heads_per_group": info[6]}
+    if out["variant"] == "wide":
+        out["stages"] = {s: dict(zip(keys, info[7 + 4 * i:11 + 4 * i]))
+                         for i, s in enumerate(("proj", "attn", "out"))}
+    return out
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -365,12 +378,12 @@ def _hop1_fwd_fake(x, q_proj, kv, wk, bk, wv, bv, wo, bo, mask, h):
 
 def _hop1_fused_as(variant: str, x, q_proj, kv, attn_params, h, mask=None,
                    return_residuals=False, lib: Optional[ctypes.CDLL] = None):
-    """`hop1_fused` on a CUDA tensor through the named kernel ("tiled" or
-    "whole"), for measurements that hold the two against each other, from
-    `lib` (a library built from csrc/hop1_fwd.cu and bound by `bind_fwd`;
-    default the port's own).  Raises where that kernel does not take the
-    widths."""
-    code = {n: c for c, n in HOP1_VARIANTS.items()}[variant]
+    """`hop1_fused` on a CUDA tensor through the named kernel ("tiled",
+    "whole" or "wide"), for measurements that hold them against each other,
+    from `lib` (a library built from csrc/hop1_fwd.cu and bound by
+    `bind_fwd`; default the port's own).  Raises where that kernel does not
+    take the widths."""
+    code = _VARIANT_CODES[variant]
     launch = (lib or _fwd_lib()).bist_hop1_fwd_as
     return _hop1_launch(lambda *a: launch(code, *a), variant, x, q_proj, kv, attn_params,
                         h, mask, return_residuals)
@@ -379,9 +392,11 @@ def _hop1_fused_as(variant: str, x, q_proj, kv, attn_params, h, mask=None,
 def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, mask,
                  return_residuals):
     """Check K1's inputs, put q and the weights into the padded head layout,
-    allocate the results and launch the kernel by `launch` (the C entry's
-    arguments after any variant code); counts the launch under `variant` (by
-    default the launcher's choice, `hop1_variant`)."""
+    allocate the results and the kernel's workspace (on the caller's stream:
+    inside a CUDA graph's capture, from its pool) and launch the kernel by
+    `launch` (the C entry's arguments after any variant code); counts the
+    launch under `variant` (by default the launcher's choice,
+    `hop1_variant`)."""
     _check_grid(kv, h, "hop1_fused")
     dev = kv.device
     B, G, Lk, D = kv.shape
@@ -406,6 +421,9 @@ def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, 
     if return_residuals:
         concat = torch.empty((B, G, Lq, Dp), device=dev, dtype=torch.float32)
         lse = torch.empty((B, G, Lq, h), device=dev, dtype=torch.float32)
+    n_ws = _fwd_lib().bist_hop1_fwd_workspace(_VARIANT_CODES[variant], B, G, Lq, Lk, D, h,
+                                              int(return_residuals))
+    ws = torch.empty(n_ws, device=dev, dtype=torch.float32) if n_ws else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -416,6 +434,7 @@ def _hop1_launch(launch, variant: Optional[str], x, q_proj, kv, attn_params, h, 
             *[t.data_ptr() for t in args[2:]], out.data_ptr(),
             None if concat is None else concat.data_ptr(),
             None if lse is None else lse.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             B, G, Lq, Lk, D, h, 1.0 / math.sqrt(D // h), stream)
     if rc != 0:
         raise _launch_failed("hop1_fused", rc, kv, Lq, h)
@@ -455,7 +474,7 @@ def _hop1_bwd_as(variant: str, q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, 
     `lib` (a library built from csrc/hop1_bwd.cu and bound by `bind_bwd`;
     default the port's own).  Raises where that kernel does not take the
     widths."""
-    code = {n: c for c, n in HOP1_VARIANTS.items()}[variant]
+    code = _VARIANT_CODES[variant]
     lib = lib or _bwd_lib()
     return _hop1_bwd_launch(lambda *a: lib.bist_hop1_bwd_as(code, *a), variant, lib,
                             q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h)

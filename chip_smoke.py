@@ -21,11 +21,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      "device_ms" puts the events around 20 calls made back to back, over
      their number (the median of 5 such runs), so that the host work
      overlaps the device work of the calls before.  K1's and K2's cases
-     name the kernel they must run ("whole" or "tiled", the two of
-     csrc/hop1_fwd.cu and of csrc/hop1_bwd.cu); their main-path cases also
-     check and time "tiled", the kernel that held those widths before
-     "whole", at the same inputs.  K1 and K2 also run at widths "whole" does
-     not take (D 120, 520 and 1024 with 8 heads).  K3 (one kernel,
+     name the kernel they must run ("whole", "wide" or "tiled" of
+     csrc/hop1_fwd.cu; "whole" or "tiled" of csrc/hop1_bwd.cu); their
+     main-path cases also check and time "tiled", the kernel that held
+     those widths before "whole" and "wide", at the same inputs.  K1
+     "wide" at the reference's width (D 512, 8 heads: t2s, s2t, training
+     with K2 on its residuals, ragged rows with a fully masked row, a
+     bfloat16 grid) and at D 256 (8 and 4 heads).  K1 and K2 also run at
+     widths neither takes (D 120, 520 and 1024 with 8 heads).  K3 (one kernel,
      csrc/flash_fwd.cu) at mha's shape in float32 and on a bfloat16 grid,
      one query row at d 16 and head dim 320, each beside one SDPA call by
      both methods;
@@ -231,6 +234,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      device, K1 6 times a rank; (b) four ranks at a (1 × 2 model × 2 seq)
      mesh at tests/test_sp.py's widths, started with (a): one step, the
      loss and gradients against one device.
+ 17. the reference's width: the flagship configuration at d_model 512 with
+     8 heads (bist_tpu's and the reference's default; hop 1 through K1
+     "wide"), random weights from seed 0: beam search (phase 3's settings)
+     on 2 batches of 64 turns, eager and replayed (K1 "wide" 6 a batch
+     through the wrappers and by kernel name), then under force_plain
+     eager and replayed: responses/s of the four, the graph pools, and
+     every hypothesis's tokens identical to the plain path's; then one
+     train step's loss and gradients at dropout 0 against force_plain
+     (phase 6's bounds; K1 "wide" and K2 "tiled" 6 each), 5 eager steps
+     and a TrainProgram's replays (ms/step; K1 "wide" and K2 "tiled" 6 a
+     step by kernel name).
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -327,6 +341,30 @@ def device_time_ms(fn, launches: int = 20, reps: int = 5, warmup: int = 3) -> fl
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, pattern: str, calls: int = 10) -> dict:
+    """Device ms a call of each kernel whose name matches the regex
+    `pattern` (its first match names it), from torch.profiler over `calls`
+    calls after one warm-up."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        m = re.search(pattern, e.key)
+        if m and t > 0:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + t / 1e3 / calls
+    return out
+
+
 def bound(nbytes: float, flops: float = 0.0, tf32x3_flops: float = 0.0,
           tf32x2_flops: float = 0.0):
     """(least time in ms, what bounds it) on the card's published peaks:
@@ -383,8 +421,8 @@ def ptxas_report(log):
     """Per kernel of an `nvcc -Xptxas -v` log: registers, stack and spill
     bytes, named by kernel, grid type and its template arguments: for hop-1
     "whole" width D, 16-row kv tiles, groups a block, head width up to; for
-    K3 its mode, 8-row kv tiles a scoring warp and output tiles a warp up
-    to."""
+    "wide"'s attention kernel its head width; for K3 its mode, 8-row kv
+    tiles a scoring warp and output tiles a warp up to."""
     import re
 
     rows, cur = [], None
@@ -399,6 +437,8 @@ def ptxas_report(log):
             if len(args) == 4:
                 cur.update(D=32 * args[0], row_tiles=args[1], groups=args[2],
                            dk_max=8 * args[3])
+            elif cur["kernel"] == "hop1_fwd_wide_attn_kernel" and len(args) == 1:
+                cur.update(dk=8 * args[0])
             elif cur["kernel"] == "flash_fwd_mma_kernel" and len(args) == 2:
                 kv_split, blocks = re.findall(r"Lb([01])E", mangled)
                 cur.update(mode="kv split" if kv_split == "1" else
@@ -480,22 +520,25 @@ def rel_beyond_atol(got, want):
 
 
 def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
-               seed, residuals=False, bf16=False, vs_tiled=False):
+               seed, residuals=False, bf16=False, vs_tiled=False, bwd=False):
     """One K1 case, which must run the named kernel variant; with
     `residuals` the training launch, whose concat and lse are held against
     the plain version's too; with `bf16` a bfloat16 grid.  The bound counts
-    every product at the rate "whole" runs it on the tensor cores: 3xTF32,
-    or two passes for the projection of a bfloat16 grid; `bound_f32_ms`
-    counts every operation at the float32 rate (the bound of the kernels
-    before the tensor cores).  With `vs_tiled` the "tiled" kernel is checked
-    and timed at the same inputs too."""
+    every product at the rate "whole" and "wide" run it on the tensor cores:
+    3xTF32, or two passes for the projection of a bfloat16 grid;
+    `bound_f32_ms` counts every operation at the float32 rate (the bound of
+    the kernels before the tensor cores).  With `vs_tiled` the "tiled"
+    kernel is checked and timed at the same inputs too.  With `bwd` (and
+    `residuals`) K2 runs on the kernel's own residuals, with a random
+    upstream gradient, and its six gradients are held against
+    `hop1_bwd_plain` on the same inputs ("bwd_variant", "bwd_max_abs_err")."""
     import torch
 
-    from bist_tpu_torch.ops.bist_kernels import (_hop1_fused_as, hop1_fused, hop1_plain,
-                                                 hop1_resources)
+    from bist_tpu_torch.ops.bist_kernels import (_hop1_fused_as, hop1_bwd, hop1_bwd_plain,
+                                                 hop1_fused, hop1_plain, hop1_resources)
 
-    _, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
-                                       strided_t2s, seed)
+    rng, p, x, q, kv, mask = hop1_inputs(device, B, G, Lq, Lk, D, h, masked,
+                                         strided_t2s, seed)
     if bf16:
         kv = kv.to(torch.bfloat16)
     before = dict(hop1_fused.variants)
@@ -515,10 +558,27 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
     run = lambda: hop1_fused(x, q, kv, p, h, mask, return_residuals=residuals)
     plain = lambda: hop1_plain(x, q, kv, p, h, mask, return_residuals=residuals)
     extra = {}
+    if bwd:
+        _, concat, lse = got
+        g = torch.tensor(rng.standard_normal((B, G, Lq, D), dtype=np.float32), device=device)
+        dcc = (g @ p["wo"]["w"].t()).contiguous()
+        dh = (dcc * concat).reshape(B, G, Lq, h, D // h).sum(-1)
+        args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+                p["wv"]["b"], h)
+        before = dict(hop1_bwd.variants)
+        grads = hop1_bwd(*args)
+        ran_bwd = [v for v, n in hop1_bwd.variants.items() if n != before.get(v, 0)]
+        want_grads = hop1_bwd_plain(*args)
+        torch.cuda.synchronize()
+        extra = {"bwd_variant": ran_bwd[0], "bwd_max_abs_err": max(
+            assert_agree(f"hop1_bwd on the residuals of hop1 {name} {n}", a, b_,
+                         rtol=2 ** -7 if bf16 and n == "dkv" else TOL)
+            for n, a, b_ in zip(("dq", "dkv", "dWk", "dWv", "dbk", "dbv"), grads,
+                                want_grads))}
     if vs_tiled:
         tiled = lambda: _hop1_fused_as("tiled", x, q, kv, p, h, mask, residuals)
-        extra = {"tiled_max_abs_err": agree(tiled(), f"hop1 {name} (tiled)"),
-                 "tiled_ms": time_ms(tiled), "tiled_device_ms": device_time_ms(tiled)}
+        extra.update(tiled_max_abs_err=agree(tiled(), f"hop1 {name} (tiled)"),
+                     tiled_ms=time_ms(tiled), tiled_device_ms=device_time_ms(tiled))
     nbytes, proj, wo, attn = hop1_work(B, G, Lq, Lk, D, masked, kv.element_size())
     if residuals:
         nbytes += 4 * B * G * Lq * (D + h)
@@ -536,6 +596,9 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
             "bytes": nbytes, "flops": proj + wo + attn, "weight_flops": proj + wo,
+            # "wide" runs three kernels: each one's device ms a call
+            **({"kernel_device_ms": kernel_device_ms(run, r"hop1_fwd_wide_\w+?_kernel")}
+               if variant == "wide" else {}),
             "resources": hop1_resources(G, Lq, Lk, D, h, bf16)}
 
 
@@ -671,9 +734,27 @@ def phase_kernels(device):
                    vs_tiled=True),
         # many kv tiles at the widest D the kernel takes
         check_hop1(device, "multi-tile", "tiled", 4, 8, 32, 600, 512, 8, True, False, 3),
-        # the t2s launch of wider models at the main path's batch
-        check_hop1(device, "t2s D=256", "tiled", 64, 16, 32, 40, 256, 8, True, True, 7),
-        check_hop1(device, "t2s D=512", "tiled", 64, 16, 32, 40, 512, 8, True, True, 8),
+        # the reference's width (d_model 512, 8 heads) and D 256 at the main
+        # path's batch ("wide"), each against "tiled" at the same inputs: the
+        # two launches of each video layer, the training launches with K2
+        # on their residuals, rows that fill no tile with a fully masked
+        # batch row, a bfloat16 grid
+        check_hop1(device, "t2s D=512", "wide", 64, 16, 32, 40, 512, 8, True, True, 8,
+                   vs_tiled=True),
+        check_hop1(device, "s2t D=512", "wide", 64, 40, 32, 16, 512, 8, False, False, 34,
+                   vs_tiled=True),
+        check_hop1(device, "t2s D=256", "wide", 64, 16, 32, 40, 256, 8, True, True, 7,
+                   vs_tiled=True),
+        check_hop1(device, "t2s D=256 h=4", "wide", 64, 16, 32, 40, 256, 4, True, True, 35,
+                   vs_tiled=True),
+        check_hop1(device, "train t2s D=512", "wide", 32, 16, 32, 40, 512, 8, True, True, 36,
+                   True, vs_tiled=True, bwd=True),
+        check_hop1(device, "train s2t D=512", "wide", 32, 40, 32, 16, 512, 8, False, False,
+                   37, True, vs_tiled=True, bwd=True),
+        check_hop1(device, "ragged Lq5 Lk37 D=512", "wide", 64, 16, 5, 37, 512, 8, True, True,
+                   38, vs_tiled=True),
+        check_hop1(device, "t2s D=512 bf16", "wide", 64, 16, 32, 40, 512, 8, True, True, 39,
+                   bf16=True, vs_tiled=True),
         # the training launches (batches of 32), with the residuals
         check_hop1(device, "train t2s", "whole", 32, 16, 32, 40, 128, 8, True, True, 9,
                    True, vs_tiled=True),
@@ -794,14 +875,18 @@ def ctx_tensors(ctx):
     return out
 
 
+K1_NONE = {"whole": 0, "tiled": 0, "wide": 0}
+
+
 def k1_ran(prof):
     """K1 kernels the card ran in a torch.profiler window, by kernel ("whole",
-    "tiled"), from the trace's kernel names: a graph replay's kernels are
-    recorded there, where the wrappers' Python counts see only their eager
-    launches and captures."""
+    "tiled", "wide"), from the trace's kernel names: a graph replay's
+    kernels are recorded there, where the wrappers' Python counts see only
+    their eager launches and captures.  A "wide" call runs three kernels
+    and is counted once, by its attention kernel."""
     from torch.autograd import DeviceType
 
-    out = {"whole": 0, "tiled": 0}
+    out = dict(K1_NONE)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             name = e.name()
@@ -809,6 +894,8 @@ def k1_ran(prof):
                 out["whole"] += 1
             elif "hop1_fwd_tiles_kernel" in name:
                 out["tiled"] += 1
+            elif "hop1_fwd_wide_attn_kernel" in name:
+                out["wide"] += 1
     return out
 
 
@@ -833,7 +920,8 @@ def same_outputs(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def eager_and_replayed(device, name, eager_fn, program, batches, extra=None):
+def eager_and_replayed(device, name, eager_fn, program, batches, extra=None,
+                       variant="whole"):
     """One decode style eager and replayed on the same batches, in one call:
     the eager function timed (after a warm-up, the wrappers' counts zeroed
     before and read after: K1 6 times per batch), then the program's
@@ -841,7 +929,8 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None):
     the same way: 12 K1 launches per capture), a timed pass of replays
     (which must launch nothing through the wrappers) and a pass of replays
     under torch.profiler, whose K1 kernels are counted by name (6 per
-    batch, all "whole").  Every replayed output must equal the eager one."""
+    batch, all through `variant`).  Every replayed output must equal the
+    eager one."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import hop1_fused
@@ -862,16 +951,16 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None):
     sync()
     eager_s = time.perf_counter() - t0
     eager_counts = counts()
-    if cuda and eager_counts != (6 * n, {"whole": 6 * n}):
+    if cuda and eager_counts != (6 * n, {variant: 6 * n}):
         raise AssertionError(f"{name}, eager: K1 launches {eager_counts}, expected "
-                             f"{6 * n} on \"whole\" (6 per batch)")
+                             f"{6 * n} on \"{variant}\" (6 per batch)")
 
     reset_hop1_counts()
     before = program.stats()
     first = [program(b, **kw) for b, kw in zip(batches, extra)]
     sync()
     caps = program.captures - before["captures"]
-    if cuda and (counts() != (12 * caps, {"whole": 12 * caps})
+    if cuda and (counts() != (12 * caps, {variant: 12 * caps})
                  or program.eager_runs - before["eager_runs"] != caps):
         raise AssertionError(f"{name}, capture pass: K1 launches {counts()} for {caps} "
                              f"captures, expected 12 each (the warm-up and the capture)")
@@ -887,10 +976,10 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None):
     with prof:
         again = [program(b, **kw) for b, kw in zip(batches, extra)]
         sync()
-    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
-    if cuda and ran != {"whole": 6 * n, "tiled": 0}:
+    ran = k1_ran(prof) if cuda else dict(K1_NONE)
+    if cuda and ran != dict(K1_NONE, **{variant: 6 * n}):
         raise AssertionError(f"{name}: K1 kernels in {n} replays by name {ran}, expected "
-                             f"{6 * n} \"whole\" (6 per batch)")
+                             f"{6 * n} \"{variant}\" (6 per batch)")
     differ = [i for i, (e, a, b, c) in enumerate(zip(eager, first, replayed, again))
               if not (same_outputs(e, a) and same_outputs(e, b) and same_outputs(e, c))]
     if differ:
@@ -1223,13 +1312,9 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     from bist_tpu_torch.config import TrainConfig
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import to_device
-    from bist_tpu_torch.models.model import forward_logprobs
-    from bist_tpu_torch.ops import dispatch
     from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
-    from bist_tpu_torch.train.losses import compute_losses
     from bist_tpu_torch.train.loop import create_train_state, make_train_step
     from bist_tpu_torch.vocab import get_vocabulary
-    from bist_tpu_torch.weights import tree_leaves
 
     vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
     cfg = flagship_cfg(len(vocab), **dict(model_kw or {}, dropout=0.0,
@@ -1242,42 +1327,8 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
     state, tx = create_train_state(0, cfg, tcfg, device=device)
     start = copy_state(state)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-
-    # one step's gradients, kernels against the plain path
-    def loss_grads():
-        logp, ft = forward_logprobs(state.params, cfg, batches[0])
-        loss, _ = compute_losses(logp, ft, state.params["embed"]["lut"], cfg,
-                                 batches[0], tcfg.smoothing)
-        return loss, torch.autograd.grad(loss, tree_leaves(state.params),
-                                         allow_unused=True)
-
-    before = hop1_fused.launches, hop1_bwd.launches
-    loss_k, grads_k = loss_grads()
-    sync()
-    check_launches = (hop1_fused.launches - before[0], hop1_bwd.launches - before[1])
-    if device.type == "cuda" and check_launches != (6, 6):
-        raise AssertionError(f"gradient check: K1, K2 launched {check_launches} "
-                             f"times, expected 6 each")
-    with dispatch.force_plain():
-        loss_p, grads_p = loss_grads()
+    grad_check = grads_against_plain(device, state, cfg, tcfg, batches[0])
     names = leaf_names(state.params)
-    grad_err, grad_max = 0.0, 0.0
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    if loss_rel > 5e-4:
-        raise AssertionError(f"train loss: kernel path {loss_k.item()} vs plain "
-                             f"{loss_p.item()}")
-    for name, a, b in zip(names, grads_k, grads_p):
-        if (a is None) != (b is None):
-            raise AssertionError(f"gradient {name}: reached on one path only")
-        if a is None:
-            continue
-        rtol = 0.0 if name.endswith("wk.b") else 5e-3   # wk.b: zero, residue
-        err = (a - b).abs().max().item()
-        grad_err = max(grad_err, err)
-        grad_max = max(grad_max, b.abs().max().item())
-        if not torch.allclose(a, b, rtol=rtol, atol=5e-4):
-            raise AssertionError(f"gradient {name}: kernel path and plain path "
-                                 f"differ by {err:.3e}")
 
     step = make_train_step(cfg, tcfg, tx)
     sync()
@@ -1323,12 +1374,66 @@ def phase_train(device, kernel_cases=(), steps=30, B=32, warmup=10, model_kw=Non
             "examples_per_s": B / ms * 1e3, "first_step_ms": times[0] * 1e3,
             "launches": launches, "hop1_variants": variants,
             "hop1_bwd_variants": bwd_variants, "loss_first": first, "loss_last_same_batch": last,
-            "grad_check": {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
-                           "loss_rel_diff": loss_rel, "max_abs_diff": grad_err,
-                           "max_abs_grad": grad_max,
-                           "launches": check_launches},
+            "grad_check": {k: v for k, v in grad_check.items() if k != "variants"},
             "kernel_ms_per_step_from_phase2": kernel_ms,
             "kernel_share_of_step": None if kernel_ms is None else kernel_ms / ms}
+
+
+def grads_against_plain(device, state, cfg, tcfg, batch):
+    """One step's loss and gradients through the kernels against the plain
+    path (force_plain): the loss to 5e-4 relative, each gradient to 5e-4 +
+    5e-3·|g| (the key biases', analytically zero, to 5e-4); on the card K1
+    and K2 launched 6 times each through the wrappers.  Returns the
+    readings and the launches by kernel ("variants")."""
+    import torch
+
+    from bist_tpu_torch.models.model import forward_logprobs
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.losses import compute_losses
+    from bist_tpu_torch.weights import tree_leaves
+
+    def loss_grads():
+        logp, ft = forward_logprobs(state.params, cfg, batch)
+        loss, _ = compute_losses(logp, ft, state.params["embed"]["lut"], cfg, batch,
+                                 tcfg.smoothing)
+        return loss, torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True)
+
+    before = (hop1_fused.launches, hop1_bwd.launches, dict(hop1_fused.variants),
+              dict(hop1_bwd.variants))
+    loss_k, grads_k = loss_grads()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    check_launches = (hop1_fused.launches - before[0], hop1_bwd.launches - before[1])
+    if device.type == "cuda" and check_launches != (6, 6):
+        raise AssertionError(f"gradient check: K1, K2 launched {check_launches} "
+                             f"times, expected 6 each")
+    variants = [{k: n - was.get(k, 0) for k, n in now.items() if n != was.get(k, 0)}
+                for now, was in ((hop1_fused.variants, before[2]),
+                                 (hop1_bwd.variants, before[3]))]
+    with dispatch.force_plain():
+        loss_p, grads_p = loss_grads()
+    grad_err, grad_max = 0.0, 0.0
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if loss_rel > 5e-4:
+        raise AssertionError(f"train loss: kernel path {loss_k.item()} vs plain "
+                             f"{loss_p.item()}")
+    for name, a, b in zip(leaf_names(state.params), grads_k, grads_p):
+        if (a is None) != (b is None):
+            raise AssertionError(f"gradient {name}: reached on one path only")
+        if a is None:
+            continue
+        rtol = 0.0 if name.endswith("wk.b") else 5e-3   # wk.b: zero, residue
+        err = (a - b).abs().max().item()
+        grad_err = max(grad_err, err)
+        grad_max = max(grad_max, b.abs().max().item())
+        if not torch.allclose(a, b, rtol=rtol, atol=5e-4):
+            raise AssertionError(f"gradient {name}: kernel path and plain path "
+                                 f"differ by {err:.3e}")
+    return {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+            "loss_rel_diff": loss_rel, "max_abs_diff": grad_err, "max_abs_grad": grad_max,
+            "launches": check_launches,
+            "variants": {"hop1_fwd": variants[0], "hop1_bwd": variants[1]}}
 
 
 def profile_steps(step, state, batches, n, sync):
@@ -1512,7 +1617,7 @@ def train_programs(device, cfg, tcfg, tx, batches, start, eager_metrics, eager_p
             state, _, _ = run(prog, state, 3)
             wall = time.perf_counter() - t0
         ran = hop1_ran(prof)
-        if ran != {"k1": {"whole": 18, "tiled": 0}, "k2": {"whole": 18, "tiled": 0}}:
+        if ran != {"k1": dict(K1_NONE, whole=18), "k2": {"whole": 18, "tiled": 0}}:
             raise AssertionError(f"train program: K1, K2 kernels in 3 replays by name "
                                  f"{ran}, expected 18 \"whole\" each (6 a step)")
         busy = device_busy_ms(prof) / 3
@@ -1572,7 +1677,7 @@ def train_programs(device, cfg, tcfg, tx, batches, start, eager_metrics, eager_p
           "stats": eprog.stats()}
     if cuda:
         ran = k1_ran(prof)
-        if ran != {"whole": 6 * len(batches), "tiled": 0}:
+        if ran != dict(K1_NONE, whole=6 * len(batches)):
             raise AssertionError(f"eval program: K1 kernels by name {ran}, expected "
                                  f"{6 * len(batches)} \"whole\" (6 a batch)")
         ev["replayed_k1_by_name"] = ran
@@ -1755,9 +1860,9 @@ def check_k1_window(device, what, batches, program, before, prof=None):
         raise AssertionError(f"{what}: K1 wrapper launches {hop1_fused.launches} "
                              f"{hop1_fused.variants}, expected {want} for {caps} captures")
     if prof is not None:
-        ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+        ran = k1_ran(prof) if cuda else dict(K1_NONE)
         want = 6 * (batches + warm) if cuda else 0
-        if ran != {"whole": want, "tiled": 0}:
+        if ran != dict(K1_NONE, whole=want):
             raise AssertionError(f"{what}: K1 kernels by name {ran}, expected {want} "
                                  f"\"whole\" (6 per batch, {batches} batches, {warm} warm-ups)")
         out.update(hop1_fwd_ran=sum(ran.values()),
@@ -2391,8 +2496,8 @@ def bundle_checks(device, model, fields, cli_root, cli_export, dv, s, t_max, wor
             or hop1_fused.launches:
         raise AssertionError(f"bundles: the served window captured or ran eagerly: program "
                              f"{before} -> {after}, K1 launches {hop1_fused.launches}")
-    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
-    if cuda and ran != {"whole": 6 * len(groups), "tiled": 0}:
+    ran = k1_ran(prof) if cuda else dict(K1_NONE)
+    if cuda and ran != dict(K1_NONE, whole=6 * len(groups)):
         raise AssertionError(f"bundles: K1 kernels by name {ran} in {len(groups)} replayed "
                              f"batches, expected {6 * len(groups)} \"whole\"")
     out.update(served={"requests": len(got), "identical": len(got), "batches": len(groups),
@@ -2948,7 +3053,7 @@ def phase_extractor(device, root, depth=101, batch=128, reps=5, n_check=4, video
     with open(result_json) as f:
         result = json.load(f)
     check_result_schema(result, orig, undisclosed=True)
-    ran = k1_ran(prof) if cuda else {"whole": 0, "tiled": 0}
+    ran = k1_ran(prof) if cuda else dict(K1_NONE)
     if cuda and not sum(ran.values()):
         raise AssertionError("generate from extracted features: no K1 kernel ran")
     out["generate"] = {"turns": sum(len(d["dialog"]) for d in result["dialogs"]),
@@ -3276,7 +3381,7 @@ def tgif_step_speed(device, task, params, cfg, batch, eager_steps=10, replays=20
             sync()
             wall = time.perf_counter() - t0
         ran = hop1_ran(prof)
-        if ran != {"k1": {"whole": 12, "tiled": 0}, "k2": {"whole": 12, "tiled": 0}}:
+        if ran != {"k1": dict(K1_NONE, whole=12), "k2": {"whole": 12, "tiled": 0}}:
             raise AssertionError(f"TGIF {task}: K1, K2 kernels in 3 replays by name {ran}, "
                                  f"expected 12 \"whole\" each (4 a step)")
         tl = device_timeline(prof)
@@ -3547,7 +3652,7 @@ def dp_world_one(device, calls=5, timed=20, B=32, model_kw=None):
             with profiler_window(device) as prof:
                 s14, _ = run(p14, s14, 3)
             ran = hop1_ran(prof)
-            if ran != {"k1": {"whole": 18, "tiled": 0}, "k2": {"whole": 18, "tiled": 0}}:
+            if ran != {"k1": dict(K1_NONE, whole=18), "k2": {"whole": 18, "tiled": 0}}:
                 raise AssertionError(f"dp world 1: K1, K2 kernels in 3 replays by name {ran}, "
                                      f"expected 18 \"whole\" each (6 a step)")
             out.update(replayed_by_name=ran, nccl_kernels_in_3_replays=nccl_kernels(prof))
@@ -3672,7 +3777,7 @@ def dp_two_ranks(device, root, B=32, timeout=600, meanwhile=None):
         if not got["identical"]:
             raise AssertionError(f"dp rank {r}: the ranks' checksums differ after Adam")
         if device.type == "cuda":
-            if got["by_name"] != {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}:
+            if got["by_name"] != {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}:
                 raise AssertionError(f"dp rank {r}: K1, K2 by name {got['by_name']}, "
                                      f"expected 6 \"whole\" each")
             if not (got["program_refused"] and "cannot be captured" in got["program_refused"]):
@@ -3770,7 +3875,7 @@ def dp_serving(device, model, fields, root, export_s, group=64, dv=DV, s=S, t_ma
             raise AssertionError(f"{what}: {len(bad)} of {len(want)} answers differ from one "
                                  f"device's, e.g. request {bad[0]}: {got[bad[0]]} against "
                                  f"{want[bad[0]]}")
-        k1 = {"whole": 6 * 2 * 4, "tiled": 0}       # 6 a replica a batch, 4 batches
+        k1 = dict(K1_NONE, whole=6 * 2 * 4)         # 6 a replica a batch, 4 batches
         if cuda and ran != k1:
             raise AssertionError(f"{what}: K1 by name {ran} in 4 batches of the pair's "
                                  f"replays, expected {k1}")
@@ -4078,7 +4183,7 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
     ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
     if cuda:
-        want = {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}
+        want = {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}
         if one["by_name"] != want or one["wrappers"] != {"hop1_fwd": 6, "hop1_bwd": 6}:
             raise AssertionError(f"tp: the one-device step ran K1, K2 {one['by_name']} by "
                                  f"name ({one['wrappers']}), expected 6 \"whole\" each")
@@ -4093,7 +4198,7 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
                                  f"device's {one['loss']}")
         worst_grad = max(worst_grad, grads_within_bound(f"tp rank {r}", names, got["grads"],
                                                         one["grads"]))
-        if cuda and (got["by_name"] != {"k1": {"whole": 0, "tiled": 0},
+        if cuda and (got["by_name"] != {"k1": dict(K1_NONE),
                                         "k2": {"whole": 0, "tiled": 0}}
                      or got["wrappers"] != {"hop1_fwd": 0, "hop1_bwd": 0}
                      or got["beam_k1_wrapper"] != 0):
@@ -4359,7 +4464,7 @@ def phase_sequence_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
              for r in range(2)]
     ranks_b = [torch.load(os.path.join(root_b, f"rank{r}.pt"), weights_only=False)
                for r in range(4)]
-    whole6 = {"k1": {"whole": 6, "tiled": 0}, "k2": {"whole": 6, "tiled": 0}}
+    whole6 = {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}
     if cuda and (one["by_name"] != whole6 or one["wrappers"] != {"hop1_fwd": 6,
                                                                   "hop1_bwd": 6}):
         raise AssertionError(f"sp: the one-device step ran K1, K2 {one['by_name']} by name "
@@ -4427,6 +4532,175 @@ def phase_sequence_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
                       "widths": tiny_kw, "rows": tiny_B, "loss_rel_err": worst_b,
                       "seq_collectives_a_step": ranks_b[0]["step_counts"]},
             "seconds": time.perf_counter() - t_start}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the reference's width (d_model 512, 8 heads)
+
+REFERENCE_WIDTH = dict(d_model=512, att_h=8)
+
+
+def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
+                          model_kw=REFERENCE_WIDTH):
+    """The flagship configuration at bist_tpu's default width (`model_kw`:
+    d_model 512, 8 heads; hop 1 through K1 "wide"), random weights from
+    seed 0:
+
+      * beam search (phase 3's settings) on n_batches batches of B test
+        turns, eager and through a DecodeProgram (`eager_and_replayed`: K1
+        "wide" 6 a batch through the wrappers and by kernel name in the
+        replays), then eager and replayed again under force_plain (no K1):
+        responses/s of all four, each graph pool, and every hypothesis's
+        tokens and length identical between the kernel path and the plain
+        path, eager and replayed;
+      * training without dropout on 2 cycled batches of train_B turns: one
+        step's loss and gradients against force_plain (phase 6's bounds,
+        K1 "wide" with residuals and K2 "tiled" 6 each), `steps` eager Noam-
+        Adam steps and a TrainProgram's warm-up, capture and `steps`
+        replays timed (ms/step, median after the first), 2 replays under
+        torch.profiler (K1 "wide" and K2 "tiled" 6 a step each by name).
+    Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.config import GenerateConfig, TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wide = "wide" if cuda else None
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), **model_kw)
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
+                     undisclosed_only=True)
+    gcfg = GenerateConfig(**GEN)
+    batches = [to_device(b, device) for b in make_batches(data, n_batches, B, seed=0)]
+    params = init_model(0, cfg, device=device)
+    rows = n_batches * B
+    program = DecodeProgram(params, cfg, gcfg)
+    kern, beam = eager_and_replayed(device, "beam_search, d_model 512",
+                                    lambda b: beam_search(params, cfg, b, gcfg), program,
+                                    batches, variant=wide)
+    reset_hop1_counts()
+    with dispatch.force_plain():
+        beam_search(params, cfg, batches[0], gcfg)                   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        plain = [beam_search(params, cfg, b, gcfg) for b in batches]
+        sync()
+        plain_eager_s = time.perf_counter() - t0
+        plain_program = DecodeProgram(params, cfg, gcfg)
+        for b in batches:                                            # warm-up, capture
+            plain_program(b)
+        sync()
+        t0 = time.perf_counter()
+        plain_replayed = [plain_program(b) for b in batches]
+        sync()
+        plain_replay_s = time.perf_counter() - t0
+    if hop1_fused.launches:
+        raise AssertionError(f"d_model 512: K1 launched {hop1_fused.launches} times under "
+                             f"force_plain")
+
+    def same(a, b):
+        return torch.equal(a.tokens, b.tokens) and torch.equal(a.lengths, b.lengths)
+
+    differ = [i for i, (k, p, pr) in enumerate(zip(kern, plain, plain_replayed))
+              if not (same(k, p) and same(p, pr))]
+    if differ:
+        raise AssertionError(f"d_model 512: the beam tokens of batches {differ} differ "
+                             f"between the kernel path and the plain path")
+    generation = {
+        "batches": n_batches, "batch_size": B,
+        "responses_per_s": {"kernels_eager": beam["eager_responses_per_s"],
+                            "kernels_replayed": beam["replayed_responses_per_s"],
+                            "plain_eager": rows / plain_eager_s,
+                            "plain_replayed": rows / plain_replay_s},
+        "graph_pool_mb": {"kernels": beam["graph_pool_mb"],
+                          "plain": plain_program.stats()["pool_bytes"] / 2 ** 20},
+        "replayed_k1_by_name": beam["replayed_k1_by_name"],
+        "eager_launches": beam["eager_launches"],
+        "tokens_identical_to_plain": {"eager": rows, "replayed": rows}}
+    log(f"d_model 512 generation: {json.dumps(generation)}")
+    del program, plain_program
+
+    # training without dropout: K1 "wide" with residuals, K2 "tiled"
+    tcfg_model = flagship_cfg(len(vocab), **model_kw, dropout=0.0, attn_dropout=0.0)
+    tcfg = TrainConfig(warmup_steps=10)
+    train_data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
+    tb = [to_device(b, device) for b in make_batches(train_data, 2, train_B, seed=1,
+                                                     answers=True)]
+    state, tx = create_train_state(0, tcfg_model, tcfg, device=device)
+    start = copy_state(state)
+    grad_check = grads_against_plain(device, state, tcfg_model, tcfg, tb[0])
+    want = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 6}} if cuda else \
+        {"hop1_fwd": {}, "hop1_bwd": {}}
+    if grad_check["variants"] != want:
+        raise AssertionError(f"d_model 512 gradient check: K1, K2 by kernel "
+                             f"{grad_check['variants']}, expected {want}")
+    step = make_train_step(tcfg_model, tcfg, tx)
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, tb[i % 2], None)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    eager_counts = {"hop1_fwd": dict(hop1_fused.variants), "hop1_bwd": dict(hop1_bwd.variants)}
+    want = {"hop1_fwd": {"wide": 6 * steps}, "hop1_bwd": {"tiled": 6 * steps}} if cuda else \
+        {"hop1_fwd": {}, "hop1_bwd": {}}
+    if eager_counts != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"d_model 512 train steps: K1, K2 by kernel {eager_counts} "
+                             f"(expected {want}), losses {losses}")
+    del state
+    pstate = copy_state(start)
+    prog = TrainProgram(pstate, tcfg_model, tcfg, tx)
+    for b in tb:                                     # each geometry's warm-up, capture
+        pstate, _ = prog(pstate, b, None)
+    sync()
+    caps = prog.captures
+    replay = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        pstate, m = prog(pstate, tb[i % 2], None)
+        sync()
+        replay.append(time.perf_counter() - t0)
+    st = prog.stats()
+    if (cuda and not (st["captures"] == caps == st["eager_runs"] == st["geometries"] > 0)) \
+            or not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"d_model 512 train program: {st}, loss {m['loss']}: a "
+                             f"geometry stepped eagerly or the loss is not finite")
+    ran = None
+    if cuda:
+        with profiler_window(device) as prof:
+            for i in range(2):
+                pstate, _ = prog(pstate, tb[i % 2], None)
+            sync()
+        ran = hop1_ran(prof)
+        want = {"k1": dict(K1_NONE, wide=12), "k2": {"whole": 0, "tiled": 12}}
+        if ran != want:
+            raise AssertionError(f"d_model 512 train program: K1, K2 in 2 replays by name "
+                                 f"{ran}, expected {want}")
+    training = {"batch_size": train_B, "steps": steps,
+                "grad_check": grad_check,
+                "eager_ms_per_step": statistics.median(times[1:]) * 1e3,
+                "replayed_ms_per_step": statistics.median(replay[1:]) * 1e3,
+                "losses": losses, "eager_launches": eager_counts, "replayed_by_name": ran,
+                "program": st}
+    log(f"d_model 512 training: {json.dumps(training)}")
+    del prog, pstate, start
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"config": model_kw, "generation": generation, "training": training}
 
 
 # ---------------------------------------------------------------------------
@@ -4634,14 +4908,42 @@ def main() -> int:
     print(f"sequence parallel on {card}: {json.dumps(spr)}", flush=True)
     lap("sequence parallel")
 
+    ref = phase_reference_width(device)
+    gen, trn = ref["generation"], ref["training"]
+    rps = gen["responses_per_s"]
+    print(f"reference width (d_model 512, 8 heads) on {card}: beam search "
+          f"{rps['kernels_replayed']:.1f} responses/s replayed ({rps['kernels_eager']:.1f} "
+          f"eager) against plain {rps['plain_replayed']:.1f} ({rps['plain_eager']:.1f}), "
+          f"tokens identical to plain on {gen['tokens_identical_to_plain']['replayed']} rows, "
+          f"K1 by name {json.dumps(gen['replayed_k1_by_name'])}, graph pool "
+          f"{gen['graph_pool_mb']['kernels']:.1f} MB against plain "
+          f"{gen['graph_pool_mb']['plain']:.1f}; train step B {trn['batch_size']}: eager "
+          f"{trn['eager_ms_per_step']:.2f} ms, replayed {trn['replayed_ms_per_step']:.2f} ms, "
+          f"loss {trn['grad_check']['loss_rel_diff']:.2e} rel of plain, K1/K2 by name "
+          f"{json.dumps(trn['replayed_by_name'])}", flush=True)
+    print(f"reference width on {card}: {json.dumps(ref)}", flush=True)
+    lap("reference width")
+
+    ref_k1 = gen["replayed_k1_by_name"]
+    wide_main = next(c for c in hop1_cases if c["case"] == "t2s D=512")
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
-                          main_path["launches"]["hop1_fwd"],
-                          f"flagship beam_search replayed (one CUDA graph a geometry), "
-                          f"{main_path['batches']} batches of {main_path['batch_size']}, "
-                          f"counted by kernel name"),
-             variants=main_path["hop1_variants"],
+                          main_path["launches"]["hop1_fwd"] + sum(ref_k1.values()),
+                          f"beam_search replayed (one CUDA graph a geometry), counted by "
+                          f"kernel name: the flagship's {main_path['batches']} batches of "
+                          f"{main_path['batch_size']} (phase 3) and the reference width's "
+                          f"{gen['batches']} batches of {gen['batch_size']} (phase 17)"),
+             variants={k: main_path["hop1_variants"].get(k, 0) + ref_k1.get(k, 0)
+                       for k in K1_NONE if main_path["hop1_variants"].get(k, 0)
+                       + ref_k1.get(k, 0)},
+             launches_main_path=main_path["launches"]["hop1_fwd"],
+             launches_reference_width={"beam_search_replayed": ref_k1,
+                                       "train_replayed": trn["replayed_by_name"]["k1"]},
+             # "wide" at the reference's width (phase 2's t2s D=512 case)
+             wide={k: wide_main[k] for k in ("case", "ms", "device_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "tiled_ms",
+                                             "max_abs_err")},
              launches_train=train["launches"]["hop1_fwd"],
              # K1 kernels the card ran in 3 train and 2 eval replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k1"],
@@ -4673,6 +4975,9 @@ def main() -> int:
                           f"flagship train step, {train['steps']} steps of "
                           f"{train['batch_size']}"),
              variants=train["hop1_bwd_variants"],
+             # K2 kernels (first pass) the card ran in 2 train replays at the
+             # reference width, by name (phase 17: "tiled" on "wide"'s residuals)
+             launches_reference_width={"train_replayed": trn["replayed_by_name"]["k2"]},
              # K2 kernels (first pass) the card ran in 3 train replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],
              launches_tgif={k: v["k2"] for k, v in tgif_runs.items()},

@@ -91,11 +91,18 @@ def test_hop1_kernel_matches_plain(cuda, B, G, Lq, Lk, D, h):
     ("whole", 2, 5, 33, 23, 64, 2, True, False),       # two weight chunks, heads 32 wide
     ("tiled", 2, 5, 33, 23, 96, 4, True, False),       # widths "whole" is not built for
     ("tiled", 2, 9, 17, 9, 32, 4, False, True),
-    ("tiled", 2, 16, 32, 40, 256, 8, True, False),
-    ("tiled", 2, 16, 32, 40, 512, 8, True, False),
+    ("wide", 2, 16, 32, 40, 256, 8, True, False),      # the reference's widths
+    ("wide", 2, 16, 32, 40, 512, 8, True, False),
+    ("wide", 2, 40, 32, 16, 512, 8, False, False),     # s2t
+    ("wide", 2, 16, 32, 40, 256, 4, True, False),      # heads 64 wide
+    ("wide", 3, 16, 5, 37, 512, 8, True, False),       # rows that fill no tile
+    ("wide", 2, 16, 32, 40, 512, 8, True, True),       # a bfloat16 grid
+    ("wide", 2, 5, 12, 64, 512, 16, True, False),      # Lk 64, heads 32 wide
+    ("wide", 2, 7, 33, 9, 512, 64, False, False),      # two query chunks, heads 8 wide
+    ("wide", 3, 3, 17, 1, 256, 16, False, True),       # one kv row, heads 16 wide
 ])
 def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
-    """K1's two kernels at the main path's widths and around them, in the
+    """K1's three kernels at the main path's widths and around them, in the
     evaluation and the training (residual) mode, a fully masked batch row
     included: each case runs the kernel the launcher chooses for it."""
     rng = np.random.default_rng(7)
@@ -122,8 +129,9 @@ def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, b
 @pytest.mark.cuda
 def test_hop1_forced_variants_agree(cuda):
     """The measurement path (`_hop1_fused_as`): "tiled" takes the flagship
-    widths too and agrees with "whole"; "whole" refuses widths it does not
-    take; both count their launches by kernel."""
+    widths and D 512 too and agrees with "whole" and "wide" (with and
+    without residuals); "whole" and "wide" refuse widths they do not take;
+    each counts its launches by kernel."""
     rng = np.random.default_rng(8)
     p = {n: {k: t.to(cuda) for k, t in w.items()}
          for n, w in mha_init(torch.Generator().manual_seed(3), 8, 128).items()}
@@ -137,6 +145,25 @@ def test_hop1_forced_variants_agree(cuda):
     wide = tensor(rng, (2, 4, 70, 128), cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         K1._hop1_fused_as("whole", x, q, wide, p, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K1._hop1_fused_as("wide", x, q, kv, p, 8)
+    # D 512: the old kernel, forced, against "wide"
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(3), 8, 512).items()}
+    x, q = tensor(rng, (2, 32, 512), cuda), tensor(rng, (2, 32, 512), cuda)
+    kv = tensor(rng, (2, 40, 16, 512), cuda).transpose(1, 2)
+    mask = prefix_mask(rng, 2, 40, cuda)[:, None, :].contiguous()
+    before = dict(K1.hop1_fused.variants)
+    for res in (False, True):
+        got = K1._hop1_fused_as("tiled", x, q, kv, p, 8, mask, res)
+        want = K1._hop1_fused_as("wide", x, q, kv, p, 8, mask, res)
+        for a, b, n in zip(got if res else [got], want if res else [want],
+                           ("out", "concat", "lse")):
+            close(a, b, f"tiled vs wide {n}")
+    for v in ("tiled", "wide"):
+        assert K1.hop1_fused.variants[v] == before.get(v, 0) + 2
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K1._hop1_fused_as("wide", x, q, tensor(rng, (2, 4, 70, 512), cuda), p, 8)
 
 
 @pytest.mark.cuda
@@ -250,10 +277,12 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
     """On the card a call that meets the dispatch rule launches its kernel;
     it never runs the plain version: a bfloat16 model's hop 1 and long-kv
     mha launch K1 and K3; hop 1 (K1, K1 with residuals, K2) at widths
-    "whole" does not take (D not a multiple of 8, d_k not one of 4, D above
-    512, a misaligned grid), float32 and bfloat16 grids with a fully masked
-    row, and K3 at head dim 320, launch and agree with the plain versions
-    within 2e-4 + 2e-4·|plain| (a bfloat16 dkv within one rounding)."""
+    "whole" and "wide" do not take (D not a multiple of 8, d_k not one of 4,
+    D above 512, a misaligned grid: "tiled"; the same grid aligned goes to
+    "whole" at D 128 and "wide" at D 512), float32 and bfloat16 grids with a
+    fully masked row, and K3 at head dim 320, launch and agree with the
+    plain versions within 2e-4 + 2e-4·|plain| (a bfloat16 dkv within one
+    rounding)."""
     plain_fwd, plain_bwd, plain_attn = K1.hop1_plain, K1.hop1_bwd_plain, K3.attention_plain
 
     def plain_called(*a, **kw):
@@ -285,7 +314,7 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
 
     from bist_tpu_torch.models import bist as torch_bist
     B, G, Lq, Lk = 2, 3, 5, 9
-    for D, h in WIDE_HOP1 + [(128, 8)]:
+    for D, h in WIDE_HOP1 + [(128, 8), (512, 8)]:
         p = {n: {k: t.to(cuda) for k, t in w.items()}
              for n, w in mha_init(torch.Generator().manual_seed(0), h, D).items()}
         x, q = tensor(rng, (B, Lq, D), cuda), tensor(rng, (B, Lq, D), cuda)
@@ -293,8 +322,15 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
         raw = tensor(rng, (B * Lk * G * D + 1,), cuda)
         # a t2s-style strided view, its rows one element off the 16 bytes
         grid = raw[1:].view(B, Lk, G, D).transpose(1, 2)
-        if D == 128:
+        if D in (128, 512):
             assert K1.hop1_variant(Lq, Lk, D, h, K1._rows_vec4(grid)) == "tiled"
+            aligned = raw[:-1].view(B, Lk, G, D).transpose(1, 2)
+            assert K1.hop1_variant(Lq, Lk, D, h, K1._rows_vec4(aligned)) == \
+                ("whole" if D == 128 else "wide")
+            before = K1.hop1_fused.launches
+            close(K1.hop1_fused(x, q, aligned, p, h, mask),
+                  plain_fwd(x, q, aligned, p, h, mask), f"hop1 D={D} aligned")
+            assert K1.hop1_fused.launches == before + 1
         for kv in (grid, grid.to(torch.bfloat16)):
             what = f"D={D} h={h} {kv.dtype}"
             before = (K1.hop1_fused.launches, K1.hop1_bwd.launches)
@@ -350,18 +386,28 @@ def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):
 @pytest.mark.parametrize("B,G,Lq,Lk,D,h,full_row", [
     (2, 4, 5, 7, 32, 2, True), (2, 3, 33, 130, 128, 8, False),
     (2, 2, 8, 75, 512, 8, True), (4, 16, 32, 40, 128, 8, False),
+    (2, 16, 32, 40, 512, 8, True), (3, 5, 12, 33, 256, 4, False),   # K1 "wide"
 ])
 def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_row):
     """K1's residuals and K2's six gradients against their plain versions:
-    float32 and a bfloat16 grid, kv a strided view, a fully masked row."""
+    float32 and a bfloat16 grid, kv a strided view, a fully masked row; K2
+    also on K1's own residuals (at D 256/512 "wide"'s, which K2 "tiled"
+    reads)."""
     rng = np.random.default_rng(5)
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda,
                                                  full_row)
     for grid in (kv, kv.to(torch.bfloat16)):
-        for a, b, n in zip(K1.hop1_fused(x, q, grid, p, h, mask, return_residuals=True),
-                           K1.hop1_plain(x, q, grid, p, h, mask, return_residuals=True),
+        fused = K1.hop1_fused(x, q, grid, p, h, mask, return_residuals=True)
+        for a, b, n in zip(fused, K1.hop1_plain(x, q, grid, p, h, mask, return_residuals=True),
                            ("out", "concat", "lse")):
             close(a, b, f"hop1 {n} {grid.dtype}")
+        dh_k = (dcc * fused[1]).reshape(B, G, Lq, h, D // h).sum(-1)
+        args = (q, grid, mask, dcc, dh_k, fused[2], p["wk"]["w"], p["wk"]["b"],
+                p["wv"]["w"], p["wv"]["b"], h)
+        for a, b, n in zip(K1.hop1_bwd(*args), K1.hop1_bwd_plain(*args),
+                           ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
+            close(a, b, f"hop1_bwd on K1's residuals {n} {grid.dtype}",
+                  rtol=BF16_ULP if n == "dkv" and grid.dtype == torch.bfloat16 else TOL)
         args = (q, grid, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
                 p["wv"]["w"], p["wv"]["b"], h)
         before = K1.hop1_bwd.launches

@@ -53,6 +53,11 @@ def j(a):
     (2, 2, 4, 9, 120, 8),      # d_k 15
     (1, 2, 3, 6, 520, 8),      # above 512, d_k 65
     (1, 2, 3, 5, 1024, 8),     # two head groups in K2
+    # the widths K1 "wide" takes: D 256 and 512, d_k 32 and 64
+    (1, 2, 5, 7, 256, 8),
+    (1, 2, 5, 7, 256, 4),
+    (1, 2, 5, 7, 512, 8),      # bist_tpu's default d_model and heads
+    (1, 2, 5, 7, 512, 16),
 ])
 def test_hop1_plain_matches_jax(B, G, Lq, Lk, D, h, masked, rng):
     p, tp, x, q_proj, kv, mask = hop1_inputs(rng, B, G, Lq, Lk, D, h, masked)
@@ -159,11 +164,19 @@ def split_operands(product):
     3xTF32: K1's K/V projection of one group's kv rows ("40": t2s, "16":
     s2t) by [Wk | Wv]; K2's dkv, [dk | dv] (40 x 256) by [Wkᵀ ; Wvᵀ], a
     2D-deep contraction; K2's dW, kvᵀ dk over B·G·Lk = 20,480 rows at D 128
-    (32 x 16 x 40, the flagship t2s launch).  Standard normal activations,
+    (32 x 16 x 40, the flagship t2s launch); K1 "wide"'s two GEMMs at D 512,
+    512 deep: the projection (40 kv rows by [Wk | Wv], 512 x 1024) and Wo
+    (32 concat rows by Wo, 512 x 512).  Standard normal activations,
     weights as mha_init makes them."""
+    rng = np.random.default_rng(1)
+    if product in ("proj512", "wo512"):
+        p = torch_mha_init(torch.Generator().manual_seed(1), 8, 512)
+        if product == "wo512":
+            return rng.standard_normal((32, 512), dtype=np.float32), p["wo"]["w"].numpy()
+        return (rng.standard_normal((40, 512), dtype=np.float32),
+                np.concatenate([p["wk"]["w"].numpy(), p["wv"]["w"].numpy()], 1))
     p = torch_mha_init(torch.Generator().manual_seed(1), 8, 128)
     wk, wv = p["wk"]["w"].numpy(), p["wv"]["w"].numpy()
-    rng = np.random.default_rng(1)
     if product == "dkv":
         return (rng.standard_normal((40, 256), dtype=np.float32),
                 np.concatenate([wk.T, wv.T]))
@@ -175,14 +188,14 @@ def split_operands(product):
 
 
 @pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
-@pytest.mark.parametrize("product", ["40", "16", "dkv", "dW"])
+@pytest.mark.parametrize("product", ["40", "16", "dkv", "dW", "proj512", "wo512"])
 def test_3xtf32_split_keeps_float32_accuracy(product, rounding):
     """Why the hop-1 kernels split their tensor-core operands: one TF32
     pass is off from the float32 product by more than 2e-4 abs + 2e-4 rel
     (~1e-3 at the flagship K/V projection), while the 3xTF32 split a·b =
     lo_a·hi_b + hi_a·lo_b + hi_a·hi_b agrees within it and is as close to
-    the float64 product as float32 is, on K1's projection and on K2's dkv
-    and dW products.  Products and sums in float64: only the operand
+    the float64 product as float32 is, on K1's projection (and "wide"'s two
+    512-deep GEMMs) and on K2's dkv and dW products.  Products and sums in float64: only the operand
     rounding is emulated (K1 splits toward zero, K2 to nearest)."""
     a, b = split_operands(product)
     f32 = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy()

@@ -48,11 +48,19 @@ def weights(p):
     return [p[n][k] for n in ("wk", "wv", "wo") for k in ("w", "b")]
 
 
-@pytest.mark.parametrize("Lk", [7, 600])
-def test_residuals_match_pallas(Lk, rng):
+@pytest.mark.parametrize("B,G,Lk,D,h", [
+    pytest.param(2, 3, 7, 32, 4, id="7"),
+    pytest.param(2, 3, 600, 32, 4, id="600"),
+    # the widths K1 "wide" takes: D 256 and 512, d_k 32 and 64
+    (1, 2, 7, 256, 8),
+    (1, 2, 7, 256, 4),
+    (1, 2, 7, 512, 8),
+    (1, 2, 7, 512, 16),
+])
+def test_residuals_match_pallas(B, G, Lk, D, h, rng):
     """concat and lse of hop1_plain(return_residuals=True) against the
     Pallas kernel's (interpret mode; JAX pads Lq to 8, so [:, :, :Lq])."""
-    B, G, Lq, D, h = 2, 3, 5, 32, 4
+    Lq = 5
     p, x, q_proj, kv, mask, _ = inputs(rng, B, G, Lq, Lk, D, h)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, p), CPU)
     out, concat, lse = K.hop1_plain(t(x), t(q_proj), t(kv), tp, h, t(mask),
@@ -152,6 +160,11 @@ def test_hop1_bwd_plain_equals_autograd_through_hop1_plain(masked, rng):
     (2, 2, 9, 120, 8),         # d_k 15
     (1, 2, 6, 520, 8),         # above 512, d_k 65
     (1, 2, 5, 1024, 8),        # two head groups in K2
+    # the widths K1 "wide" takes (K2 "tiled" on its residuals)
+    (1, 2, 7, 256, 8),
+    (1, 2, 7, 256, 4),
+    (1, 2, 7, 512, 8),
+    (1, 2, 7, 512, 16),
 ])
 def test_hop1_trainable_grads_match_jax(B, G, Lk, D, h, rng):
     """All 9 gradients against jax.grad of JAX's hop1_trainable (Pallas
