@@ -30,8 +30,8 @@
 //
 // No float atomics anywhere, so the gradients are the same from run to run:
 // dq is one partial per (b, g) and dW one partial per fixed chunk of kv
-// rows, both summed in a fixed order by sum_middle_kernel.  Two kernels for
-// the passes that do the work, chosen by shape before any launch
+// rows, both summed in a fixed order by sum_middle_kernel.  Three designs
+// for the passes that do the work, chosen by shape before any launch
 // (`hop1_bwd_variant`, exported as bist_hop1_bwd_variant; the rule of
 // hop1_fwd.cu's `hop1_variant`):
 //
@@ -94,6 +94,41 @@
 // tile, [dk | dv]) split once a block.  The next step is more warps an SM
 // (ROADMAP).
 //
+// "wide", for hop1_fwd.cu's "wide" domain (D 256 or 512, d_k a multiple of
+// 8 up to 64, Lk <= 64, aligned kv rows; bist_tpu's default d_model 512
+// with 8 heads), reading "wide"'s residuals.  "whole"'s one block a group
+// cannot hold a group there (at D 512 its K, V, dK and dV are 320 KB at Lk
+// 40), and "tiled" recomputes K/V from 2 MB of weights in every (b, g)
+// block on the FMA units.  Three quarters of the work are the three D x D
+// products, so they become GEMMs over every kv row of the launch (M =
+// B·G·Lk), the weights resident in L2, on hop1_gemm.cuh's tensor-core GEMM
+// in K2's setting (splits rounded to nearest, each k-step's three passes
+// added to a float32 total: mma_step).  On the caller's stream:
+//   1. hop1_bwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] into
+//      the workspace (M x 2D), kv read through its strides (K1's stage 1);
+//   2. hop1_bwd_wide_attn_kernel: one block of 8 warps a (b, g, 128
+//      columns), all of Lq in chunks of 32 rows; one warp a (head, 16 kv
+//      rows) task computes sᵀ, dpᵀ, pᵀ and dsᵀ with kv rows in the MMA's
+//      rows, so that dV = pᵀ d_concat and dK = dsᵀ q take the D fragments
+//      as A fragments and stay in registers, written over [K | V] in place
+//      (the block has read its K and V columns first); dq's share of each
+//      kv tile goes through a staging tile of dsᵀ, and the tiles' shares
+//      are summed in order into dq's partial per (b, g);
+//   3. hop1_bwd_wide_dkv_kernel: dkv = [dK | dV] [Wkᵀ ; Wvᵀ], one GEMM
+//      with a 2D-deep contraction, in kv's dtype;
+//   4. hop1_bwd_wide_dw_kernel: [dWk | dWv] = kvᵀ [dK | dV] (D x 2D), kvᵀ
+//      staged as the transposed A operand, the rows cut into a fixed number
+//      of chunks (one partial each) so that the 32 output tiles at D 512
+//      fill the SMs; dbk, dbv as float32 column sums of the staged [dK |
+//      dV] tiles in blocked order, not on the tensor cores (dbk is
+//      analytically 0).
+// Every GEMM and the attention kernel run one block of 8 warps an SM.
+// What bounds it: operations.  At the reference width's train step (t2s
+// B32 G16 Lq32 Lk40 D512) the three GEMMs are 3 x 21.5 GFLOP and the
+// bound is 0.41 ms at 495/3 TFLOP/s; it takes ~1.8 ms of device time, its
+// GEMMs at ~110-140 TFLOP/s of TF32 passes (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py, PERF.md).
+//
 // "tiled", every other width: any D with D % h == 0, heads held 4-column
 // padded (hop1_tiles.cuh), grids of any alignment, on the FMA units:
 //   1. hop1_bwd_kernel, one block of 256 threads per (b, g).  It takes the
@@ -114,7 +149,7 @@
 //      64 x 64 output tiles, the rows cut into a fixed number of chunks (one
 //      partial each, enough blocks to fill the card; within a chunk a
 //      three-level sum of 16-row steps); dbk, dbv ride along.
-// Both variants end with
+// All three end with
 //   3. sum_middle_kernel: the partials summed in a fixed order (dq over g,
 //      the weight gradients over the row chunks).
 
@@ -122,6 +157,7 @@
 
 #include <algorithm>
 
+#include "hop1_gemm.cuh"
 #include "hop1_mma.cuh"
 #include "hop1_tiles.cuh"
 
@@ -623,7 +659,10 @@ hop1_bwd_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
   if (bias && j0 + tid < Dp) out[2 * (size_t)D * Dp + (size_t)m * Dp + j0 + tid] = bsum;
 }
 
-// Pass 3: out[o, j] = Σ_k in[o, k, j] for k = 0 .. n-1, in that order.
+// Pass 3: out[o, j] = Σ_k in[o, k, j] for k = 0 .. n-1, in that order, with
+// Kahan's compensation, so that the sum errs by about an ulp of the result
+// whatever n ("wide"'s dW adds ~40 chunk partials of up to ~300 at the
+// reference width's train step).
 __global__ void sum_middle_kernel(const float* __restrict__ in, float* __restrict__ out,
                                   long long outer, int n, long long inner) {
   const long long total = outer * inner;
@@ -631,8 +670,12 @@ __global__ void sum_middle_kernel(const float* __restrict__ in, float* __restric
        idx += (long long)gridDim.x * blockDim.x) {
     const long long o = idx / inner, j = idx % inner;
     const float* p = in + o * n * inner + j;
-    float s = 0.f;
-    for (int k = 0; k < n; ++k) s += p[k * inner];
+    float s = 0.f, c = 0.f;
+    for (int k = 0; k < n; ++k) {
+      const float y = p[k * inner] - c, t = s + y;
+      c = (t - s) - y;
+      s = t;
+    }
     out[idx] = s;
   }
 }
@@ -749,7 +792,7 @@ int launch_tiled(const float* q, const TKV* kv, long long kv_sb, long long kv_sg
 // "whole": all kv rows of a group (of two groups of one batch row at Lk <=
 // 16) in one block, every product on the tensor cores as 3xTF32.
 
-enum Variant { kVariantNone = 0, kVariantTiled = 1, kVariantWhole = 2 };
+enum Variant { kVariantNone = 0, kVariantTiled = 1, kVariantWhole = 2, kVariantWide = 3 };
 
 // Phase boundaries of the whole pass 1 (0 prologue, 1 projection, 2 bias,
 // 3 attention, 4 rows out and the split of [dk | dv], 5 dkv, 6 dkv's store,
@@ -1401,6 +1444,412 @@ hop1_bwd_dw_whole_kernel(const TKV* __restrict__ kv, long long kv_sb, long long 
 }
 
 // ---------------------------------------------------------------------------
+// "wide": D 256 or 512 in four kernels and the fixed-order sums, the three
+// D x D products as GEMMs over every kv row of the launch (hop1_gemm.cuh in
+// K2's setting: splits rounded to nearest, chains of one k-step).
+
+constexpr int kWideBwdThreads = 256;   // an attention-backward block: 8 warps
+constexpr int kWideQc = 32;            // query rows a chunk of it
+constexpr int kWideDwRows = 512;       // kv rows a chunk of the dW pass
+
+// Stage 1: [K | V] = kv [Wk | Wv] + [bk | bv] into the workspace.
+template <typename TKV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+hop1_bwd_wide_proj_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
+                          long long kv_st, const float* __restrict__ wk,
+                          const float* __restrict__ bk, const float* __restrict__ wv,
+                          const float* __restrict__ bv, float* __restrict__ kvp, int G,
+                          int Lk, int D, int M) {
+  wide_proj<TKV, true>(kv, kv_sb, kv_sg, kv_st, wk, bk, wv, bv, kvp, G, Lk, D, M);
+}
+
+// Floats of an attention-backward block's shared memory at Lk kv rows (mt =
+// ceil(Lk / 16) tiles of 16): K and V (16·mt x ld each), the query chunk's
+// q and d_concat (kWideQc x ld each), the dq partials of the mt kv tiles
+// (mt x kWideQc x ld) and each warp's 16-row staging tile of dsᵀ.
+__host__ __device__ inline int wide_bwd_attn_floats(int Lk) {
+  const int mt = (Lk + 15) / 16;
+  return (2 * 16 * mt + 2 * kWideQc + mt * kWideQc) * (kWideCols + 4) +
+         kWideBwdThreads / 32 * 16 * (kWideQc + 8);
+}
+
+// o = (the 16 x kWideQc tile a, as D fragments: kv rows x query rows) times
+// b (kWideQc query rows of a head's kDk8 8-column tiles, row stride ld):
+// the D fragments serve as A fragments (k = query rows 2t and 2t + 1 of
+// each 8-column tile), b's rows read in load_b_pairs' order.
+template <int kNQ, int kDk8>
+__device__ __forceinline__ void tile_t_times(const float (&a)[kNQ][4], const float* b_s, int ld,
+                                             int fg, int ft, float (&o)[kDk8][4]) {
+#pragma unroll
+  for (int c = 0; c < kDk8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNQ; ++n) {
+    uint32_t ah[4], al[4];
+    d_as_a<true>(a[n], ah, al);
+#pragma unroll
+    for (int c = 0; c < kDk8; ++c) {
+      uint32_t bh[2], bl[2];
+      load_b_pairs<true>(b_s + n * 8 * ld + c * 8, ld, fg, ft, bh, bl);
+      mma_step<false>(o[c], ah, al, bh, bl);
+    }
+  }
+}
+
+// A task's kv rows of dK or dV (o: kv rows t0, t0 + 8 x the head's columns
+// from `out`, row stride 2D): stored at the first query chunk, added to the
+// stored value at later ones; rows at or past Lk are the next group's.
+template <int kDk8>
+__device__ __forceinline__ void store_rows(float* out, int D, int t0, const bool (&inside)[2],
+                                           bool add, const float (&o)[kDk8][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!inside[r]) continue;
+    float* row = out + (size_t)(t0 + 8 * r) * 2 * D;
+#pragma unroll
+    for (int c = 0; c < kDk8; ++c) {
+      float2* dst = reinterpret_cast<float2*>(row + c * 8);
+      float2 v = make_float2(o[c][2 * r], o[c][2 * r + 1]);
+      if (add) {
+        const float2 was = *dst;
+        v = make_float2(was.x + v.x, was.y + v.y);
+      }
+      *dst = v;
+    }
+  }
+}
+
+// Stage 2: the attention backward of one (b, g) and kWideCols columns (hg =
+// kWideCols / d_k heads), all of Lq in chunks of kWideQc query rows.  K and V
+// come from the workspace (rows past Lk zeroed to the next 16).  One warp a
+// (head, 16-row kv tile m) task computes the transposed products, kv rows
+// in the MMA's rows and query rows in its columns:
+//   sᵀ = K_m qᵀ and dpᵀ = V_m d_concatᵀ (every product of the kernel a
+//   3xTF32 chain of one k-step: mma_step);
+//   pᵀ and dsᵀ in registers (the mask as the flags of the thread's two kv
+//   rows, lse and Dh as its query columns');
+//   dV_m = pᵀ d_concat and dK_m = dsᵀ q (tile_t_times), written over the
+//   block's K and V columns of the workspace (the block read them into
+//   shared memory before any write; a later chunk adds to them);
+//   dq's share of the tile, ds K_m, with dsᵀ through the warp's staging tile
+//   as the transposed A operand, into the block's partial of tile m.
+// Then the tiles' partials are summed in order into the (b, g) partial of
+// dq.  No two tasks write one element: no atomics.  The semantics of
+// autograd through hop1_plain, as bwd_task's.  kDk8 = d_k / 8.
+template <int kDk8>
+__global__ void __launch_bounds__(kWideBwdThreads, 1)
+hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __restrict__ mask,
+                          const float* __restrict__ dcc, const float* __restrict__ dh,
+                          const float* __restrict__ lse, float* __restrict__ dq_part, int G,
+                          int Lq, int Lk, int D, int h, float scale) {
+  constexpr int ld = kWideCols + 4;      // 4 words (mod 32): A and B fragments
+  constexpr int ldst = kWideQc + 8;      // 8 words (mod 32): transposed A fragments
+  constexpr int dk = 8 * kDk8, hg = kWideCols / dk;
+  constexpr int kNQ = kWideQc / 8;       // 8-column tiles of sᵀ (query rows)
+  constexpr int kMQ = kWideQc / 16;      // 16-row query tiles of dq
+  constexpr int kWarpsB = kWideBwdThreads / 32;
+  extern __shared__ float4 smem4[];
+  const int mt = (Lk + 15) / 16, rows = 16 * mt;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* v_s = k_s + rows * ld;
+  float* q_s = v_s + rows * ld;
+  float* c_s = q_s + kWideQc * ld;
+  float* dq_s = c_s + kWideQc * ld;
+  float* st_s = dq_s + mt * kWideQc * ld + warp * 16 * ldst;
+  const int bg = blockIdx.x, b = bg / G, cg = blockIdx.y * kWideCols;
+  float* kb = kvp + (size_t)bg * Lk * 2 * D + cg;   // K's columns; V's at + D
+  issue_rows<kWideCols, kWideBwdThreads>(k_s, ld, kb, 2 * D, Lk, rows);
+  issue_rows<kWideCols, kWideBwdThreads>(v_s, ld, kb + D, 2 * D, Lk, rows);
+  cp_async_commit();
+  const int* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
+  int any_valid = mask_b == nullptr;
+  if (mask_b != nullptr)
+    for (int t = tid; t < Lk; t += kWideBwdThreads) any_valid |= mask_b[t] != 0;
+  const bool uniform = !__syncthreads_or(any_valid);   // a fully masked batch row
+  const float inv_lk = 1.f / Lk;
+
+  for (int q0 = 0; q0 < Lq; q0 += kWideQc) {
+    const int nq = min(kWideQc, Lq - q0);
+    __syncthreads();   // the previous chunk's readers of q_s, c_s and dq_s are done
+    issue_rows<kWideCols, kWideBwdThreads>(q_s, ld, q + ((size_t)b * Lq + q0) * D + cg, D, nq,
+                                           kWideQc);
+    issue_rows<kWideCols, kWideBwdThreads>(c_s, ld, dcc + ((size_t)bg * Lq + q0) * D + cg, D,
+                                           nq, kWideQc);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();   // K and V (at the first chunk), q and d_concat landed
+    for (int task = warp; task < hg * mt; task += kWarpsB) {
+      const int hd = task / mt, m = task % mt;
+      const int hc = hd * dk, head = cg / dk + hd;
+      const float* km = k_s + m * 16 * ld + hc;
+      const float* vm = v_s + m * 16 * ld + hc;
+      // sᵀ and dpᵀ: kv rows m·16 + fg (+ 8), query rows n·8 + 2·ft (+ 1)
+      float s[kNQ][4], dp[kNQ][4];
+#pragma unroll
+      for (int n = 0; n < kNQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kDk8; ++ks) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        load_a_rows<false, true>(km + ks * 8, ld, fg, ft, kh, kl);
+        load_a_rows<false, true>(vm + ks * 8, ld, fg, ft, vh, vl);
+#pragma unroll
+        for (int n = 0; n < kNQ; ++n) {
+          uint32_t qh[2], ql[2], ch[2], cl[2];
+          load_b_t<true>(q_s + n * 8 * ld + hc + ks * 8, ld, fg, ft, qh, ql);
+          load_b_t<true>(c_s + n * 8 * ld + hc + ks * 8, ld, fg, ft, ch, cl);
+          mma_step<false>(s[n], kh, kl, qh, ql);
+          mma_step<false>(dp[n], vh, vl, ch, cl);
+        }
+      }
+      // pᵀ = exp(s·scale - lse) and dsᵀ = pᵀ (dpᵀ - Dh) scale, both 0 past
+      // Lk, past the chunk's rows and at masked kv rows; a fully masked
+      // batch row attends uniformly (p = 1/Lk) and gets ds = 0
+      const int t0 = m * 16 + fg;
+      bool inside[2], valid[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = t0 + 8 * r;
+        inside[r] = t < Lk;
+        valid[r] = inside[r] && (mask_b == nullptr || mask_b[t] != 0);
+      }
+#pragma unroll
+      for (int n = 0; n < kNQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = n * 8 + 2 * ft + e;
+          const bool in = i < nq;
+          const size_t at = ((size_t)bg * Lq + q0 + (in ? i : 0)) * h + head;
+          const float lse_i = in ? lse[at] : 0.f, dh_i = in ? dh[at] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float p = 0.f, d = 0.f;
+            if (in && inside[r]) {
+              if (uniform) {
+                p = inv_lk;
+              } else if (valid[r]) {
+                p = expf(s[n][2 * r + e] * scale - lse_i);
+                d = p * (dp[n][2 * r + e] - dh_i) * scale;
+              }
+            }
+            s[n][2 * r + e] = p;
+            dp[n][2 * r + e] = d;
+          }
+        }
+      {
+        // dV_m = pᵀ d_concat and dK_m = dsᵀ q into the workspace
+        float o[kDk8][4];
+        tile_t_times<kNQ, kDk8>(s, c_s + hc, ld, fg, ft, o);
+        store_rows<kDk8>(kb + D + hc + 2 * ft, D, t0, inside, q0 > 0, o);
+        tile_t_times<kNQ, kDk8>(dp, q_s + hc, ld, fg, ft, o);
+        store_rows<kDk8>(kb + hc + 2 * ft, D, t0, inside, q0 > 0, o);
+      }
+      // dq's share of kv tile m: ds K_m, ds through the staging tile (dsᵀ:
+      // kv rows x query rows) as the transposed A operand
+#pragma unroll
+      for (int n = 0; n < kNQ; ++n) {
+        float* dst = st_s + fg * ldst + n * 8 + 2 * ft;
+        *reinterpret_cast<float2*>(dst) = make_float2(dp[n][0], dp[n][1]);
+        *reinterpret_cast<float2*>(dst + 8 * ldst) = make_float2(dp[n][2], dp[n][3]);
+      }
+      __syncwarp();
+      float o[kMQ][kDk8][4];
+#pragma unroll
+      for (int mi = 0; mi < kMQ; ++mi)
+#pragma unroll
+        for (int c = 0; c < kDk8; ++c)
+          o[mi][c][0] = o[mi][c][1] = o[mi][c][2] = o[mi][c][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t ah[kMQ][4], al[kMQ][4];
+#pragma unroll
+        for (int mi = 0; mi < kMQ; ++mi)
+          load_a_cols<false, true>(st_s + ks * 8 * ldst + mi * 16, ldst, fg, ft, ah[mi],
+                                   al[mi]);
+#pragma unroll
+        for (int c = 0; c < kDk8; ++c) {
+          uint32_t bh[2], bl[2];
+          load_b<true>(km + ks * 8 * ld + c * 8, ld, fg, ft, bh, bl);
+#pragma unroll
+          for (int mi = 0; mi < kMQ; ++mi) mma_step<false>(o[mi][c], ah[mi], al[mi], bh, bl);
+        }
+      }
+      __syncwarp();   // the staging tile is free for the warp's next task
+#pragma unroll
+      for (int mi = 0; mi < kMQ; ++mi)
+#pragma unroll
+        for (int c = 0; c < kDk8; ++c) {
+          float* dst = dq_s + (m * kWideQc + mi * 16 + fg) * ld + hc + c * 8 + 2 * ft;
+          *reinterpret_cast<float2*>(dst) = make_float2(o[mi][c][0], o[mi][c][1]);
+          *reinterpret_cast<float2*>(dst + 8 * ld) = make_float2(o[mi][c][2], o[mi][c][3]);
+        }
+    }
+    __syncthreads();
+    // the chunk's rows of the (b, g) partial of dq: the kv tiles' in order
+    constexpr int n4 = kWideCols / 4;
+    for (int i = tid; i < nq * n4; i += kWideBwdThreads) {
+      const int r = i / n4, e = i % n4 * 4;
+      float4 a = *reinterpret_cast<const float4*>(dq_s + r * ld + e);
+      for (int m = 1; m < mt; ++m) {
+        const float4 v = *reinterpret_cast<const float4*>(dq_s + (m * kWideQc + r) * ld + e);
+        a = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+      }
+      *reinterpret_cast<float4*>(dq_part + ((size_t)bg * Lq + q0 + r) * D + cg + e) = a;
+    }
+  }
+}
+
+// Stage 3: dkv = [dK | dV] [Wkᵀ ; Wvᵀ] over the M kv rows (one GEMM with a
+// 2D-deep contraction), in kv's dtype, contiguous (M x D).
+template <typename TKV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+hop1_bwd_wide_dkv_kernel(const float* __restrict__ dkvp, const float* __restrict__ wkv_t,
+                         TKV* __restrict__ dkv, int D, int M) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  long long* rows_s = reinterpret_cast<long long*>(smem + GemmLayout<float>::rows_off);
+  const int nt = D / kGN;
+  const int n0 = blockIdx.x % nt * kGN, m0 = blockIdx.x / nt * kGM;
+  for (int r = threadIdx.x; r < kGM; r += kWideThreads)
+    rows_s[r] = m0 + r < M ? (long long)(m0 + r) * 2 * D : -1;
+  __syncthreads();
+  float acc[4][4][4] = {};
+  wide_gemm<float, false, true>(dkvp, rows_s, wkv_t + n0, D, 2 * D, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int fg = lane / 4, ft = lane % 4, wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm * 64 + m * 16 + half * 8 + fg;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store2(dkv + (size_t)r * D + n0 + wn * 32 + j * 8 + 2 * ft, acc[m][j][2 * half],
+               acc[m][j][2 * half + 1]);
+    }
+}
+
+// Stage 4: part[chunk] = ([dWk | dWv] = kvᵀ [dK | dV], Σ dK, Σ dV) over a
+// chunk of kWideDwRows kv rows: one GEMM (D x 2D, contracting over the
+// rows), kvᵀ staged as the transposed A operand from the grid's rows
+// (through kv's strides).  The blocks of kv column tile 0 also sum [dK |
+// dV]'s columns in float32 from the staged tiles (dbk, dbv; not on the
+// tensor cores: dbk is analytically 0), a stage's 32 rows apart.
+template <typename TKV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+hop1_bwd_wide_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
+                        long long kv_st, const float* __restrict__ dkvp,
+                        float* __restrict__ part, int G, int Lk, int D, int M) {
+  using L = GemmLayout<TKV, true>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int nt = 2 * D / kGN;
+  const int n0 = blockIdx.x % nt * kGN;    // columns of [dK | dV]
+  const int i0 = blockIdx.x / nt * kGM;    // kv columns: rows of dW
+  const int r_begin = blockIdx.y * kWideDwRows, r_end = min(M, r_begin + kWideDwRows);
+  auto issue = [&](float* st, int c) {
+    TKV* as = reinterpret_cast<TKV*>(st);
+    float* bs = st + L::a_floats;
+    const int r0 = r_begin + c * kGK;
+    for (int i = tid; i < kGK * kGM / 4; i += kWideThreads) {
+      const int rr = i / (kGM / 4), e = i % (kGM / 4) * 4, r = r0 + rr;
+      TKV* dst = as + rr * L::lda + e;
+      if (r < r_end) {
+        const int bgi = r / Lk;
+        const TKV* src = kv + (bgi / G) * kv_sb + (bgi % G) * kv_sg + (r % Lk) * kv_st + i0 + e;
+        if (sizeof(TKV) == 4)
+          cp_async16(dst, src);
+        else
+          cp_async8(dst, src);
+      } else if (sizeof(TKV) == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      }
+    }
+    for (int i = tid; i < kGK * kGN / 4; i += kWideThreads) {
+      const int rr = i / (kGN / 4), e = i % (kGN / 4) * 4, r = r0 + rr;
+      float* dst = bs + rr * L::ldb + e;
+      if (r < r_end)
+        cp_async16(dst, dkvp + (size_t)r * 2 * D + n0 + e);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const bool bias = i0 == 0 && tid < kGN;
+  float bsum = 0.f;
+  auto sum_bias = [&](const float* st) {
+    if (!bias) return;
+    const float* bs = st + L::a_floats;
+    float bstep = 0.f;
+    for (int rr = 0; rr < kGK; ++rr) bstep += bs[rr * L::ldb + tid];
+    bsum += bstep;
+  };
+  float acc[4][4][4] = {};
+  gemm_loop<TKV, sizeof(TKV) == 2, true, true>((r_end - r_begin + kGK - 1) / kGK, smem, issue,
+                                               sum_bias, acc);
+  const int warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4, wm = warp / 4, wn = warp % 4;
+  float* out = part + (size_t)blockIdx.y * (2 * (size_t)D * D + 2 * D);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + wn * 32 + j * 8 + 2 * ft;
+    float* o = out + (n >= D ? (size_t)D * D : 0) + n % D;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(o + (size_t)(i0 + wm * 64 + m * 16 + half * 8 + fg) * D) =
+            make_float2(acc[m][j][2 * half], acc[m][j][2 * half + 1]);
+  }
+  if (bias) out[2 * (size_t)D * D + n0 + tid] = bsum;
+}
+
+// Chunks of the wide dW pass, kWideDwRows kv rows each: a block's float32
+// total then adds 64 k-steps, whose sums stay ~sqrt(512)× a term, and the
+// compensated sum_middle adds the chunks (40 at the reference width's train
+// step; 32 output tiles each at D 512, enough blocks for every SM).
+int wide_dw_chunks(int M) { return (M + kWideDwRows - 1) / kWideDwRows; }
+
+// The attention-backward kernel for head width d_k (8, 16, 32 or 64).
+const void* wide_bwd_attn_kernel(int dk) {
+  switch (dk) {
+    case 8: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<1>);
+    case 16: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<2>);
+    case 32: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<4>);
+    default: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<8>);
+  }
+}
+
+// Floats of "wide"'s workspace: [K | V], overwritten in place by [dK | dV]
+// (M x 2D), dq's partial per (b, g) (B·G·Lq x D) and the dW partials.
+long long wide_workspace_floats(int B, int G, int Lq, int Lk, int D) {
+  const int M = B * G * Lk;
+  return (long long)M * 2 * D + (long long)B * G * Lq * D +
+         (long long)wide_dw_chunks(M) * (2LL * D * D + 2LL * D);
+}
+
+// The "wide" kernels in launch order (the projection, the attention
+// backward, dkv, dW) with their threads and dynamic shared memory.
+template <typename TKV>
+void wide_kernels(int Lk, int D, int h, const void** fn, int* threads, size_t* smem) {
+  fn[0] = reinterpret_cast<const void*>(hop1_bwd_wide_proj_kernel<TKV>);
+  fn[1] = wide_bwd_attn_kernel(D / h);
+  fn[2] = reinterpret_cast<const void*>(hop1_bwd_wide_dkv_kernel<TKV>);
+  fn[3] = reinterpret_cast<const void*>(hop1_bwd_wide_dw_kernel<TKV>);
+  smem[0] = GemmLayout<TKV>::bytes;
+  smem[1] = (size_t)wide_bwd_attn_floats(Lk) * sizeof(float);
+  smem[2] = GemmLayout<float>::bytes;
+  smem[3] = GemmLayout<TKV, true>::bytes;
+  threads[0] = threads[2] = threads[3] = kWideThreads;
+  threads[1] = kWideBwdThreads;
+}
+
+// ---------------------------------------------------------------------------
 // Variant choice and launch
 
 // Groups a whole block takes: two of one batch row at Lk <= 16 (the s2t
@@ -1433,17 +1882,21 @@ int dw_whole_chunks(int nrows, int D) {
 }
 
 // The kernel a launch at these widths takes, from the shape and from
-// whether kv's rows are aligned 4-element vectors (kv_vec: "whole" copies
-// them in 16-byte and 8-byte pieces) alone, never from an error: "whole"
-// has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a multiple of 8 up to
-// 32, Lk <= 64, aligned rows) at any Lq; "tiled" every other width it
-// plans.
+// whether kv's rows are aligned 4-element vectors (kv_vec: "whole" and
+// "wide" copy them in 16-byte and 8-byte pieces) alone, never from an
+// error: "whole" has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a
+// multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide" its
+// "wide" domain (D 256 or 512, d_k a multiple of 8 up to 64, Lk <= 64,
+// aligned rows), so that each reads its forward's residuals; "tiled" every
+// other width it plans.
 int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
   if (kv_vec && (D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 && Lk <= kWholeMaxLk &&
       bwd_whole_smem(Lq, Lk, D, h, bwd_groups(2, Lk), 4) <= kSmemLimit)
     return kVariantWhole;
+  if (kv_vec && (D == 256 || D == 512) && dk % 8 == 0 && dk <= 64 && Lk <= kWideMaxLk)
+    return kVariantWide;
   int qc, tk, hg;
   size_t smem;
   return hop1_bwd_plan(Lq, Lk, D, h, &qc, &tk, &hg, &smem) ? kVariantTiled : kVariantNone;
@@ -1451,6 +1904,8 @@ int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
 
 long long workspace_floats(int B, int G, int Lq, int Lk, int D, int h) {
   const long long tiled = tiled_workspace_floats(B, G, Lq, Lk, D, h);
+  if (hop1_bwd_variant(Lq, Lk, D, h, true) == kVariantWide)
+    return std::max(tiled, wide_workspace_floats(B, G, Lq, Lk, D));
   if (D != 64 && D != 128) return tiled;
   const long long nrows = (long long)B * G * Lk;
   const long long whole = (long long)B * G * Lq * D + 2 * nrows * D +
@@ -1539,8 +1994,53 @@ int launch_whole(const float* q, const TKV* kv, long long kv_sb, long long kv_sg
   return sum_middle(part, wgrad, 1, chunks, 2LL * D * D + 2LL * D, stream);
 }
 
+// The "wide" kernels in order on `stream`, then the fixed-order sums; ws
+// holds wide_workspace_floats floats.
+template <typename TKV>
+int launch_wide(const float* q, const TKV* kv, long long kv_sb, long long kv_sg,
+                long long kv_st, const int* mask, const float* dcc, const float* dh,
+                const float* lse, const float* wk, const float* bk, const float* wv,
+                const float* bv, const float* wkv_t, TKV* dkv, float* dq, float* wgrad,
+                float* ws, int B, int G, int Lq, int Lk, int D, int h, float scale,
+                cudaStream_t stream) {
+  const void* fn[4];
+  int threads[4];
+  size_t smem[4];
+  wide_kernels<TKV>(Lk, D, h, fn, threads, smem);
+  for (int i = 0; i < 4; ++i) {
+    const int rc = set_smem(fn[i], smem[i]);
+    if (rc != 0) return rc;
+  }
+  const int M = B * G * Lk, mtiles = (M + kGM - 1) / kGM;
+  float* kvp = ws;
+  float* dq_part = kvp + (size_t)M * 2 * D;
+  float* part = dq_part + (size_t)B * G * Lq * D;
+  hop1_bwd_wide_proj_kernel<TKV><<<(2 * D / kGN) * mtiles, kWideThreads, smem[0], stream>>>(
+      kv, kv_sb, kv_sg, kv_st, wk, bk, wv, bv, kvp, G, Lk, D, M);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  void* attn_args[] = {&q, &kvp, &mask, &dcc, &dh, &lse, &dq_part, &G, &Lq, &Lk, &D, &h, &scale};
+  rc = (int)cudaLaunchKernel(fn[1], dim3((unsigned)(B * G), (unsigned)(D / kWideCols)),
+                             dim3(kWideBwdThreads), attn_args, smem[1], stream);
+  if (rc != 0) return rc;
+  hop1_bwd_wide_dkv_kernel<TKV><<<(D / kGN) * mtiles, kWideThreads, smem[2], stream>>>(
+      kvp, wkv_t, dkv, D, M);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int chunks = wide_dw_chunks(M);
+  hop1_bwd_wide_dw_kernel<TKV><<<dim3((unsigned)((D / kGM) * (2 * D / kGN)), (unsigned)chunks),
+                                 kWideThreads, smem[3], stream>>>(kv, kv_sb, kv_sg, kv_st, kvp,
+                                                                  part, G, Lk, D, M);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  rc = sum_middle(dq_part, dq, B, G, (long long)Lq * D, stream);
+  if (rc != 0) return rc;
+  return sum_middle(part, wgrad, 1, chunks, 2LL * D * D + 2LL * D, stream);
+}
+
 // `variant` is hop1_bwd_variant's choice, or the kernel a measurement asks
-// for: "tiled" takes every width hop1_bwd_variant takes, "whole" only its own.
+// for: "tiled" takes every width hop1_bwd_variant takes, "whole" and "wide"
+// only their own.
 template <typename TKV>
 int launch(int variant, const float* q, const TKV* kv, long long kv_sb, long long kv_sg,
            long long kv_st, const int* mask, const float* dcc, const float* dh,
@@ -1549,8 +2049,12 @@ int launch(int variant, const float* q, const TKV* kv, long long kv_sb, long lon
            float* ws, int B, int G, int Lq, int Lk, int D, int h, float scale,
            cudaStream_t stream) {
   const int chosen = hop1_bwd_variant(Lq, Lk, D, h, rows_vec4(kv, kv_sb, kv_sg, kv_st, D));
-  if (chosen == kVariantNone || (variant == kVariantWhole && chosen != kVariantWhole))
+  if (chosen == kVariantNone || (variant == kVariantWhole && chosen != kVariantWhole) ||
+      (variant == kVariantWide && chosen != kVariantWide))
     return (int)cudaErrorInvalidValue;
+  if (variant == kVariantWide)
+    return launch_wide(q, kv, kv_sb, kv_sg, kv_st, mask, dcc, dh, lse, wk, bk, wv, bv, wkv_t,
+                       dkv, dq, wgrad, ws, B, G, Lq, Lk, D, h, scale, stream);
   if (variant == kVariantWhole)
     return launch_whole(q, kv, kv_sb, kv_sg, kv_st, mask, dcc, dh, lse, wk, bk, wv, bv,
                         wkv_t, dkv, dq, wgrad, ws, B, G, Lq, Lk, D, h, scale, stream);
@@ -1582,7 +2086,24 @@ int kernel_resources(const void* fn, int threads, size_t smem, int* info) {
 template <typename TKV>
 int resources(int G, int Lq, int Lk, int D, int h, int* info) {
   const int variant = hop1_bwd_variant(Lq, Lk, D, h, true);
+  for (int i = 0; i < 25; ++i) info[i] = 0;
   info[0] = variant;
+  if (variant == kVariantWide) {
+    // each kernel's at [9 + 4·s]; pass 1 the attention kernel's, dW its own
+    const void* fn[4];
+    int threads[4];
+    size_t smem[4];
+    wide_kernels<TKV>(Lk, D, h, fn, threads, smem);
+    for (int i = 0; i < 4; ++i) {
+      const int rc = kernel_resources(fn[i], threads[i], smem[i], info + 9 + 4 * i);
+      if (rc != 0) return rc;
+    }
+    for (int k = 0; k < 4; ++k) {
+      info[1 + k] = info[13 + k];
+      info[5 + k] = info[21 + k];
+    }
+    return 0;
+  }
   if (variant == kVariantWhole) {
     const int rc = kernel_resources(
         whole_kernel<TKV>(Lk, D, h), kThreads,
@@ -1606,8 +2127,8 @@ int resources(int G, int Lq, int Lk, int D, int h, int* info) {
 
 extern "C" {
 
-// Floats of device workspace `bist_hop1_bwd` needs for these shapes (either
-// kernel).
+// Floats of device workspace `bist_hop1_bwd` needs for these shapes (any
+// kernel that takes them).
 long long bist_hop1_bwd_workspace(int B, int G, int Lq, int Lk, int D, int h) {
   return workspace_floats(B, G, Lq, Lk, D, h);
 }
@@ -1642,8 +2163,8 @@ int bist_hop1_bwd(const float* q, const void* kv, int kv_bf16, long long kv_sb,
                           ws, B, G, Lq, Lk, D, h, scale, stream);
 }
 
-// bist_hop1_bwd through the named kernel (1 "tiled", 2 "whole"), for
-// measurements that hold the two against each other; cudaErrorInvalidValue
+// bist_hop1_bwd through the named kernel (1 "tiled", 2 "whole", 3 "wide"),
+// for measurements that hold them against each other; cudaErrorInvalidValue
 // where that kernel does not take the widths.
 int bist_hop1_bwd_as(int variant, const float* q, const void* kv, int kv_bf16,
                      long long kv_sb, long long kv_sg, long long kv_st, const int* mask,
@@ -1664,8 +2185,8 @@ int bist_hop1_bwd_as(int variant, const float* q, const void* kv, int kv_bf16,
 }
 
 // The kernel bist_hop1_bwd launches at these widths, kv's rows aligned
-// 4-element vectors or not (kv_vec): 2 "whole", 1 "tiled", 0 none (it would
-// return cudaErrorInvalidValue).
+// 4-element vectors or not (kv_vec): 3 "wide", 2 "whole", 1 "tiled", 0 none
+// (it would return cudaErrorInvalidValue).
 int bist_hop1_bwd_variant(int Lq, int Lk, int D, int h, int kv_vec) {
   return hop1_bwd_variant(Lq, Lk, D, h, kv_vec != 0);
 }
@@ -1673,7 +2194,9 @@ int bist_hop1_bwd_variant(int Lq, int Lk, int D, int h, int kv_vec) {
 // What that kernel takes on the current device at G groups (aligned kv
 // rows): info[0] variant; pass 1 ([1] dynamic shared memory bytes, [2]
 // registers a thread, [3] local memory bytes a thread (spills and stack),
-// [4] resident blocks per SM); the dW pass, the same in [5] .. [8].
+// [4] resident blocks per SM); the dW pass, the same in [5] .. [8]; for
+// "wide" (pass 1 its attention kernel) each of its four kernels' at [9 +
+// 4·s] (s 0 projection, 1 attention, 2 dkv, 3 dW); info holds 25 ints.
 // Returns the CUDA error code (cudaErrorInvalidValue for widths the kernels
 // do not take).
 int bist_hop1_bwd_resources(int G, int Lq, int Lk, int D, int h, int kv_bf16, int* info) {

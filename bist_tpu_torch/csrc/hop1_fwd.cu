@@ -97,7 +97,8 @@
 //      concat (the training residual, or the workspace) and lse;
 //   3. hop1_fwd_wide_out_kernel: out = x + (concat Wo + bo) over the B·G·Lq
 //      rows, x broadcast over g in the epilogue.
-// Stages 1 and 3 share one GEMM (wide_gemm): 128 x 128 block tiles, 8
+// Stages 1 and 3 share one GEMM (wide_gemm, hop1_gemm.cuh, which K2
+// "wide" shares in its own setting): 128 x 128 block tiles, 8
 // warps of 64 x 32, a 3-stage 16-byte cp.async ring over 32-deep chunks of
 // the contraction, every product an m16n8k8 3xTF32 MMA (two passes on a
 // bfloat16 grid, exact in TF32) in float32 accumulators, 2 blocks an SM;
@@ -136,6 +137,7 @@
 #include <initializer_list>
 #include <utility>
 
+#include "hop1_gemm.cuh"
 #include "hop1_mma.cuh"
 #include "hop1_tiles.cuh"
 
@@ -874,100 +876,10 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 // "wide": D 256 or 512 in three kernels, the weight products as two GEMMs
 // over every row of the launch.
 
-constexpr int kWideThreads = 256;      // a GEMM block: 8 warps, 2 (rows) x 4 (columns)
-constexpr int kGM = 128, kGN = 128;    // a GEMM block's tile
-constexpr int kGK = 32;                // contraction rows a ring stage
-constexpr int kGStages = 3;            // cp.async ring stages
-constexpr int kWideCols = 128;         // q, K, V and concat columns an attention block
 constexpr int kWideAttnThreads = 128;  // an attention block: 4 warps
-constexpr int kWideMaxLk = 64;
 
-// Shared memory of a GEMM block, in floats: kGStages stages of an A tile
-// (kGM x kGK in TA, rows padded to 4 words (mod 32) for A fragments) and a
-// W tile (kGK x kGN, rows padded to 8 words (mod 32) for B fragments), then
-// the A tile's kGM row offsets (long long).
-template <typename TA>
-struct GemmLayout {
-  static constexpr int lda = sizeof(TA) == 4 ? kGK + 4 : kGK + 8;   // in TA elements
-  static constexpr int a_floats = kGM * lda * (int)sizeof(TA) / 4;
-  static constexpr int ldb = kGN + 8;
-  static constexpr int stage = a_floats + kGK * ldb;
-  static constexpr int rows_off = kGStages * stage;
-  static constexpr size_t bytes = (size_t)rows_off * sizeof(float) + kGM * sizeof(long long);
-};
-
-// acc += this warp's 64 x 32 piece of A[m0 .., :K] W[:K, :kGN]: A's kGM rows
-// by their element offsets from `a` (rows_s; -1 for a row past the
-// matrix, read as zeros), W row-major (row stride ldw) from its tile's first
-// column.  Both stream through a kGStages-stage cp.async ring, one barrier
-// a stage; every product is an m16n8k8 3xTF32 MMA (kExactA: A is bfloat16,
-// exact in TF32, two passes).  A warp's step loads the 4 W fragments, then
-// per 16-row tile one A fragment for 4 independent accumulator chains.
-template <typename TA, bool kExactA>
-__device__ __forceinline__ void wide_gemm(const TA* __restrict__ a, const long long* rows_s,
-                                          const float* __restrict__ w, int ldw, int K,
-                                          float* smem, float (&acc)[4][4][4]) {
-  using L = GemmLayout<TA>;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int fg = lane / 4, ft = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int nk = K / kGK;
-  auto issue = [&](int c) {
-    float* st = smem + c % kGStages * L::stage;
-    TA* as = reinterpret_cast<TA*>(st);
-    for (int i = tid; i < kGM * kGK / 4; i += kWideThreads) {
-      const int r = i / (kGK / 4), e = i % (kGK / 4) * 4;
-      TA* dst = as + r * L::lda + e;
-      const long long off = rows_s[r];
-      if (sizeof(TA) == 4) {
-        if (off >= 0)
-          cp_async16(dst, a + off + c * kGK + e);
-        else
-          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else {
-        if (off >= 0)
-          cp_async8(dst, a + off + c * kGK + e);
-        else
-          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-      }
-    }
-    issue_w<kGN, kGK, kWideThreads>(st + L::a_floats, w, ldw, c, L::ldb);
-  };
-  for (int c = 0; c < kGStages - 1; ++c) {
-    if (c < nk) issue(c);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nk; ++c) {
-    cp_async_wait<kGStages - 2>();
-    __syncthreads();   // chunk c landed for all; chunk c - 1's stage is free
-    if (c + kGStages - 1 < nk) issue(c + kGStages - 1);
-    cp_async_commit();
-    const float* st = smem + c % kGStages * L::stage;
-    const TA* as = reinterpret_cast<const TA*>(st) + wm * 64 * L::lda;
-    const float* bs = st + L::a_floats + wn * 32;
-#pragma unroll
-    for (int ks = 0; ks < kGK / 8; ++ks) {
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        load_b(bs + ks * 8 * L::ldb + j * 8, L::ldb, fg, ft, bh[j], bl[j]);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t ah[4], al[4];
-        load_a_rows<kExactA>(as + m * 16 * L::lda + ks * 8, L::lda, fg, ft, ah, al);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_3xtf32<kExactA>(acc[m][j], ah, al, bh[j], bl[j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// Stage 1: [K | V] = kv [Wk | Wv] + [bk | bv] over the launch's M = B·G·Lk
-// kv rows (row r is kv[b, g, t] with r = (b·G + g)·Lk + t, read through
-// kv's strides), into kvp (M x 2D, row-major).  Block i takes column tile
-// i % (2D / kGN) of row tile i / (2D / kGN): the blocks resident together
-// share their kv rows in L2, and the weights (2 MB at D 512) stay there.
+// Stage 1: [K | V] = kv [Wk | Wv] + [bk | bv] into kvp (hop1_gemm.cuh's
+// wide_proj, K1's setting: truncating splits, one chain a contraction).
 template <typename TKV>
 __global__ void __launch_bounds__(kWideThreads, 2)
 hop1_fwd_wide_proj_kernel(const TKV* __restrict__ kv, long long kv_sb, long long kv_sg,
@@ -975,37 +887,7 @@ hop1_fwd_wide_proj_kernel(const TKV* __restrict__ kv, long long kv_sb, long long
                           const float* __restrict__ bk, const float* __restrict__ wv,
                           const float* __restrict__ bv, float* __restrict__ kvp, int G,
                           int Lk, int D, int M) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  long long* rows_s = reinterpret_cast<long long*>(smem + GemmLayout<TKV>::rows_off);
-  const int nt = 2 * D / kGN;
-  const int n0 = blockIdx.x % nt * kGN, m0 = blockIdx.x / nt * kGM;
-  for (int r = threadIdx.x; r < kGM; r += kWideThreads) {
-    const int row = m0 + r, bg = row / Lk;
-    rows_s[r] = row < M ? bg / G * kv_sb + bg % G * kv_sg + row % Lk * kv_st : -1;
-  }
-  __syncthreads();
-  const bool is_v = n0 >= D;
-  const int c0 = n0 - (is_v ? D : 0);   // the tile's first column of Wk or Wv
-  float acc[4][4][4] = {};
-  wide_gemm<TKV, sizeof(TKV) == 2>(kv, rows_s, (is_v ? wv : wk) + c0, D, D, smem, acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int fg = lane / 4, ft = lane % 4, wm = warp / 4, wn = warp % 4;
-  const float* bias = (is_v ? bv : bk) + c0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = wn * 32 + j * 8 + 2 * ft;
-    const float2 b2 = *reinterpret_cast<const float2*>(bias + c);
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 64 + m * 16 + half * 8 + fg;
-        if (r < M)
-          *reinterpret_cast<float2*>(kvp + (size_t)r * 2 * D + n0 + c) =
-              make_float2(acc[m][j][2 * half] + b2.x, acc[m][j][2 * half + 1] + b2.y);
-      }
-  }
+  wide_proj<TKV, false>(kv, kv_sb, kv_sg, kv_st, wk, bk, wv, bv, kvp, G, Lk, D, M);
 }
 
 // Stage 2: attention for one (b, g), kWideCols columns (kWideCols / d_k

@@ -193,6 +193,21 @@ __device__ __forceinline__ void mma_3xtf32_ab(float (&d)[4], const uint32_t (&a_
 // t = l % 4.  A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
 // B: b0 (t, g), b1 (t + 4, g); D: d0, d1 (g, 2t + {0, 1}), d2, d3 (g + 8, ...).
 
+// d += a b as mma_3xtf32 does, the three passes into a zeroed fragment that
+// is then added to d in float32: a chain of one k-step.  The tensor cores
+// round their accumulation toward zero, an ulp of the running sum an MMA,
+// so a chain of many k-steps drifts; K2 "wide" (hop1_bwd.cu) takes every
+// product so.
+template <bool kExactA>
+__device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a_hi)[4],
+                                         const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                         const uint32_t (&b_lo)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32<kExactA>(t, a_hi, a_lo, b_hi, b_lo);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
 // A fragment of a row-major tile a[row * ld + k], split into TF32 halves
 // (kRn: rounded to nearest); kExact: the values are TF32 already (a
 // bfloat16 grid), the low halves are 0 and not computed.

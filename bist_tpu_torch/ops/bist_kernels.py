@@ -15,10 +15,11 @@ before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
 gradients of q_proj, kv and the K/V weights.  Their launchers choose a
 kernel by shape (`hop1_variant`, `hop1_bwd_variant`): "whole" at the
 flagship's widths (D 64/128: every product on the tensor cores as 3xTF32,
-which keeps float32 accuracy), for K1 "wide" at D 256/512 (the weight
-products as two tensor-core GEMMs over every row of the launch, the
-attention between them, through a workspace this module allocates) and
-"tiled" at every other width with D % h == 0.  The kernels
+which keeps float32 accuracy), "wide" at D 256/512 (the weight products as
+tensor-core GEMMs over every row of the launch, two in K1 and three in K2,
+the attention or its backward between them, through a workspace this
+module allocates) and "tiled" at every other width with D % h == 0.  The
+kernels
 hold each head's columns padded with zeros to a multiple of 4; the wrappers
 hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
 the padding off what comes back, which changes no number.  See the sources
@@ -125,7 +126,10 @@ def hop1_bwd_plain(q_proj: torch.Tensor, kv: torch.Tensor,
     `_hop1_bwd_pallas` without its Lq padding, and the semantics of autograd
     through `hop1_plain`: q_proj (B,Lq,D), kv (B,G,Lk,D), mask (B,1,Lk) or
     None, d_concat (B,G,Lq,D), dh and lse (B,G,Lq,h) → (dq (B,Lq,D), dkv in
-    kv's dtype, dWk, dWv (D,D), dbk, dbv (D,)).
+    kv's dtype, dWk, dWv (D,D), dbk, dbv (D,)), computed in float32, or in
+    float64 where q_proj and the rest are float64 (`chip_smoke.py` holds the
+    kernels against that evaluation: at the reference width's train step
+    float32's own error in the 20,480-row dW sums exceeds their tolerance).
 
     p = exp(s − lse) (0 at masked columns), except on a fully masked row,
     which attends uniformly (p = 1/Lk: its lse, −1e9 + log Lk, rounds to
@@ -135,12 +139,13 @@ def hop1_bwd_plain(q_proj: torch.Tensor, kv: torch.Tensor,
     Lq = q_proj.shape[1]
     dk = D // h
     scale = 1.0 / math.sqrt(dk)
-    kvf = kv.float()
+    up = (lambda t: t.double()) if q_proj.dtype == torch.float64 else (lambda t: t.float())
+    kvf = up(kv)
     heads = lambda t, L: t.reshape(B, -1, L, h, dk).transpose(2, 3)    # (B,*,h,L,dk)
-    q = heads(q_proj.float(), Lq)                                      # (B,1,h,Lq,dk)
+    q = heads(up(q_proj), Lq)                                          # (B,1,h,Lq,dk)
     k = heads(kvf @ wk + bk, Lk)                                       # (B,G,h,Lk,dk)
     v = heads(kvf @ wv + bv, Lk)
-    dcc = heads(d_concat.float(), Lq)                                  # (B,G,h,Lq,dk)
+    dcc = heads(up(d_concat), Lq)                                      # (B,G,h,Lq,dk)
     s = (q @ k.transpose(-1, -2)) * scale                              # (B,G,h,Lq,Lk)
     p = torch.exp(s - lse.transpose(2, 3)[..., None])
     valid = _valid_columns(mask)
@@ -187,8 +192,8 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib if lib.bist_hop1_fwd.argtypes else bind_fwd(lib)
 
 
-# K1's kernels (csrc/hop1_fwd.cu), by the code its launcher's choice returns;
-# K2's take the first two codes
+# K1's kernels (csrc/hop1_fwd.cu) and K2's (csrc/hop1_bwd.cu), by the code
+# their launchers' choice returns
 HOP1_VARIANTS = {1: "tiled", 2: "whole", 3: "wide"}
 _VARIANT_CODES = {n: c for c, n in HOP1_VARIANTS.items()}
 
@@ -262,8 +267,11 @@ def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> s
     it from the shape and kv's alignment alone, by K1's rule
     (`hop1_variant`): "whole" (all kv rows of a group in one block, every
     product on the tensor cores in 3xTF32, and a tensor-core dW pass; D 64
-    or 128, d_k a multiple of 8 up to 32, Lk <= 64, aligned rows, any Lq) or
-    "tiled" (FMA passes; every other width); ValueError for widths neither
+    or 128, d_k a multiple of 8 up to 32, Lk <= 64, aligned rows, any Lq),
+    "wide" (a projection GEMM, an attention-backward kernel, a dkv GEMM and
+    a split dW GEMM, 3xTF32 on the tensor cores; K1 "wide"'s domain: D 256
+    or 512, d_k a multiple of 8 up to 64, Lk <= 64, aligned rows) or
+    "tiled" (FMA passes; every other width); ValueError for widths none
     takes.  Builds the library on first use."""
     code = _bwd_lib().bist_hop1_bwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
@@ -274,17 +282,22 @@ def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> s
 def hop1_bwd_resources(G: int, Lq: int, Lk: int, D: int, h: int,
                        bf16: bool = False) -> dict:
     """What the K2 kernels chosen at these widths take on the current CUDA
-    device: the variant and, for its first pass (`pass1`) and its dW pass
-    (`dw`), dynamic shared memory, registers and local memory (spills,
-    stack) a thread and resident blocks per SM."""
-    info = (ctypes.c_int * 9)()
+    device: the variant and, for its first pass (`pass1`; "wide": its
+    attention kernel) and its dW pass (`dw`), dynamic shared memory,
+    registers and local memory (spills, stack) a thread and resident blocks
+    per SM; for "wide" each of its four kernels' under "stages"."""
+    info = (ctypes.c_int * 25)()
     rc = _bwd_lib().bist_hop1_bwd_resources(G, Lq, Lk, D, h, int(bf16), info)
     if rc != 0:
         raise RuntimeError(f"hop1_bwd_resources: CUDA error {rc} (Lq={Lq} Lk={Lk} "
                            f"D={D} h={h})")
     keys = ("smem_bytes", "registers", "local_bytes", "blocks_per_sm")
-    return {"variant": HOP1_VARIANTS[info[0]],
-            "pass1": dict(zip(keys, info[1:5])), "dw": dict(zip(keys, info[5:9]))}
+    out = {"variant": HOP1_VARIANTS[info[0]],
+           "pass1": dict(zip(keys, info[1:5])), "dw": dict(zip(keys, info[5:9]))}
+    if out["variant"] == "wide":
+        out["stages"] = {s: dict(zip(keys, info[9 + 4 * i:13 + 4 * i]))
+                         for i, s in enumerate(("proj", "attn", "dkv", "dw"))}
+    return out
 
 
 def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32,
@@ -469,8 +482,8 @@ def hop1_bwd(q_proj: torch.Tensor, kv: torch.Tensor, mask: Optional[torch.Tensor
 
 def _hop1_bwd_as(variant: str, q_proj, kv, mask, d_concat, dh, lse, wk, bk, wv, bv, h,
                  lib: Optional[ctypes.CDLL] = None):
-    """`hop1_bwd` on a CUDA tensor through the named kernel ("tiled" or
-    "whole"), for measurements that hold the two against each other, from
+    """`hop1_bwd` on a CUDA tensor through the named kernel ("tiled",
+    "whole" or "wide"), for measurements that hold them against each other, from
     `lib` (a library built from csrc/hop1_bwd.cu and bound by `bind_bwd`;
     default the port's own).  Raises where that kernel does not take the
     widths."""

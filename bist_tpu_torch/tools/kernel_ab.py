@@ -1,4 +1,5 @@
-"""The flagship kernel cases of `chip_smoke.py`'s phase 2, and phase 6's
+"""The flagship kernel cases of `chip_smoke.py`'s phase 2 (and K2 at the
+reference width's train step, D 512 B 32), and phase 6's
 train step, from two source trees in turns (A, B, B, A), one process each,
 on one card:
 
@@ -48,6 +49,13 @@ CASES = [
      {"variant": "whole", "vs_tiled": True}),
     ("hop1_bwd", "s2t", "check_hop1_bwd", ("s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
      {"variant": "whole", "vs_tiled": True}),
+    # the reference width's train step (d_model 512, 8 heads): K2 "wide"
+    ("hop1_bwd", "train t2s D=512", "check_hop1_bwd",
+     ("train t2s D=512", 32, 16, 32, 40, 512, 8, True, True, 49),
+     {"variant": "wide", "vs_tiled": True}),
+    ("hop1_bwd", "train s2t D=512", "check_hop1_bwd",
+     ("train s2t D=512", 32, 40, 32, 16, 512, 8, False, False, 50),
+     {"variant": "wide", "vs_tiled": True}),
     ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4),
      {}),
     ("flash_fwd", "kv=32768, d=320", "check_flash",

@@ -421,7 +421,7 @@ def ptxas_report(log):
     """Per kernel of an `nvcc -Xptxas -v` log: registers, stack and spill
     bytes, named by kernel, grid type and its template arguments: for hop-1
     "whole" width D, 16-row kv tiles, groups a block, head width up to; for
-    "wide"'s attention kernel its head width; for K3 its mode, 8-row kv
+    "wide"'s attention kernels (K1's, K2's) the head width; for K3 its mode, 8-row kv
     tiles a scoring warp and output tiles a warp up to."""
     import re
 
@@ -437,7 +437,8 @@ def ptxas_report(log):
             if len(args) == 4:
                 cur.update(D=32 * args[0], row_tiles=args[1], groups=args[2],
                            dk_max=8 * args[3])
-            elif cur["kernel"] == "hop1_fwd_wide_attn_kernel" and len(args) == 1:
+            elif cur["kernel"] in ("hop1_fwd_wide_attn_kernel",
+                                   "hop1_bwd_wide_attn_kernel") and len(args) == 1:
                 cur.update(dk=8 * args[0])
             elif cur["kernel"] == "flash_fwd_mma_kernel" and len(args) == 2:
                 kv_split, blocks = re.findall(r"Lb([01])E", mangled)
@@ -509,6 +510,20 @@ def assert_agree(what, got, want, rtol=TOL):
     return err
 
 
+def as_float64(args):
+    """`hop1_bwd_plain`'s arguments with every floating tensor in float64 (the
+    mask and h as they are): its float64 evaluation is the reference K2's
+    kernels are held against.  At the reference width's train step (B 32,
+    20,480 kv rows, dW entries up to ~300) the float32 evaluation is itself
+    up to 3.2e-4 off the float64 one at entries below 1, past 2e-4 +
+    2e-4·|value| (PERF.md, section 6), so that it cannot referee the kernels
+    there; the tolerance is the same."""
+    import torch
+
+    return tuple(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                 for a in args)
+
+
 def rel_beyond_atol(got, want):
     """Largest |diff| / |want| over the elements off by more than TOL
     absolute, which pass only through the relative term (0 when none)."""
@@ -528,10 +543,12 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
     3xTF32, or two passes for the projection of a bfloat16 grid;
     `bound_f32_ms` counts every operation at the float32 rate (the bound of
     the kernels before the tensor cores).  With `vs_tiled` the "tiled"
-    kernel is checked and timed at the same inputs too.  With `bwd` (and
+    kernel is checked and timed at the same inputs too (the slow yardstick,
+    at less depth: 5 single calls, 3 runs of 5 back to back).  With `bwd` (and
     `residuals`) K2 runs on the kernel's own residuals, with a random
     upstream gradient, and its six gradients are held against
-    `hop1_bwd_plain` on the same inputs ("bwd_variant", "bwd_max_abs_err")."""
+    `hop1_bwd_plain` on the same inputs in float64 (`as_float64`;
+    "bwd_variant", "bwd_max_abs_err")."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import (_hop1_fused_as, hop1_bwd, hop1_bwd_plain,
@@ -568,7 +585,7 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
         before = dict(hop1_bwd.variants)
         grads = hop1_bwd(*args)
         ran_bwd = [v for v, n in hop1_bwd.variants.items() if n != before.get(v, 0)]
-        want_grads = hop1_bwd_plain(*args)
+        want_grads = hop1_bwd_plain(*as_float64(args))
         torch.cuda.synchronize()
         extra = {"bwd_variant": ran_bwd[0], "bwd_max_abs_err": max(
             assert_agree(f"hop1_bwd on the residuals of hop1 {name} {n}", a, b_,
@@ -578,7 +595,8 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
     if vs_tiled:
         tiled = lambda: _hop1_fused_as("tiled", x, q, kv, p, h, mask, residuals)
         extra.update(tiled_max_abs_err=agree(tiled(), f"hop1 {name} (tiled)"),
-                     tiled_ms=time_ms(tiled), tiled_device_ms=device_time_ms(tiled))
+                     tiled_ms=time_ms(tiled, reps=5, warmup=1),
+                     tiled_device_ms=device_time_ms(tiled, launches=5, reps=3, warmup=1))
     nbytes, proj, wo, attn = hop1_work(B, G, Lq, Lk, D, masked, kv.element_size())
     if residuals:
         nbytes += 4 * B * G * Lq * (D + h)
@@ -606,14 +624,19 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
                    full_row=False, *, variant=None, vs_tiled=False, bf16=False):
     """One K2 case: the residuals of the plain forward on random inputs, a
     random upstream gradient, d_concat and Dh as `hop1_trainable`'s glue
-    makes them; every gradient held against `hop1_bwd_plain`.  With
-    `variant` the case must run that kernel ("whole" or "tiled", the two of
-    csrc/hop1_bwd.cu); with `vs_tiled` "tiled" is checked and timed at the
-    same inputs too; with `bf16` a bfloat16 grid (dkv then within one
-    bfloat16 step).  The bound counts every product at the rate "whole" runs
-    it: 3xTF32, two passes for the products with a bfloat16 grid as an
-    operand; `bound_f32_ms` counts every operation at the float32 rate (the
-    bound of the FMA kernels)."""
+    makes them; every gradient held against `hop1_bwd_plain` evaluated in
+    float64 (`as_float64`; "max_abs_err_vs_plain32": against its float32
+    evaluation, the timed plain version).  With
+    `variant` the case must run that kernel ("whole", "wide" or "tiled", the
+    three of csrc/hop1_bwd.cu); with `vs_tiled` "tiled" is checked and
+    timed at the same inputs too (as `check_hop1` times it); with `bf16` a
+    bfloat16 grid (dkv then
+    within one bfloat16 step).  The bound counts every product at the rate
+    "whole" and "wide" run it: 3xTF32, two passes for the products with a
+    bfloat16 grid as an operand; `bound_f32_ms` counts every operation at
+    the float32 rate (the bound of the FMA kernels).  For "wide" also each
+    of its kernels' device ms a call (`kernel_device_ms`) and whether two
+    calls give bit-identical gradients (`bit_identical`)."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import (_hop1_bwd_as, hop1_bwd, hop1_bwd_plain,
@@ -632,7 +655,8 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
     before = dict(hop1_bwd.variants)
     got = hop1_bwd(*args)
     ran = [v for v, n in hop1_bwd.variants.items() if n != before.get(v, 0)]
-    want = hop1_bwd_plain(*args)
+    want = hop1_bwd_plain(*as_float64(args))
+    want32 = hop1_bwd_plain(*args)
     torch.cuda.synchronize()
     if len(ran) != 1 or variant not in (None, ran[0]):
         raise AssertionError(f"hop1_bwd {name}: ran the {ran} kernel, expected {variant}")
@@ -647,13 +671,21 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
 
     err = agree(got, name)
     rel = {n: rel_beyond_atol(a, b) for n, a, b in zip(names, got, want)}
+    vs32 = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want32))
     run = lambda: hop1_bwd(*args)
     plain = lambda: hop1_bwd_plain(*args)
     extra = {}
+    if ran[0] == "wide":
+        again = run()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"hop1_bwd {name}: two calls of \"wide\" differ")
+        extra = {"bit_identical": True, "kernel_device_ms": kernel_device_ms(
+            run, r"hop1_bwd_wide_\w+?_kernel|sum_middle_kernel")}
     if vs_tiled:
         tiled = lambda: _hop1_bwd_as("tiled", *args)
-        extra = {"tiled_max_abs_err": agree(tiled(), f"{name} (tiled)"),
-                 "tiled_ms": time_ms(tiled), "tiled_device_ms": device_time_ms(tiled)}
+        extra.update(tiled_max_abs_err=agree(tiled(), f"{name} (tiled)"),
+                     tiled_ms=time_ms(tiled, reps=5, warmup=1),
+                     tiled_device_ms=device_time_ms(tiled, launches=5, reps=3, warmup=1))
     nbytes, flops, kv_flops = hop1_bwd_work(B, G, Lq, Lk, D, h, masked, kv.element_size())
     if bf16:
         b_ms, b_by = bound(nbytes, tf32x3_flops=flops - kv_flops, tf32x2_flops=kv_flops)
@@ -664,6 +696,7 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
                                         masked=masked, full_row=full_row,
                                         kv=str(kv.dtype).replace("torch.", "")),
             "variant": ran[0], "max_abs_err": err, "max_rel_err_beyond_atol": rel,
+            "max_abs_err_vs_plain32": vs32,
             "ms": time_ms(run), "device_ms": device_time_ms(run),
             "plain_ms": time_ms(plain), "plain_device_ms": device_time_ms(plain), **extra,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -795,7 +828,7 @@ def phase_kernels(device):
         check_hop1_bwd(device, "t2s", 32, 16, 32, 40, 128, 8, True, True, 11, **whole),
         check_hop1_bwd(device, "s2t", 32, 40, 32, 16, 128, 8, False, False, 12, **whole),
         check_hop1_bwd(device, "t2s D=512", 8, 16, 32, 40, 512, 8, True, True, 13,
-                       variant="tiled"),
+                       variant="wide", vs_tiled=True),
         check_hop1_bwd(device, "t2s, a fully masked row", 32, 16, 32, 40, 128, 8,
                        True, True, 14, full_row=True, **whole),
         # a bfloat16 grid; rows that fill no MMA tile (query rows, kv rows)
@@ -803,7 +836,23 @@ def phase_kernels(device):
                        bf16=True, **whole),
         check_hop1_bwd(device, "ragged Lq5 Lk37", 32, 16, 5, 37, 128, 8, True, True, 28,
                        full_row=True, **whole),
-        # the widths of phase 2's wide K1 cases (D 1024: two head groups)
+        # "wide" at the reference's width at the train step's shapes (phase 17:
+        # B 32, a strided t2s view), D 256 at 8 and 4 heads, rows that fill
+        # no tile with a fully masked batch row, a bfloat16 grid; each
+        # against "tiled" at the same inputs
+        check_hop1_bwd(device, "train t2s D=512", 32, 16, 32, 40, 512, 8, True, True, 49,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "train s2t D=512", 32, 40, 32, 16, 512, 8, False, False, 50,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "train t2s D=256", 32, 16, 32, 40, 256, 8, True, True, 51,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "train t2s D=256 h=4", 32, 16, 32, 40, 256, 4, True, True, 52,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "ragged Lq5 Lk37 D=512", 32, 16, 5, 37, 512, 8, True, True, 53,
+                       full_row=True, variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "train t2s D=512 bf16", 32, 16, 32, 40, 512, 8, True, True, 54,
+                       bf16=True, variant="wide", vs_tiled=True),
+        # the widths "wide" is not built for (D 1024: two head groups)
         check_hop1_bwd(device, "t2s D=120 h=8", 8, 16, 32, 40, 120, 8, True, True, 23,
                        full_row=True, variant="tiled"),
         check_hop1_bwd(device, "t2s D=520 h=8", 8, 16, 32, 40, 520, 8, True, True, 24,
@@ -876,6 +925,7 @@ def ctx_tensors(ctx):
 
 
 K1_NONE = {"whole": 0, "tiled": 0, "wide": 0}
+K2_NONE = dict(K1_NONE)
 
 
 def k1_ran(prof):
@@ -1210,29 +1260,45 @@ def write_tiny_dataset(root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX
     return test_set
 
 
-def run_generate(root, test_set, args, device):
-    """The generate CLI (a process of its own) on `test_set` with the model
-    <root>/mtn; returns its result JSON."""
-    out = os.path.join(root, "result.json")
+def start_generate(root, test_set, args, device, out_name="result.json"):
+    """The generate CLI (a process of its own, started) on `test_set` with
+    the model <root>/mtn, writing <root>/<out_name>: (process, args, path)."""
+    out = os.path.join(root, out_name)
     cmd = [sys.executable, "-m", "bist_tpu_torch.cli.generate",
            "--test-set", test_set,
            "--test-path", os.path.join(root, "<FeaType>", "<ImageID>.npy"),
            "--model", os.path.join(root, "mtn"), *args, "--maxlen", "12",
            "--gen-batch-size", "4", "--output", out, "--device", device.type]
-    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise AssertionError(f"generate CLI {' '.join(args)} exited {r.returncode}:\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return (subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), args, out)
+
+
+def finish_generate(started, timeout=600):
+    """The result JSON of a generate CLI run `start_generate` started, once
+    its process has exited 0."""
+    proc, args, out = started
+    stdout, stderr = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"generate CLI {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
     with open(out) as f:
         return json.load(f)
+
+
+def run_generate(root, test_set, args, device):
+    """The generate CLI on `test_set` with the model <root>/mtn, run to its
+    end; returns its result JSON (<root>/result.json)."""
+    return finish_generate(start_generate(root, test_set, args, device))
 
 
 def phase_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX):
     """The generate CLI in every decode style on a tiny dataset: at its
     defaults (greedy), beam search, an ensemble of two models by beam
     search, sampling, and oracle on the dataset's labeled turns (each
-    dialog without its undisclosed last turn); each result JSON checked
-    against its input.  Returns the answers by style."""
+    dialog without its undisclosed last turn), the five processes run at
+    once (each one's start-up, mostly the host's, overlaps the others');
+    each result JSON checked against its input.  Returns the answers by
+    style."""
     import torch
 
     from bist_tpu_torch.models.model import init_model
@@ -1260,19 +1326,26 @@ def phase_cli(device, root, n_dialogs=6, model_kw=None, dv=DV, s=S, t_max=T_MAX)
                               "--undisclosed-only", "1"]),
         "oracle": (labeled_set, ["--decode-style", "oracle"]),
     }
+    started = {style: start_generate(root, data, args, device, f"result_{i}.json")
+               for i, (style, (data, args)) in enumerate(runs.items())}
     answers = {}
-    for style, (data, args) in runs.items():
-        result = run_generate(root, data, args, device)
-        # greedy, sampled and oracle rows are cut at <eos>: on a random model
-        # an answer may be empty, as in bist_tpu; beam search ranks only
-        # hypotheses of at least one token
-        check_result_schema(result, labeled if data == labeled_set else orig,
-                            undisclosed=data == test_set,
-                            allow_empty=not style.startswith("beam"))
-        answers[style] = [t["answer"] for d in result["dialogs"] for t in d["dialog"]]
-        if style == "greedy (default)":             # phase 10 scores it
-            shutil.copy(os.path.join(root, "result.json"),
-                        os.path.join(root, "result_greedy.json"))
+    try:
+        for style, (data, _) in runs.items():
+            result = finish_generate(started[style])
+            # greedy, sampled and oracle rows are cut at <eos>: on a random
+            # model an answer may be empty, as in bist_tpu; beam search ranks
+            # only hypotheses of at least one token
+            check_result_schema(result, labeled if data == labeled_set else orig,
+                                undisclosed=data == test_set,
+                                allow_empty=not style.startswith("beam"))
+            answers[style] = [t["answer"] for d in result["dialogs"] for t in d["dialog"]]
+    finally:
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    # phase 10 scores the greedy result
+    shutil.copy(started["greedy (default)"][2], os.path.join(root, "result_greedy.json"))
     return {"dialogs": len(orig["dialogs"]), "answers": answers,
             "greedy_result": os.path.join(root, "result_greedy.json")}
 
@@ -1483,12 +1556,14 @@ def copy_state(state):
 
 def hop1_ran(prof):
     """K1's and K2's kernels the card ran in a torch.profiler window, each by
-    kernel ("whole", "tiled"), from the trace's kernel names: K1 as
+    kernel ("whole", "tiled", "wide"), from the trace's kernel names: K1 as
     `k1_ran`, K2 by its first pass (a launch of K2 "whole" also runs its dW
-    pass, one of "tiled" its dkv and dW passes)."""
+    pass, one of "tiled" its dkv and dW passes) or, for "wide", by its
+    attention-backward kernel (a launch also runs its projection, dkv and
+    dW GEMMs)."""
     from torch.autograd import DeviceType
 
-    k2 = {"whole": 0, "tiled": 0}
+    k2 = dict(K2_NONE)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             name = e.name()
@@ -1496,6 +1571,8 @@ def hop1_ran(prof):
                 k2["whole"] += 1
             elif "hop1_bwd_kernel" in name:
                 k2["tiled"] += 1
+            elif "hop1_bwd_wide_attn_kernel" in name:
+                k2["wide"] += 1
     return {"k1": k1_ran(prof), "k2": k2}
 
 
@@ -1617,7 +1694,7 @@ def train_programs(device, cfg, tcfg, tx, batches, start, eager_metrics, eager_p
             state, _, _ = run(prog, state, 3)
             wall = time.perf_counter() - t0
         ran = hop1_ran(prof)
-        if ran != {"k1": dict(K1_NONE, whole=18), "k2": {"whole": 18, "tiled": 0}}:
+        if ran != {"k1": dict(K1_NONE, whole=18), "k2": dict(K2_NONE, whole=18)}:
             raise AssertionError(f"train program: K1, K2 kernels in 3 replays by name "
                                  f"{ran}, expected 18 \"whole\" each (6 a step)")
         busy = device_busy_ms(prof) / 3
@@ -3381,7 +3458,7 @@ def tgif_step_speed(device, task, params, cfg, batch, eager_steps=10, replays=20
             sync()
             wall = time.perf_counter() - t0
         ran = hop1_ran(prof)
-        if ran != {"k1": dict(K1_NONE, whole=12), "k2": {"whole": 12, "tiled": 0}}:
+        if ran != {"k1": dict(K1_NONE, whole=12), "k2": dict(K2_NONE, whole=12)}:
             raise AssertionError(f"TGIF {task}: K1, K2 kernels in 3 replays by name {ran}, "
                                  f"expected 12 \"whole\" each (4 a step)")
         tl = device_timeline(prof)
@@ -3652,7 +3729,7 @@ def dp_world_one(device, calls=5, timed=20, B=32, model_kw=None):
             with profiler_window(device) as prof:
                 s14, _ = run(p14, s14, 3)
             ran = hop1_ran(prof)
-            if ran != {"k1": dict(K1_NONE, whole=18), "k2": {"whole": 18, "tiled": 0}}:
+            if ran != {"k1": dict(K1_NONE, whole=18), "k2": dict(K2_NONE, whole=18)}:
                 raise AssertionError(f"dp world 1: K1, K2 kernels in 3 replays by name {ran}, "
                                      f"expected 18 \"whole\" each (6 a step)")
             out.update(replayed_by_name=ran, nccl_kernels_in_3_replays=nccl_kernels(prof))
@@ -3777,7 +3854,7 @@ def dp_two_ranks(device, root, B=32, timeout=600, meanwhile=None):
         if not got["identical"]:
             raise AssertionError(f"dp rank {r}: the ranks' checksums differ after Adam")
         if device.type == "cuda":
-            if got["by_name"] != {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}:
+            if got["by_name"] != {"k1": dict(K1_NONE, whole=6), "k2": dict(K2_NONE, whole=6)}:
                 raise AssertionError(f"dp rank {r}: K1, K2 by name {got['by_name']}, "
                                      f"expected 6 \"whole\" each")
             if not (got["program_refused"] and "cannot be captured" in got["program_refused"]):
@@ -4183,7 +4260,7 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
     ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
     if cuda:
-        want = {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}
+        want = {"k1": dict(K1_NONE, whole=6), "k2": dict(K2_NONE, whole=6)}
         if one["by_name"] != want or one["wrappers"] != {"hop1_fwd": 6, "hop1_bwd": 6}:
             raise AssertionError(f"tp: the one-device step ran K1, K2 {one['by_name']} by "
                                  f"name ({one['wrappers']}), expected 6 \"whole\" each")
@@ -4199,7 +4276,7 @@ def phase_tensor_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
         worst_grad = max(worst_grad, grads_within_bound(f"tp rank {r}", names, got["grads"],
                                                         one["grads"]))
         if cuda and (got["by_name"] != {"k1": dict(K1_NONE),
-                                        "k2": {"whole": 0, "tiled": 0}}
+                                        "k2": dict(K2_NONE)}
                      or got["wrappers"] != {"hop1_fwd": 0, "hop1_bwd": 0}
                      or got["beam_k1_wrapper"] != 0):
             raise AssertionError(f"tp rank {r}: K1, K2 ran under TP: by name {got['by_name']}, "
@@ -4464,7 +4541,7 @@ def phase_sequence_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
              for r in range(2)]
     ranks_b = [torch.load(os.path.join(root_b, f"rank{r}.pt"), weights_only=False)
                for r in range(4)]
-    whole6 = {"k1": dict(K1_NONE, whole=6), "k2": {"whole": 6, "tiled": 0}}
+    whole6 = {"k1": dict(K1_NONE, whole=6), "k2": dict(K2_NONE, whole=6)}
     if cuda and (one["by_name"] != whole6 or one["wrappers"] != {"hop1_fwd": 6,
                                                                   "hop1_bwd": 6}):
         raise AssertionError(f"sp: the one-device step ran K1, K2 {one['by_name']} by name "
@@ -4540,6 +4617,33 @@ def phase_sequence_parallel(device, root, B=32, rows=64, steps=5, timeout=600,
 REFERENCE_WIDTH = dict(d_model=512, att_h=8)
 
 
+def step_breakdown(prof, steps, top=8):
+    """Device ms a step by kernel from a torch.profiler window over `steps`
+    replayed train steps: the whole step, K1 "wide"'s three kernels, K2
+    "wide"'s four and the fixed-order sums (`hop1_*`, `sum_middle`), and
+    the `top` other kernels by time (names cut to 80 characters, the times
+    of names alike there summed)."""
+    import re
+
+    dev = lambda e: (getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3 / steps
+    events = [e for e in prof.key_averages() if dev(e) > 0]
+    hop1 = {}
+    for e in events:
+        m = re.search(r"(hop1_\w+|sum_middle)_kernel", e.key)
+        if m:
+            hop1[m.group(1)] = hop1.get(m.group(1), 0.0) + dev(e)
+    others = {}
+    for e in events:
+        if not re.search(r"(hop1_\w+|sum_middle)_kernel", e.key):
+            others[e.key[:80]] = others.get(e.key[:80], 0.0) + dev(e)
+    k1 = {k: v for k, v in hop1.items() if k.startswith("hop1_fwd")}
+    k2 = {k: v for k, v in hop1.items() if not k.startswith("hop1_fwd")}
+    return {"device_ms_per_step": sum(dev(e) for e in events),
+            "k1_ms": k1, "k1_total_ms": sum(k1.values()),
+            "k2_ms": k2, "k2_total_ms": sum(k2.values()),
+            "top_other_ms": dict(sorted(others.items(), key=lambda kv: -kv[1])[:top])}
+
+
 def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
                           model_kw=REFERENCE_WIDTH):
     """The flagship configuration at bist_tpu's default width (`model_kw`:
@@ -4555,10 +4659,13 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
         path, eager and replayed;
       * training without dropout on 2 cycled batches of train_B turns: one
         step's loss and gradients against force_plain (phase 6's bounds,
-        K1 "wide" with residuals and K2 "tiled" 6 each), `steps` eager Noam-
-        Adam steps and a TrainProgram's warm-up, capture and `steps`
-        replays timed (ms/step, median after the first), 2 replays under
-        torch.profiler (K1 "wide" and K2 "tiled" 6 a step each by name).
+        K1 "wide" with residuals and K2 "wide" 6 each), `steps` eager Noam-
+        Adam steps (the wrappers' counts zeroed before, read after: K1 and
+        K2 "wide" 6 a step each) and a TrainProgram's warm-up, capture and
+        `steps` replays timed (ms/step, median after the first; its graph
+        pool), 2 replays under torch.profiler (K1 "wide" and K2 "wide" 6 a
+        step each by name) and the replayed step's device ms by kernel
+        (`step_breakdown`; empty on the CPU).
     Returns the readings."""
     import torch
 
@@ -4631,7 +4738,7 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
     log(f"d_model 512 generation: {json.dumps(generation)}")
     del program, plain_program
 
-    # training without dropout: K1 "wide" with residuals, K2 "tiled"
+    # training without dropout: K1 "wide" with residuals, K2 "wide"
     tcfg_model = flagship_cfg(len(vocab), **model_kw, dropout=0.0, attn_dropout=0.0)
     tcfg = TrainConfig(warmup_steps=10)
     train_data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
@@ -4640,7 +4747,7 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
     state, tx = create_train_state(0, tcfg_model, tcfg, device=device)
     start = copy_state(state)
     grad_check = grads_against_plain(device, state, tcfg_model, tcfg, tb[0])
-    want = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 6}} if cuda else \
+    want = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"wide": 6}} if cuda else \
         {"hop1_fwd": {}, "hop1_bwd": {}}
     if grad_check["variants"] != want:
         raise AssertionError(f"d_model 512 gradient check: K1, K2 by kernel "
@@ -4656,7 +4763,7 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     eager_counts = {"hop1_fwd": dict(hop1_fused.variants), "hop1_bwd": dict(hop1_bwd.variants)}
-    want = {"hop1_fwd": {"wide": 6 * steps}, "hop1_bwd": {"tiled": 6 * steps}} if cuda else \
+    want = {"hop1_fwd": {"wide": 6 * steps}, "hop1_bwd": {"wide": 6 * steps}} if cuda else \
         {"hop1_fwd": {}, "hop1_bwd": {}}
     if eager_counts != want or not all(np.isfinite(losses)):
         raise AssertionError(f"d_model 512 train steps: K1, K2 by kernel {eager_counts} "
@@ -4679,23 +4786,25 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
             or not np.isfinite(float(m["loss"])):
         raise AssertionError(f"d_model 512 train program: {st}, loss {m['loss']}: a "
                              f"geometry stepped eagerly or the loss is not finite")
-    ran = None
+    ran, breakdown = None, {}
     if cuda:
         with profiler_window(device) as prof:
             for i in range(2):
                 pstate, _ = prog(pstate, tb[i % 2], None)
             sync()
         ran = hop1_ran(prof)
-        want = {"k1": dict(K1_NONE, wide=12), "k2": {"whole": 0, "tiled": 12}}
+        want = {"k1": dict(K1_NONE, wide=12), "k2": dict(K2_NONE, wide=12)}
         if ran != want:
             raise AssertionError(f"d_model 512 train program: K1, K2 in 2 replays by name "
                                  f"{ran}, expected {want}")
+        breakdown = step_breakdown(prof, 2)
     training = {"batch_size": train_B, "steps": steps,
                 "grad_check": grad_check,
                 "eager_ms_per_step": statistics.median(times[1:]) * 1e3,
                 "replayed_ms_per_step": statistics.median(replay[1:]) * 1e3,
                 "losses": losses, "eager_launches": eager_counts, "replayed_by_name": ran,
-                "program": st}
+                "replayed_breakdown": breakdown,
+                "graph_pool_mb": st["pool_bytes"] / 2 ** 20, "program": st}
     log(f"d_model 512 training: {json.dumps(training)}")
     del prog, pstate, start
     if cuda:
@@ -4794,7 +4903,9 @@ def main() -> int:
     print(f"serving at one geometry on {card}: {json.dumps(serving)}", flush=True)
     lap("serving")
 
-    serving_load = phase_serving_load(device, model, fields)
+    # half the default depth: the script's run time stays inside its limit
+    serving_load = phase_serving_load(device, model, fields, n_req=256, n_other=64,
+                                      n_prof=64)
     print(f"serving load on {card}: {json.dumps(serving_load)}", flush=True)
     lap("serving load")
 
@@ -4920,12 +5031,20 @@ def main() -> int:
           f"{gen['graph_pool_mb']['plain']:.1f}; train step B {trn['batch_size']}: eager "
           f"{trn['eager_ms_per_step']:.2f} ms, replayed {trn['replayed_ms_per_step']:.2f} ms, "
           f"loss {trn['grad_check']['loss_rel_diff']:.2e} rel of plain, K1/K2 by name "
-          f"{json.dumps(trn['replayed_by_name'])}", flush=True)
+          f"{json.dumps(trn['replayed_by_name'])}, graph pool {trn['graph_pool_mb']:.1f} MB; "
+          f"replayed step device ms {trn['replayed_breakdown']['device_ms_per_step']:.2f}: K1 "
+          f"{trn['replayed_breakdown']['k1_total_ms']:.2f} "
+          f"{json.dumps(trn['replayed_breakdown']['k1_ms'])}, K2 "
+          f"{trn['replayed_breakdown']['k2_total_ms']:.2f} "
+          f"{json.dumps(trn['replayed_breakdown']['k2_ms'])}, top others "
+          f"{json.dumps(trn['replayed_breakdown']['top_other_ms'])}", flush=True)
     print(f"reference width on {card}: {json.dumps(ref)}", flush=True)
     lap("reference width")
 
     ref_k1 = gen["replayed_k1_by_name"]
+    ref_k2 = trn["eager_launches"]["hop1_bwd"]
     wide_main = next(c for c in hop1_cases if c["case"] == "t2s D=512")
+    wide_bwd = next(c for c in bwd_cases if c["case"] == "train t2s D=512")
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -4971,13 +5090,25 @@ def main() -> int:
                           "seq_ranks_beam": spr["beam_k1_wrapper"]}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
-                          train["launches"]["hop1_bwd"],
-                          f"flagship train step, {train['steps']} steps of "
-                          f"{train['batch_size']}"),
-             variants=train["hop1_bwd_variants"],
-             # K2 kernels (first pass) the card ran in 2 train replays at the
-             # reference width, by name (phase 17: "tiled" on "wide"'s residuals)
-             launches_reference_width={"train_replayed": trn["replayed_by_name"]["k2"]},
+                          train["launches"]["hop1_bwd"] + sum(ref_k2.values()),
+                          f"eager train steps, counted through the wrapper: the "
+                          f"flagship's {train['steps']} steps of {train['batch_size']} "
+                          f"(phase 6) and the reference width's {trn['steps']} steps of "
+                          f"{trn['batch_size']} (phase 17)"),
+             variants={k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
+                       for k in K2_NONE if train["hop1_bwd_variants"].get(k, 0)
+                       + ref_k2.get(k, 0)},
+             launches_train=train["launches"]["hop1_bwd"],
+             # "wide" at the reference's width (phase 2's train t2s D=512 case,
+             # the train step's shape) and each of its kernels' device ms
+             wide={k: wide_bwd[k] for k in ("case", "ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "tiled_ms", "max_abs_err",
+                                            "kernel_device_ms")},
+             # K2 at the reference width (phase 17): eager steps through the
+             # wrapper, and kernels (first pass; "wide" by its attention
+             # kernel) the card ran in 2 train replays, by name
+             launches_reference_width={"eager": ref_k2,
+                                       "train_replayed": trn["replayed_by_name"]["k2"]},
              # K2 kernels (first pass) the card ran in 3 train replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],
              launches_tgif={k: v["k2"] for k, v in tgif_runs.items()},

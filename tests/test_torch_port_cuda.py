@@ -391,8 +391,8 @@ def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):
 def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_row):
     """K1's residuals and K2's six gradients against their plain versions:
     float32 and a bfloat16 grid, kv a strided view, a fully masked row; K2
-    also on K1's own residuals (at D 256/512 "wide"'s, which K2 "tiled"
-    reads)."""
+    also on K1's own residuals (at D 256/512 with Lk <= 64 "wide"'s, which
+    K2 "wide" reads)."""
     rng = np.random.default_rng(5)
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda,
                                                  full_row)
@@ -442,11 +442,20 @@ def bwd_grads_agree(got, want, kv, what):
     ("tiled", 2, 5, 33, 23, 96, 4, True, False),       # widths "whole" does not take
     ("tiled", 2, 9, 17, 9, 32, 4, False, True),
     ("tiled", 2, 16, 32, 40, 120, 8, True, False),
+    ("wide", 2, 16, 32, 40, 512, 8, True, False),      # reference width t2s (strided)
+    ("wide", 2, 40, 32, 16, 512, 8, False, False),     # reference width s2t
+    ("wide", 2, 16, 32, 40, 256, 8, True, False),      # D 256
+    ("wide", 3, 16, 5, 37, 512, 8, True, False),       # rows that fill no MMA tile
+    ("wide", 2, 16, 32, 40, 512, 8, True, True),       # a bfloat16 grid
+    ("wide", 2, 5, 20, 64, 256, 32, True, False),      # Lk 64, d_k 8
+    ("wide", 2, 5, 40, 23, 512, 32, False, False),     # d_k 16, two query chunks
+    ("wide", 2, 5, 17, 33, 256, 8, True, True),        # d_k 32
+    ("wide", 3, 7, 37, 1, 512, 8, False, False),       # one kv row
 ])
 def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
-    """K2's two kernels at the training step's widths and around them, batch
-    row 0 fully masked: each case runs the kernel the launcher chooses for
-    it and agrees with `hop1_bwd_plain` on all six gradients."""
+    """K2's three kernels at the training step's widths and around them,
+    batch row 0 fully masked: each case runs the kernel the launcher
+    chooses for it and agrees with `hop1_bwd_plain` on all six gradients."""
     rng = np.random.default_rng(9)
     p = {n: {k: t.to(cuda) for k, t in w.items()}
          for n, w in mha_init(torch.Generator().manual_seed(6), h, D).items()}
@@ -473,9 +482,10 @@ def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, stride
 @pytest.mark.cuda
 def test_hop1_bwd_forced_variants_agree(cuda):
     """The measurement path (`_hop1_bwd_as`): "tiled" takes the flagship
-    widths too and agrees with "whole"; "whole" refuses widths it does not
-    take (Lk 70, D 96, a misaligned grid); both count their launches by
-    kernel."""
+    and the reference widths too and agrees with "whole" and "wide";
+    "whole" refuses widths it does not take (Lk 70, D 96, a misaligned
+    grid), "wide" likewise (D 1024, Lk 70, a misaligned grid); each counts
+    its launches by kernel."""
     rng = np.random.default_rng(10)
     B, G, Lq, Lk, D, h = 2, 16, 32, 40, 128, 8
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda, True)
@@ -497,6 +507,43 @@ def test_hop1_bwd_forced_variants_agree(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         K1._hop1_bwd_as("whole", q, odd, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
                         p["wv"]["w"], p["wv"]["b"], 8)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 2, 16, 32, 40, 512, 8, cuda, True)
+    args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+            p["wv"]["b"], 8)
+    before = dict(K1.hop1_bwd.variants)
+    bwd_grads_agree(K1._hop1_bwd_as("tiled", *args), K1._hop1_bwd_as("wide", *args), kv,
+                    "tiled vs wide")
+    for v in ("tiled", "wide"):
+        assert K1.hop1_bwd.variants[v] == before.get(v, 0) + 1
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 16, 1024, 8), (2, 4, 8, 70, 512, 8)):
+        p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1._hop1_bwd_as("wide", q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
+                            p["wv"]["w"], p["wv"]["b"], h_)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 2, 4, 8, 16, 512, 8, cuda, True)
+    odd = torch.empty(kv.numel() + 1, device=cuda)[1:].view(kv.shape).copy_(kv)
+    assert K1.hop1_bwd_variant(8, 16, 512, 8, K1._rows_vec4(odd)) == "tiled"
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K1._hop1_bwd_as("wide", q, odd, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
+                        p["wv"]["w"], p["wv"]["b"], 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hop1_bwd_wide_bit_identical(cuda, bf16):
+    """K2 "wide" sums in a fixed order (no float atomics): two calls on the
+    same inputs give bit-identical gradients, at the reference width's
+    train-step shape (t2s, a strided view, a fully masked row)."""
+    rng = np.random.default_rng(12)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 8, 16, 32, 40, 512, 8, cuda, True)
+    if bf16:
+        kv = kv.to(torch.bfloat16)
+    args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+            p["wv"]["b"], 8)
+    assert K1.hop1_bwd_variant(32, 40, 512, 8, K1._rows_vec4(kv)) == "wide"
+    first, second = K1.hop1_bwd(*args), K1.hop1_bwd(*args)
+    for a, b, n in zip(first, second, ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
+        assert torch.equal(a, b), n
 
 
 @pytest.mark.cuda

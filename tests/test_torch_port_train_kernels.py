@@ -91,13 +91,22 @@ def bwd_case(rng, B, G, Lq, Lk, D, h, masked, full_row=False):
     return p, q_proj, kv, mask, dcc, dh, lse
 
 
-@pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("Lk", [7, 600])
-def test_hop1_bwd_plain_matches_pallas(Lk, masked, rng):
+@pytest.mark.parametrize("Lk,masked,D,h", [
+    pytest.param(7, True, 32, 4, id="7-True"),
+    pytest.param(7, False, 32, 4, id="7-False"),
+    pytest.param(600, True, 32, 4, id="600-True"),
+    pytest.param(600, False, 32, 4, id="600-False"),
+    # the widths K2 "wide" takes, where the card holds it against this
+    # plain version: D 256 and 512, d_k 32 and 64
+    pytest.param(7, True, 256, 8, id="7-True-D256-h8"),
+    pytest.param(7, True, 512, 8, id="7-True-D512-h8"),
+    pytest.param(7, True, 512, 16, id="7-True-D512-h16"),
+])
+def test_hop1_bwd_plain_matches_pallas(Lk, masked, D, h, rng):
     """hop1_bwd_plain against _hop1_bwd_pallas (interpret mode) on the same
     inputs, one kv block (Lk 7) and several (Lk 600): dq, dkv, dWk, dWv, dbv
     to 2e-4; dbk, analytically zero, to 2e-4 absolute."""
-    B, G, Lq, D, h = 2, 3, 5, 32, 4
+    B, G, Lq = 2, 3, 5
     p, q_proj, kv, mask, dcc, dh, lse = bwd_case(rng, B, G, Lq, Lk, D, h, masked)
     w = (p["wk"]["w"], p["wk"]["b"], p["wv"]["w"], p["wv"]["b"])
     jdq, jdkv, jdwk, jdwv, jdbk, jdbv = jk._hop1_bwd_pallas(
@@ -137,6 +146,32 @@ def jax_grads(fn, x, q_proj, kv, p, h, mask, g):
 def plain_fn(x, q, kv, wk, bk, wv, bv, wo, bo, h, mask):
     p = {"wk": {"w": wk, "b": bk}, "wv": {"w": wv, "b": bv}, "wo": {"w": wo, "b": bo}}
     return K.hop1_plain(x, q, kv, p, h, mask)
+
+
+@pytest.mark.parametrize("D,h", [(32, 4), (512, 8)])
+def test_hop1_bwd_plain_float64_evaluation(D, h, rng):
+    """hop1_bwd_plain on float64 inputs (the reference chip_smoke holds K2's
+    kernels against) computes in float64: its six gradients come back in
+    float64, agree with JAX's Pallas backward (interpret mode, float32) as
+    the float32 evaluation does, and differ from the float32 evaluation by
+    no more than float32's rounding."""
+    B, G, Lq, Lk = 2, 3, 5, 7
+    p, q_proj, kv, mask, dcc, dh, lse = bwd_case(rng, B, G, Lq, Lk, D, h, True)
+    w = (p["wk"]["w"], p["wk"]["b"], p["wv"]["w"], p["wv"]["b"])
+    args = (t(q_proj), t(kv), t(mask), t(dcc)[:, :, :Lq], t(dh)[:, :, :Lq].contiguous(),
+            t(lse)[:, :, :Lq].contiguous(), *(t(a) for a in w), h)
+    f32 = K.hop1_bwd_plain(*args)
+    f64 = K.hop1_bwd_plain(*(a.double() if isinstance(a, torch.Tensor)
+                             and a.is_floating_point() else a for a in args))
+    jdq, jdkv, jdwk, jdwv, jdbk, jdbv = jk._hop1_bwd_pallas(
+        j(q_proj), j(kv), j(mask), dcc, dh, lse, *w, h, interpret=True)
+    want = (np.asarray(jdq)[:, :Lq], jdkv, jdwk, jdwv, jdbk, jdbv)
+    for name, a, b, c in zip(("dq", "dkv", "dWk", "dWv", "dbk", "dbv"), f64, f32, want):
+        assert a.dtype == torch.float64 and b.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), b.double().numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c, dtype=np.float64), rtol=TOL,
+                                   atol=TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("masked", [True, False])
