@@ -1885,10 +1885,13 @@ int dw_whole_chunks(int nrows, int D) {
 // whether kv's rows are aligned 4-element vectors (kv_vec: "whole" and
 // "wide" copy them in 16-byte and 8-byte pieces) alone, never from an
 // error: "whole" has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a
-// multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide" its
-// "wide" domain (D 256 or 512, d_k a multiple of 8 up to 64, Lk <= 64,
-// aligned rows), so that each reads its forward's residuals; "tiled" every
-// other width it plans.
+// multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide" D 256
+// or 512 with d_k a multiple of 8 up to 64, Lk <= kWideMaxLk and aligned
+// rows (hop1_fwd.cu's "wide" also takes longer kv and D 128 past 64 kv
+// rows: those launches come here to "tiled"); "tiled" every other width it
+// plans.  Every variant reads every forward's residuals: one layout,
+// concat (B, G, Lq, D) and lse (B, G, Lq, h), a fully masked row's lse
+// -1e9 (its -1e9 + log Lk in float32).
 int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;

@@ -22,9 +22,10 @@
 // past Lk is ever part of a softmax.
 //
 // Three variants, chosen by shape and kv's alignment before any launch
-// (`hop1_variant`, exported as bist_hop1_fwd_variant): "whole" at D 64/128,
-// "wide" at D 256/512 (both with d_k a multiple of 8, Lk <= 64 and kv rows
-// of aligned 4-element vectors) and "tiled" at every other width.
+// (`hop1_variant`, exported as bist_hop1_fwd_variant): "whole" at D 64/128
+// with Lk <= 64, "wide" at D 256/512 at any Lk and at D 128 past 64 kv rows
+// (both with d_k a multiple of 8 and kv rows of aligned 4-element vectors)
+// and "tiled" at every other width (D 64 past 64 kv rows among them).
 //
 // "whole" (hop1_fwd_whole_kernel), for D 64 or 128, a head width d_k a
 // multiple of 8 up to 32 and Lk <= 64: the main path's widths
@@ -78,23 +79,28 @@
 // the MMA's 8-wide dimension (no padding, 17 % fewer MMAs) ran slower: its
 // row tiles split the products into stretches of 2 dependent chains.
 //
-// "wide" (D 256 or 512, d_k a multiple of 8 up to 64: 8, 16, 32 or 64; Lk
-// <= 64; bist_tpu's default d_model 512 with 8 heads): "whole"'s one block a
-// group cannot hold the group at these widths (at D 512 the kv tile alone
-// is 99 KB and K with V 198 KB), and "tiled" streams [Wk | Wv] (2 MB) and Wo
-// (1 MB) through every (b, g, query chunk) block to serve 40 kv and 32
-// query rows.  More than 85 % of the operations are the two weight
-// products (t2s D 512 B64: 42.9 GFLOP of projection, 17.2 of Wo, 2.7 of
-// attention), so "wide" runs them as GEMMs over every row of the launch,
-// each weight tile serving 128 rows, in three kernels on one stream:
+// "wide" (D 256 or 512, d_k a multiple of 8 up to 64: 8, 16, 32 or 64;
+// bist_tpu's default d_model 512 with 8 heads; and D 128 past 64 kv rows,
+// t2s over a video of more than 64 clips): "whole"'s one block a group
+// cannot hold the group at these widths (at D 512 the kv tile alone is 99
+// KB and K with V 198 KB; at D 128 and 200 clips K with V 205 KB), and
+// "tiled" streams [Wk | Wv] (2 MB) and Wo (1 MB) through every (b, g, query
+// chunk) block to serve 40 kv and 32 query rows.  More than 85 % of the
+// operations are the two weight products (t2s D 512 B64: 42.9 GFLOP of
+// projection, 17.2 of Wo, 2.7 of attention), so "wide" runs them as GEMMs
+// over every row of the launch, each weight tile serving 128 rows, in three
+// kernels on one stream:
 //   1. hop1_fwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] over
 //      the B·G·Lk kv rows (read through kv's strides: t2s's strided view),
 //      into a float32 workspace;
-//   2. hop1_fwd_wide_attn_kernel: one block of 4 warps a (b, g, 128
-//      columns, 32 query rows), the heads' q kᵀ, softmax and p v through
-//      "whole"'s attention_task (3xTF32 MMAs, base-2 softmax on the
-//      fragments, a fully masked row uniform over the true Lk); writes
-//      concat (the training residual, or the workspace) and lse;
+//   2. attention, one block of 4 warps a (b, g, 128 columns, 32 query
+//      rows), the heads' q kᵀ, softmax and p v as 3xTF32 MMAs with a
+//      base-2 softmax on the fragments, a fully masked row uniform over the
+//      true Lk; up to 64 kv rows hop1_fwd_wide_attn_kernel holds the
+//      group's K and V whole ("whole"'s attention_task), past that
+//      hop1_fwd_wide_attn_tiles_kernel streams them in kv tiles with an
+//      online softmax kept in registers; writes concat (the training
+//      residual, or the workspace) and lse;
 //   3. hop1_fwd_wide_out_kernel: out = x + (concat Wo + bo) over the B·G·Lq
 //      rows, x broadcast over g in the epilogue.
 // Stages 1 and 3 share one GEMM (wide_gemm, hop1_gemm.cuh, which K2
@@ -877,6 +883,14 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 // over every row of the launch.
 
 constexpr int kWideAttnThreads = 128;  // an attention block: 4 warps
+constexpr int kWideTile = 16;          // kv rows a tile of the streaming attention kernel
+
+// Floats of a ring stage of the streaming attention kernel (Lk >
+// kWideMaxLk): a tile's K and V rows (kWideCols + 4 floats each) and its
+// mask flags; a multiple of 4, so every stage starts 16-byte aligned.
+__host__ __device__ constexpr int wide_tile_floats() {
+  return 2 * kWideTile * (kWideCols + 4) + kWideTile;
+}
 
 // Stage 1: [K | V] = kv [Wk | Wv] + [bk | bv] into kvp (hop1_gemm.cuh's
 // wide_proj, K1's setting: truncating splits, one chain a contraction).
@@ -959,6 +973,245 @@ hop1_fwd_wide_attn_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// Stage 2 past kWideMaxLk kv rows (t2s over a video of more than 64 clips):
+// the kernel above holds all of a group's K and V in shared memory, which
+// at Lk 200 (2 x 200 rows of 132 floats) is past the 227 KB a block may
+// use, and "tiled" ran such launches ~12x slower than the plain path.  This
+// one streams K and V in tiles of kWideTile rows through a two-stage ring
+// of 16-byte cp.async copies (the next tile in flight during the current
+// one's products; one barrier a tile), each stage with the tile's mask
+// flags.  16-row tiles keep a block at 50.8 KB of shared memory, so that 3
+// or 4 blocks (12-16 warps) share an SM and hide each other's latencies:
+// with 64-row tiles (152.6 KB, one block of 4 warps an SM) the attention of
+// the flagship's t2s over 200 clips took 2.1x as long, with 32-row tiles
+// (two blocks) 1.2x (bist_tpu_torch.tools.wide_tile_sweep, PERF.md).  A
+// block is a (b, g, kWideCols columns, up to 32 query rows) as above, 4
+// warps; a warp owns its tasks (one head, kQT 16-row query tiles:
+// 2 where the heads are up to 32 wide and 32 query rows, so that each K and
+// V fragment serves two independent MMA chains) for the whole launch and
+// keeps each task's online softmax in registers across the tiles: per row
+// the running max m (base 2) and sum l (each thread's own columns; the quad
+// sums them after the last tile), and the unnormalised p·v accumulator,
+// rescaled by 2^(m_old - m_new) when a tile raises the max.  Scores and p·v
+// are attention_task's 3xTF32 MMAs, the scores' D fragment serving as p's A
+// fragment.  Columns at or past Lk (the last tile's tail, whose K and V rows
+// are zeros) score -inf and take no part, masked ones -1e9, so a fully
+// masked row attends uniformly over the true Lk.  After the last tile each
+// task writes its concat columns over the q columns it read and lse = m +
+// log l; the block then copies its rows into concat.  Whatever the number
+// of tiles, a warp holds 32 accumulator floats (kSlots·kQT·kDk8 = 8).
+template <int kDk8, int kQT>
+__device__ __forceinline__ void wide_tile_task(const float* q_s, const float* k_s,
+                                               const float* v_s, int mi0, int hd, int ntk,
+                                               uint32_t valid, uint32_t inside, float scale2,
+                                               int fg, int ft, float (&o)[kQT][kDk8][4],
+                                               float (&m)[kQT][2], float (&l)[kQT][2]) {
+  constexpr int ld = kWideCols + 4, dk = 8 * kDk8, kNT = kWideTile / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  float s[kQT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kDk8; ++ks) {
+    uint32_t ah[kQT][4], al[kQT][4];
+#pragma unroll
+    for (int i = 0; i < kQT; ++i)
+      load_a_rows(q_s + (mi0 + i) * 16 * ld + hd * dk + ks * 8, ld, fg, ft, ah[i], al[i]);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if (n < ntk) {
+        uint32_t bh[2], bl[2];
+        load_b_t(k_s + n * 8 * ld + hd * dk + ks * 8, ld, fg, ft, bh, bl);
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) mma_3xtf32<false>(s[i][n], ah[i], al[i], bh, bl);
+      }
+    }
+  }
+  // scale (to base 2) and mask; the tile's max over the quad
+  float mx[kQT][2];
+#pragma unroll
+  for (int i = 0; i < kQT; ++i) mx[i][0] = m[i][0], mx[i][1] = m[i][1];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    if (n < ntk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t bit = 1u << (2 * n + (e & 1));
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) {
+          s[i][n][e] = (valid & bit) ? s[i][n][e] * scale2
+                                     : ((inside & bit) ? kMaskedScore * kLog2e : -INFINITY);
+          mx[i][e >> 1] = fmaxf(mx[i][e >> 1], s[i][n][e]);
+        }
+      }
+    }
+  }
+  // every tile has a column inside Lk, so the new max is finite; alpha is 0
+  // on the first tile (m = -inf)
+#pragma unroll
+  for (int i = 0; i < kQT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[i][r] = fmaxf(mx[i][r], __shfl_xor_sync(0xffffffffu, mx[i][r], 1));
+      mx[i][r] = fmaxf(mx[i][r], __shfl_xor_sync(0xffffffffu, mx[i][r], 2));
+      const float alpha = exp2f(m[i][r] - mx[i][r]);
+      m[i][r] = mx[i][r];
+      l[i][r] *= alpha;
+#pragma unroll
+      for (int c = 0; c < kDk8; ++c) {
+        o[i][c][2 * r] *= alpha;
+        o[i][c][2 * r + 1] *= alpha;
+      }
+    }
+  // p = 2^(s - m) and o += p v: the scores' tile n is k-step n, V's rows
+  // taken in load_b_pairs' order
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    if (n < ntk) {
+      uint32_t ah[kQT][4], al[kQT][4];
+#pragma unroll
+      for (int i = 0; i < kQT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][n][e] = exp2f(s[i][n][e] - mx[i][e >> 1]);
+          l[i][e >> 1] += s[i][n][e];
+        }
+        d_as_a(s[i][n], ah[i], al[i]);
+      }
+#pragma unroll
+      for (int c = 0; c < kDk8; ++c) {
+        uint32_t bh[2], bl[2];
+        load_b_pairs(v_s + n * 8 * ld + hd * dk + c * 8, ld, fg, ft, bh, bl);
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) mma_3xtf32<false>(o[i][c], ah[i], al[i], bh, bl);
+      }
+    }
+  }
+}
+
+template <int kDk8, int kQT>
+__global__ void __launch_bounds__(kWideAttnThreads)
+hop1_fwd_wide_attn_tiles_kernel(const float* __restrict__ q, const float* __restrict__ kvp,
+                                const int* __restrict__ mask, float* __restrict__ concat,
+                                float* __restrict__ lse_out, int G, int Lq, int Lk, int D,
+                                int h, float scale) {
+  constexpr int ld = kWideCols + 4;     // 4 words (mod 32): A and B fragments
+  constexpr int dk = 8 * kDk8, hg = kWideCols / dk;
+  constexpr int kAttnWarps = kWideAttnThreads / 32;
+  constexpr int kSlots = (2 * hg / kQT + kAttnWarps - 1) / kAttnWarps;   // tasks a warp
+  constexpr int kNT = kWideTile / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  const int qc = Lq <= 16 ? 16 : 32, ntask = hg * (qc / 16) / kQT;
+  float* q_s = reinterpret_cast<float*>(smem4);   // qc x ld: q, then concat
+  float* ring = q_s + qc * ld;                    // 2 stages of wide_tile_floats
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fg = lane / 4, ft = lane % 4;
+  const int bg = blockIdx.x, b = bg / G, cg = blockIdx.y * kWideCols;
+  const int q0 = blockIdx.z * qc, nq = min(qc, Lq - q0);
+  const float* kb = kvp + (size_t)bg * Lk * 2 * D + cg;
+  const int* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
+  const int ntile = (Lk + kWideTile - 1) / kWideTile;
+  // tile t into stage t % 2: K's rows, V's rows (rows past Lk zeroed), then
+  // the tile's mask flags (0 past Lk)
+  auto issue_tile = [&](int t) {
+    float* st = ring + t % 2 * wide_tile_floats();
+    const int t0 = t * kWideTile, nr = min(kWideTile, Lk - t0);
+    const float* src = kb + (size_t)t0 * 2 * D;
+    issue_rows<kWideCols, kWideAttnThreads>(st, ld, src, 2 * D, nr, kWideTile);
+    issue_rows<kWideCols, kWideAttnThreads>(st + kWideTile * ld, ld, src + D, 2 * D, nr,
+                                            kWideTile);
+    int* flags = reinterpret_cast<int*>(st + 2 * kWideTile * ld);
+    for (int i = tid; i < kWideTile; i += kWideAttnThreads) {
+      if (mask_b != nullptr && i < nr)
+        cp_async4(flags + i, mask_b + t0 + i);
+      else
+        flags[i] = i < nr;
+    }
+  };
+  issue_rows<kWideCols, kWideAttnThreads>(q_s, ld, q + ((size_t)b * Lq + q0) * D + cg, D, nq,
+                                          qc);
+  issue_tile(0);
+  cp_async_commit();
+  float o[kSlots][kQT][kDk8][4], m[kSlots][kQT][2], l[kSlots][kQT][2];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+    for (int i = 0; i < kQT; ++i) {
+#pragma unroll
+      for (int c = 0; c < kDk8; ++c)
+        o[k][i][c][0] = o[k][i][c][1] = o[k][i][c][2] = o[k][i][c][3] = 0.f;
+      m[k][i][0] = m[k][i][1] = -INFINITY;
+      l[k][i][0] = l[k][i][1] = 0.f;
+    }
+  for (int t = 0; t < ntile; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t landed for all; tile t - 1's stage is free
+    if (t + 1 < ntile) issue_tile(t + 1);
+    cp_async_commit();
+    const float* k_s = ring + t % 2 * wide_tile_floats();
+    const float* v_s = k_s + kWideTile * ld;
+    const int* flags = reinterpret_cast<const int*>(k_s + 2 * kWideTile * ld);
+    const int t0 = t * kWideTile, ntk = (min(kWideTile, Lk - t0) + 7) / 8;
+    // this thread's score columns n·8 + 2·ft + e of the tile: bit 2n + e set
+    // inside Lk (`inside`) and where unmasked (`valid`)
+    uint32_t valid = 0, inside = 0;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + 2 * ft + e;
+        if (t0 + c < Lk) {
+          inside |= 1u << (2 * n + e);
+          if (flags[c] != 0) valid |= 1u << (2 * n + e);
+        }
+      }
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int task = warp + k * kAttnWarps;
+      if (task < ntask)
+        wide_tile_task<kDk8, kQT>(q_s, k_s, v_s, kQT == 2 ? 0 : task / hg, task % hg, ntk,
+                                  valid, inside, scale * kLog2e, fg, ft, o[k], m[k], l[k]);
+    }
+  }
+  // each task's rows: l summed over the quad, lse, concat = o / l over the q
+  // columns only this task read
+  __syncwarp();
+  float* lse_row = lse_out == nullptr ? nullptr
+                                      : lse_out + ((size_t)bg * Lq + q0) * h + cg / dk;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int task = warp + k * kAttnWarps;
+    if (task >= ntask) continue;
+    const int mi0 = kQT == 2 ? 0 : task / hg, hd = task % hg;
+#pragma unroll
+    for (int i = 0; i < kQT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sum = l[k][i][r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int row = (mi0 + i) * 16 + r * 8 + fg;
+        if (lse_row != nullptr && ft == 0 && row < nq)
+          lse_row[(size_t)row * h + hd] = (m[k][i][r] + log2f(sum)) * 0.6931471805599453f;
+        const float inv = 1.f / sum;
+#pragma unroll
+        for (int c = 0; c < kDk8; ++c)
+          *reinterpret_cast<float2*>(q_s + row * ld + hd * dk + c * 8 + 2 * ft) =
+              make_float2(o[k][i][c][2 * r] * inv, o[k][i][c][2 * r + 1] * inv);
+      }
+  }
+  __syncthreads();
+  constexpr int n4 = kWideCols / 4;
+  for (int i = tid; i < nq * n4; i += kWideAttnThreads) {
+    const int r = i / n4, e = i % n4 * 4;
+    *reinterpret_cast<float4*>(concat + ((size_t)bg * Lq + q0 + r) * D + cg + e) =
+        *reinterpret_cast<const float4*>(q_s + r * ld + e);
+  }
+}
+
 // Stage 3: out = x + (concat Wo + bo) over the launch's B·G·Lq rows (row r
 // = (b·G + g)·Lq + i reads x[b, i]), tiled as stage 1.
 __global__ void __launch_bounds__(kWideThreads, 2)
@@ -997,18 +1250,38 @@ hop1_fwd_wide_out_kernel(const float* __restrict__ concat, const float* __restri
     }
 }
 
-// The attention kernel for head width d_k (8, 16, 32 or 64).
-const void* wide_attn_kernel(int dk) {
+// The attention kernel for head width d_k (8, 16, 32 or 64): the whole
+// group in shared memory up to kWideMaxLk kv rows, else the streaming one,
+// with two query tiles a task where the heads are up to 32 wide and a block
+// takes 32 query rows.
+const void* wide_attn_kernel(int Lq, int Lk, int dk) {
+  if (Lk <= kWideMaxLk) {
+    switch (dk) {
+      case 8: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<1>);
+      case 16: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<2>);
+      case 32: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<4>);
+      default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<8>);
+    }
+  }
+  const bool pair = Lq > 16;
   switch (dk) {
-    case 8: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<1>);
-    case 16: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<2>);
-    case 32: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<4>);
-    default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<8>);
+    case 8:
+      return pair ? reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<1, 2>)
+                  : reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<1, 1>);
+    case 16:
+      return pair ? reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<2, 2>)
+                  : reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<2, 1>);
+    case 32:
+      return pair ? reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<4, 2>)
+                  : reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<4, 1>);
+    default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<8, 1>);
   }
 }
 
 size_t wide_attn_smem(int Lq, int Lk) {
   const int qc = Lq <= 16 ? 16 : 32, rows = (Lk + 7) / 8 * 8;
+  if (Lk > kWideMaxLk)
+    return ((size_t)qc * (kWideCols + 4) + 2 * wide_tile_floats()) * sizeof(float);
   return ((size_t)(qc + 2 * rows) * (kWideCols + 4) + Lk) * sizeof(float);
 }
 
@@ -1030,7 +1303,7 @@ int launch_wide(const float* x, const float* q, const TKV* kv, long long kv_sb,
   float* cc = concat != nullptr ? concat : ws + (size_t)M1 * 2 * D;
   const size_t smem_proj = GemmLayout<TKV>::bytes, smem_out = GemmLayout<float>::bytes;
   const size_t smem_attn = wide_attn_smem(Lq, Lk);
-  const void* attn = wide_attn_kernel(dk);
+  const void* attn = wide_attn_kernel(Lq, Lk, dk);
   const std::pair<const void*, size_t> fns[] = {
       {reinterpret_cast<const void*>(hop1_fwd_wide_proj_kernel<TKV>), smem_proj},
       {attn, smem_attn},
@@ -1089,7 +1362,8 @@ int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
       whole_rows(1, Lk) <= kWholeMaxRows &&
       whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
     return kVariantWhole;
-  if (kv_vec && (D == 256 || D == 512) && dk % 8 == 0 && dk <= 64 && Lk <= kWideMaxLk)
+  if (kv_vec && dk % 8 == 0 && dk <= 64 &&
+      (D == 256 || D == 512 || (D == 128 && Lk > kWideMaxLk)))
     return kVariantWide;
   int qc, tk, hg;
   size_t smem;
@@ -1228,7 +1502,7 @@ int resources(int G, int Lq, int Lk, int D, int h, int* info) {
     const std::pair<const void*, size_t> stages[] = {
         {reinterpret_cast<const void*>(hop1_fwd_wide_proj_kernel<TKV>),
          GemmLayout<TKV>::bytes},
-        {wide_attn_kernel(D / h), wide_attn_smem(Lq, Lk)},
+        {wide_attn_kernel(Lq, Lk, D / h), wide_attn_smem(Lq, Lk)},
         {reinterpret_cast<const void*>(hop1_fwd_wide_out_kernel), GemmLayout<float>::bytes}};
     const int threads[] = {kWideThreads, kWideAttnThreads, kWideThreads};
     for (int i = 0; i < 3; ++i) {

@@ -14,12 +14,13 @@ and, for training, also writes the residuals `concat` (the attention output
 before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
 gradients of q_proj, kv and the K/V weights.  Their launchers choose a
 kernel by shape (`hop1_variant`, `hop1_bwd_variant`): "whole" at the
-flagship's widths (D 64/128: every product on the tensor cores as 3xTF32,
-which keeps float32 accuracy), "wide" at D 256/512 (the weight products as
-tensor-core GEMMs over every row of the launch, two in K1 and three in K2,
-the attention or its backward between them, through a workspace this
-module allocates) and "tiled" at every other width with D % h == 0.  The
-kernels
+flagship's widths (D 64/128 up to 64 kv rows: every product on the tensor
+cores as 3xTF32, which keeps float32 accuracy), "wide" at D 256/512 and,
+K1 only, past 64 kv rows at D 128 (the weight products as tensor-core GEMMs
+over every row of the launch, two in K1 and three in K2, the attention or
+its backward between them, through a workspace this module allocates;
+K1's attention streams K and V in kv tiles past 64 kv rows) and "tiled"
+at every other width with D % h == 0.  The kernels
 hold each head's columns padded with zeros to a multiple of 4; the wrappers
 hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
 the padding off what comes back, which changes no number.  See the sources
@@ -212,10 +213,13 @@ def hop1_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
     4-element vectors) alone: "whole" (all kv rows of a group in one tile,
     every product on the tensor cores in 3xTF32; D 64 or 128, d_k a multiple
     of 8 up to 32, Lk <= 64, aligned rows), "wide" (a projection GEMM, an
-    attention kernel and a Wo GEMM, 3xTF32 on the tensor cores; D 256 or
-    512, d_k a multiple of 8 up to 64, Lk <= 64, aligned rows) or "tiled"
-    (head groups, kv tiles with an online softmax, FMAs; every other width);
-    ValueError for widths none takes.  Builds the library on first use."""
+    attention kernel and a Wo GEMM, 3xTF32 on the tensor cores; the
+    attention holds a group's K and V up to 64 kv rows and streams them in
+    tiles of 16 with an online softmax past that; D 256 or 512 at any Lk,
+    and D 128 past 64 kv rows, d_k a multiple of 8 up to 64, aligned rows)
+    or "tiled" (head groups, kv tiles with an online softmax, FMAs; every
+    other width: D 64 past 64 kv rows, D 1024, misaligned grids); ValueError
+    for widths none takes.  Builds the library on first use."""
     code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
         raise ValueError(f"hop1_fused: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
@@ -226,8 +230,9 @@ def hop1_resources(G: int, Lq: int, Lk: int, D: int, h: int, bf16: bool = False)
     """What the K1 kernel chosen at these widths takes on the current CUDA
     device: its variant, dynamic shared memory, registers and local memory
     (spills, stack) a thread, resident blocks per SM, groups a block and
-    heads a head group; for "wide" those of its projection kernel, and each
-    of its three kernels' under "stages"."""
+    heads a head group (an attention block's, for "wide"); for "wide" those
+    of its projection kernel, and each of its three kernels' under "stages"
+    (the attention kernel the launch takes: past 64 kv rows the kv tiles')."""
     info = (ctypes.c_int * 19)()
     rc = _fwd_lib().bist_hop1_fwd_resources(G, Lq, Lk, D, h, int(bf16), info)
     if rc != 0:
@@ -264,15 +269,18 @@ def _bwd_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
     """The K2 kernel a launch at these widths takes, as its launcher chooses
-    it from the shape and kv's alignment alone, by K1's rule
-    (`hop1_variant`): "whole" (all kv rows of a group in one block, every
-    product on the tensor cores in 3xTF32, and a tensor-core dW pass; D 64
-    or 128, d_k a multiple of 8 up to 32, Lk <= 64, aligned rows, any Lq),
-    "wide" (a projection GEMM, an attention-backward kernel, a dkv GEMM and
-    a split dW GEMM, 3xTF32 on the tensor cores; K1 "wide"'s domain: D 256
-    or 512, d_k a multiple of 8 up to 64, Lk <= 64, aligned rows) or
-    "tiled" (FMA passes; every other width); ValueError for widths none
-    takes.  Builds the library on first use."""
+    it from the shape and kv's alignment alone: "whole" (all kv rows of a
+    group in one block, every product on the tensor cores in 3xTF32, and a
+    tensor-core dW pass; K1 "whole"'s domain: D 64 or 128, d_k a multiple
+    of 8 up to 32, Lk <= 64, aligned rows, any Lq), "wide" (a projection
+    GEMM, an attention-backward kernel, a dkv GEMM and a split dW GEMM,
+    3xTF32 on the tensor cores; D 256 or 512, d_k a multiple of 8 up to 64,
+    Lk <= 64, aligned rows: K1 "wide"'s domain up to 64 kv rows) or "tiled"
+    (FMA passes; every other width, K1 "wide"'s launches past 64 kv rows
+    among them).  Each reads whichever K1 kernel's residuals, one layout
+    for all three: concat (B, G, Lq, D), lse (B, G, Lq, h), a fully masked
+    row's lse -1e9.  ValueError for widths none takes.  Builds the library
+    on first use."""
     code = _bwd_lib().bist_hop1_bwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
         raise ValueError(f"hop1_bwd: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")

@@ -19,11 +19,14 @@ Neither rule looks at widths, dtypes or alignment: on the card a call that
 meets it goes to the kernel, which takes float32 and bfloat16 grids, every
 D with D % h == 0 (hop 1) and every head dim (flash).  K1 chooses among
 three kernels by shape (`ops.bist_kernels.hop1_variant`): "whole" at the
-flagship's D 64/128, "wide" at D 256/512 (`bist_tpu`'s default d_model
-512 with 8 heads), "tiled" elsewhere; K2 has the same three on the same
-domains (`hop1_bwd_variant`), so each reads its own forward's residuals.
-"tiled" is known to be slower than the plain path at the widths it keeps
-(D 1024, Lk > 64; PERF.md, section 6; ROADMAP's K4).
+flagship's D 64/128 up to 64 kv rows, "wide" at D 256/512 (`bist_tpu`'s
+default d_model 512 with 8 heads) and, past 64 kv rows (t2s over a video
+of more than 64 clips), at D 128 too, "tiled" elsewhere.  K2 has the same
+three (`hop1_bwd_variant`), "wide" only up to 64 kv rows.  All three write
+one residual layout (concat (B, G, Lq, D), lse (B, G, Lq, h)), so K2 reads
+whichever forward ran.  "tiled" is known to be slower than the plain path
+at the widths it still holds: D 1024, D 64 past 64 kv rows, misaligned
+grids, and K2 past 64 kv rows (PERF.md, section 6; ROADMAP's K4).
 
 `force_plain()` turns both kernels off, so one batch can run through the
 kernels and through the plain PyTorch paths for comparison (tests,

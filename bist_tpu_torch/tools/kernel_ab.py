@@ -22,7 +22,9 @@ kernels' own device time a call from torch.profiler, which the host's work
 cannot move).  Compare two versions only inside one such run: between runs
 the host moves the single-call times.  With
 `--sass`, the named kernel libraries of both trees' builds are also
-disassembled (cuobjdump -sass) and their instructions compared.
+disassembled (cuobjdump -sass) and their instructions compared kernel by
+kernel: the kernels whose instructions are identical, those that differ,
+and those only one tree has.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ CASES = [
      ("train t2s", "whole", 32, 16, 32, 40, 128, 8, True, True, 9, True), {}),
     ("hop1_fwd", "train s2t", "check_hop1",
      ("train s2t", "whole", 32, 40, 32, 16, 128, 8, False, False, 10, True), {}),
+    # "wide" at the reference's width and at D 256 (phase 2's cases)
+    ("hop1_fwd", "t2s D=512", "check_hop1",
+     ("t2s D=512", "wide", 64, 16, 32, 40, 512, 8, True, True, 8), {}),
+    ("hop1_fwd", "s2t D=512", "check_hop1",
+     ("s2t D=512", "wide", 64, 40, 32, 16, 512, 8, False, False, 34), {}),
+    ("hop1_fwd", "t2s D=256", "check_hop1",
+     ("t2s D=256", "wide", 64, 16, 32, 40, 256, 8, True, True, 7), {}),
     ("hop1_bwd", "t2s", "check_hop1_bwd", ("t2s", 32, 16, 32, 40, 128, 8, True, True, 11),
      {"variant": "whole", "vs_tiled": True}),
     ("hop1_bwd", "s2t", "check_hop1_bwd", ("s2t", 32, 40, 32, 16, 128, 8, False, False, 12),
@@ -110,15 +119,29 @@ def run_tree(tree: str) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def sass(tree: str, name: str) -> list:
-    """The instructions of the tree's built kernel library `name`."""
+def sass(tree: str, name: str) -> dict:
+    """The instructions of the tree's built kernel library `name`, by kernel
+    (its mangled name, the anonymous namespace's hash taken out)."""
     from bist_tpu_torch.ops import _build
 
     so, = (Path(tree) / "build" / "bist_tpu_torch").glob(f"{name}-*.so")
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
-    return re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+([^;]*;)", text, re.M)
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            # a kernel in an anonymous namespace carries a hash of its tree's
+            # source file in its name: the same name in both trees without it
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w*?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
+                          m.group(1))
+            cur = out.setdefault(name, [])
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+([^;]*;)", line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return out
 
 
 def main(argv=None) -> int:
@@ -138,9 +161,11 @@ def main(argv=None) -> int:
             for case in runs[0][1]}
     for name in args.sass:
         a, b = sass(args.tree_a, name), sass(args.tree_b, name)
-        print(json.dumps({"sass": name, "A_instructions": len(a), "B_instructions": len(b),
-                          "differing_positions": sum(x != y for x, y in zip(a, b))
-                          + abs(len(a) - len(b))}), flush=True)
+        print(json.dumps({"sass": name,
+                          "identical": sum(a[k] == b[k] for k in a if k in b),
+                          "differing": [k for k in a if k in b and a[k] != b[k]],
+                          "only_A": [k for k in a if k not in b],
+                          "only_B": [k for k in b if k not in a]}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(side, f, indent=1)

@@ -22,12 +22,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      their number (the median of 5 such runs), so that the host work
      overlaps the device work of the calls before.  K1's and K2's cases
      name the kernel they must run ("whole", "wide" or "tiled" of
-     csrc/hop1_fwd.cu; "whole" or "tiled" of csrc/hop1_bwd.cu); their
-     main-path cases also check and time "tiled", the kernel that held
-     those widths before "whole" and "wide", at the same inputs.  K1
+     csrc/hop1_fwd.cu; "whole", "wide" or "tiled" of csrc/hop1_bwd.cu);
+     their main-path cases also check and time "tiled", the kernel that
+     held those widths before "whole" and "wide", at the same inputs.  K1
      "wide" at the reference's width (D 512, 8 heads: t2s, s2t, training
      with K2 on its residuals, ragged rows with a fully masked row, a
-     bfloat16 grid) and at D 256 (8 and 4 heads).  K1 and K2 also run at
+     bfloat16 grid) and at D 256 (8 and 4 heads); past 64 kv rows (videos
+     of more than 64 clips: K1 "wide" over kv tiles at D 128-512, 65-600
+     kv rows, a bfloat16 grid, one video, the training launch with K2
+     "tiled" on its residuals; "t2s Lk200" and "t2s Lk200 D=512" with the
+     peak device memory of a call against plain's).  K1 and K2 also run at
      widths neither takes (D 120, 520 and 1024 with 8 heads).  K3 (one kernel,
      csrc/flash_fwd.cu) at mha's shape in float32 and on a bfloat16 grid,
      one query row at d 16 and head dim 320, each beside one SDPA call by
@@ -165,7 +169,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      packed and per-video, the two held identical (or within 1e-5 of max
      |f|), its grids written into phase 5's tiny dataset; the generate CLI
      (beam search) answering every turn from them, K1's kernels counted by
-     name.
+     name ("wide" for the 75-clip video's t2s, "whole" else, no "tiled").
  13. TGIF-QA (bist_tpu_torch.tasks.tgifqa, cli/train_tgif.py) at the train_tgif
      CLI's width (d_model 128, 8 heads, 2 video blocks, grids of 16 x 2048,
      random weights from seed 0): (a) for each task, tgif_forward through K1
@@ -176,8 +180,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      under torch.profiler) for each task at --dropout 0 and for count at the
      default 0.1, 2 epochs of batches of 32 on synthetic splits of 64 train
      and 40 test questions over GIFs of 8-40 clips and one of 70 (in
-     frameqa's train and count's test split: t_pad 128 sends t2s through
-     "tiled"); each run's K1 and K2 counted through the wrappers (8 a
+     frameqa's train and count's test split: t_pad 128 sends t2s's K1
+     through "wide" and its K2 through "tiled"); each run's K1 and K2
+     counted through the wrappers (8 a
      captured geometry, K1 4 a test batch) and by kernel name (4 a step, K1
      4 a test batch; with dropout K1 in the test split only), its
      examples/s by epoch, captures and TEST metric read from its log; (c)
@@ -242,9 +247,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      eager and replayed: responses/s of the four, the graph pools, and
      every hypothesis's tokens identical to the plain path's; then one
      train step's loss and gradients at dropout 0 against force_plain
-     (phase 6's bounds; K1 "wide" and K2 "tiled" 6 each), 5 eager steps
-     and a TrainProgram's replays (ms/step; K1 "wide" and K2 "tiled" 6 a
+     (phase 6's bounds; K1 "wide" and K2 "wide" 6 each), 5 eager steps
+     and a TrainProgram's replays (ms/step; K1 "wide" and K2 "wide" 6 a
      step by kernel name).
+ 18. videos of more than 64 clips: 2 batches of 32 test turns with random
+     grids of 65-180 clips (an 11-30 s video's 16-frame clips at stride 4,
+     24 fps; padded to multiples of 40 by bucket_len, up to T 200), beam
+     search (phase 3's settings) at the flagship's d_model 128 (K1 3 "wide"
+     at t2s over the clips and 3 "whole" at s2t a batch) and at d_model 512
+     (6 "wide"), eager and replayed, each against force_plain eager and
+     replayed: tokens and lengths identical, responses/s of the four, K1 by
+     kernel name in the replays, the graph pools; then one train step at
+     d_model 512, dropout 0, on a batch of 32 such turns: loss and
+     gradients against force_plain (phase 6's bounds), K1 "wide" 6, K2
+     "tiled" 3 (t2s) and "wide" 3 (s2t) through the wrappers.
 
 The last two lines of standard output are one JSON object listing every
 kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}; the card's
@@ -421,7 +437,8 @@ def ptxas_report(log):
     """Per kernel of an `nvcc -Xptxas -v` log: registers, stack and spill
     bytes, named by kernel, grid type and its template arguments: for hop-1
     "whole" width D, 16-row kv tiles, groups a block, head width up to; for
-    "wide"'s attention kernels (K1's, K2's) the head width; for K3 its mode, 8-row kv
+    "wide"'s attention kernels (K1's, K2's) the head width (and for K1's over
+    kv tiles the 16-row query tiles a task); for K3 its mode, 8-row kv
     tiles a scoring warp and output tiles a warp up to."""
     import re
 
@@ -440,6 +457,8 @@ def ptxas_report(log):
             elif cur["kernel"] in ("hop1_fwd_wide_attn_kernel",
                                    "hop1_bwd_wide_attn_kernel") and len(args) == 1:
                 cur.update(dk=8 * args[0])
+            elif cur["kernel"] == "hop1_fwd_wide_attn_tiles_kernel" and len(args) == 2:
+                cur.update(dk=8 * args[0], query_tiles=args[1])
             elif cur["kernel"] == "flash_fwd_mma_kernel" and len(args) == 2:
                 kv_split, blocks = re.findall(r"Lb([01])E", mangled)
                 cur.update(mode="kv split" if kv_split == "1" else
@@ -534,8 +553,22 @@ def rel_beyond_atol(got, want):
     return (diff[over] / want.float().abs()[over]).max().item()
 
 
+def peak_mb(fn):
+    """Device memory (MB) one call of `fn` adds at its peak, its result
+    included."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
 def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
-               seed, residuals=False, bf16=False, vs_tiled=False, bwd=False):
+               seed, residuals=False, bf16=False, vs_tiled=False, bwd=False, memory=False):
     """One K1 case, which must run the named kernel variant; with
     `residuals` the training launch, whose concat and lse are held against
     the plain version's too; with `bf16` a bfloat16 grid.  The bound counts
@@ -548,7 +581,10 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
     `residuals`) K2 runs on the kernel's own residuals, with a random
     upstream gradient, and its six gradients are held against
     `hop1_bwd_plain` on the same inputs in float64 (`as_float64`;
-    "bwd_variant", "bwd_max_abs_err")."""
+    "bwd_variant", "bwd_max_abs_err").  With `memory` the device memory one
+    call of the kernel and one of the plain version add at their peak
+    ("peak_mb": "wide"'s [K | V] workspace against plain's K, V and
+    scores)."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import (_hop1_fused_as, hop1_bwd, hop1_bwd_plain,
@@ -592,6 +628,8 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
                          rtol=2 ** -7 if bf16 and n == "dkv" else TOL)
             for n, a, b_ in zip(("dq", "dkv", "dWk", "dWv", "dbk", "dbv"), grads,
                                 want_grads))}
+    if memory:
+        extra["peak_mb"] = {"kernel": peak_mb(run), "plain": peak_mb(plain)}
     if vs_tiled:
         tiled = lambda: _hop1_fused_as("tiled", x, q, kv, p, h, mask, residuals)
         extra.update(tiled_max_abs_err=agree(tiled(), f"hop1 {name} (tiled)"),
@@ -765,8 +803,27 @@ def phase_kernels(device):
                    vs_tiled=True),
         check_hop1(device, "s2t", "whole", 64, 40, 32, 16, 128, 8, False, False, 2,
                    vs_tiled=True),
-        # many kv tiles at the widest D the kernel takes
-        check_hop1(device, "multi-tile", "tiled", 4, 8, 32, 600, 512, 8, True, False, 3),
+        # videos of more than 64 clips (t2s attends over the clips): "wide"
+        # streams K and V in tiles of 16 kv rows; each against "tiled" at
+        # the same inputs.  Many kv tiles at the reference's width, the
+        # flagship's t2s (a fully masked batch row) and the reference's at
+        # 200 clips, one row into a last kv tile, a bfloat16 grid, one video
+        # through the generate CLI, the training launch with K2 ("tiled" at
+        # Lk > 64) on its residuals
+        check_hop1(device, "multi-tile", "wide", 4, 8, 32, 600, 512, 8, True, False, 3,
+                   vs_tiled=True),
+        check_hop1(device, "t2s Lk200", "wide", 64, 16, 32, 200, 128, 8, True, True, 60,
+                   vs_tiled=True, memory=True),
+        check_hop1(device, "t2s Lk200 D=512", "wide", 64, 16, 32, 200, 512, 8, True, True, 61,
+                   vs_tiled=True, memory=True),
+        check_hop1(device, "t2s Lk65 D=256 h=4", "wide", 64, 16, 32, 65, 256, 4, True, True,
+                   62, vs_tiled=True),
+        check_hop1(device, "t2s Lk200 D=512 bf16", "wide", 64, 16, 32, 200, 512, 8, True, True,
+                   63, bf16=True, vs_tiled=True),
+        check_hop1(device, "one video Lk176", "wide", 1, 16, 32, 176, 128, 8, False, True, 64,
+                   vs_tiled=True),
+        check_hop1(device, "train t2s Lk200 D=512", "wide", 32, 16, 32, 200, 512, 8, True,
+                   True, 65, True, vs_tiled=True, bwd=True),
         # the reference's width (d_model 512, 8 heads) and D 256 at the main
         # path's batch ("wide"), each against "tiled" at the same inputs: the
         # two launches of each video layer, the training launches with K2
@@ -882,10 +939,11 @@ def flagship_cfg(vocab_size, dv=DV, **kw):
     return ModelConfig(vocab_size=vocab_size, ft_sizes=(dv,), **dict(FLAGSHIP, **kw))
 
 
-def make_batches(data, n_batches, B, seed, answers=False):
+def make_batches(data, n_batches, B, seed, answers=False, clips=(8, T_MAX), dv=DV, s=S):
     """Host batches of real test turns clipped to LQ/LH/LC, with random
-    feature grids of 8..T_MAX clips (zero-padded to the batch's bucket);
-    with `answers`, the turns' answers (clipped to LA) as targets."""
+    feature grids of `clips` (least, most) clips of s x dv (zero-padded to
+    the batch's bucket: T_BUCKETS, then multiples of 40); with `answers`,
+    the turns' answers (clipped to LA) as targets."""
     from bist_tpu_torch.data.batching import Batch, bucket_len, pad_to
     from bist_tpu_torch.vocab import SOS
 
@@ -893,11 +951,11 @@ def make_batches(data, n_batches, B, seed, answers=False):
     batches = []
     for n in range(n_batches):
         exs = data.examples[n * B:(n + 1) * B]
-        clips = rng.integers(8, T_MAX + 1, size=len(exs))
-        t_pad = bucket_len(int(clips.max()), T_BUCKETS)
-        fts = np.zeros((len(exs), t_pad, S, DV), np.float32)
-        for r, t in enumerate(clips):
-            fts[r, :t] = rng.standard_normal((t, S, DV), dtype=np.float32)
+        n_clips = rng.integers(clips[0], clips[1] + 1, size=len(exs))
+        t_pad = bucket_len(int(n_clips.max()), T_BUCKETS)
+        fts = np.zeros((len(exs), t_pad, s, dv), np.float32)
+        for r, t in enumerate(n_clips):
+            fts[r, :t] = rng.standard_normal((t, s, dv), dtype=np.float32)
         trg = trg_y = np.full((len(exs), 1), SOS, np.int32)
         if answers:
             trg = pad_to([e.answer_in[:LA] for e in exs], LA)
@@ -933,7 +991,8 @@ def k1_ran(prof):
     "tiled", "wide"), from the trace's kernel names: a graph replay's
     kernels are recorded there, where the wrappers' Python counts see only
     their eager launches and captures.  A "wide" call runs three kernels
-    and is counted once, by its attention kernel."""
+    and is counted once, by its attention kernel (the whole group's, or the
+    kv tiles' past 64 kv rows)."""
     from torch.autograd import DeviceType
 
     out = dict(K1_NONE)
@@ -944,7 +1003,7 @@ def k1_ran(prof):
                 out["whole"] += 1
             elif "hop1_fwd_tiles_kernel" in name:
                 out["tiled"] += 1
-            elif "hop1_fwd_wide_attn_kernel" in name:
+            elif "hop1_fwd_wide_attn" in name:
                 out["wide"] += 1
     return out
 
@@ -979,8 +1038,8 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None,
     the same way: 12 K1 launches per capture), a timed pass of replays
     (which must launch nothing through the wrappers) and a pass of replays
     under torch.profiler, whose K1 kernels are counted by name (6 per
-    batch, all through `variant`).  Every replayed output must equal the
-    eager one."""
+    batch, all through `variant`, or `variant` a {kernel: launches a batch}
+    of 6 in all).  Every replayed output must equal the eager one."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import hop1_fused
@@ -989,6 +1048,8 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None,
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     n, rows = len(batches), sum(b.query.shape[0] for b in batches)
+    per_batch = variant if isinstance(variant, dict) else {variant: 6}
+    times = lambda k: {v: k * c for v, c in per_batch.items()}
 
     def counts():
         return hop1_fused.launches, dict(hop1_fused.variants)
@@ -1001,16 +1062,16 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None,
     sync()
     eager_s = time.perf_counter() - t0
     eager_counts = counts()
-    if cuda and eager_counts != (6 * n, {variant: 6 * n}):
+    if cuda and eager_counts != (6 * n, times(n)):
         raise AssertionError(f"{name}, eager: K1 launches {eager_counts}, expected "
-                             f"{6 * n} on \"{variant}\" (6 per batch)")
+                             f"{times(n)} (per batch {per_batch})")
 
     reset_hop1_counts()
     before = program.stats()
     first = [program(b, **kw) for b, kw in zip(batches, extra)]
     sync()
     caps = program.captures - before["captures"]
-    if cuda and (counts() != (12 * caps, {variant: 12 * caps})
+    if cuda and (counts() != (12 * caps, times(2 * caps))
                  or program.eager_runs - before["eager_runs"] != caps):
         raise AssertionError(f"{name}, capture pass: K1 launches {counts()} for {caps} "
                              f"captures, expected 12 each (the warm-up and the capture)")
@@ -1027,9 +1088,9 @@ def eager_and_replayed(device, name, eager_fn, program, batches, extra=None,
         again = [program(b, **kw) for b, kw in zip(batches, extra)]
         sync()
     ran = k1_ran(prof) if cuda else dict(K1_NONE)
-    if cuda and ran != dict(K1_NONE, **{variant: 6 * n}):
+    if cuda and ran != dict(K1_NONE, **times(n)):
         raise AssertionError(f"{name}: K1 kernels in {n} replays by name {ran}, expected "
-                             f"{6 * n} \"{variant}\" (6 per batch)")
+                             f"{times(n)} (per batch {per_batch})")
     differ = [i for i, (e, a, b, c) in enumerate(zip(eager, first, replayed, again))
               if not (same_outputs(e, a) and same_outputs(e, b) and same_outputs(e, c))]
     if differ:
@@ -3131,8 +3192,10 @@ def phase_extractor(device, root, depth=101, batch=128, reps=5, n_check=4, video
         result = json.load(f)
     check_result_schema(result, orig, undisclosed=True)
     ran = k1_ran(prof) if cuda else dict(K1_NONE)
-    if cuda and not sum(ran.values()):
-        raise AssertionError("generate from extracted features: no K1 kernel ran")
+    # the 75-clip video's t2s through "wide" (Lk > 64), the rest "whole"
+    if cuda and not (ran["wide"] > 0 and ran["whole"] > 0 and ran["tiled"] == 0):
+        raise AssertionError(f"generate from extracted features: K1 by name {ran}, expected "
+                             f"\"wide\" (the 75-clip video's t2s) and \"whole\", no \"tiled\"")
     out["generate"] = {"turns": sum(len(d["dialog"]) for d in result["dialogs"]),
                        "answers": [t["answer"] for d in result["dialogs"] for t in d["dialog"]],
                        "k1_ran": ran}
@@ -3219,9 +3282,9 @@ def write_tgif_dataset(root, n_train=64, n_test=40, n_gifs=40, t_range=(8, 40), 
     """Synthetic TGIF-QA splits under `root`: .npy grids (T, s, dv) of
     n_gifs GIFs of t_range clips and one of long_t clips ("long", in
     frameqa's train split and count's test split only, so t_pad 128 sends
-    t2s through "tiled"), and each task's train and test TSVs in the public
-    format.  Returns {task: (train tsv, test tsv)} and the feature
-    directory."""
+    t2s's K1 through "wide" and its K2 through "tiled"), and each task's
+    train and test TSVs in the public format.  Returns {task: (train tsv,
+    test tsv)} and the feature directory."""
     rng = np.random.default_rng(seed)
     feats = os.path.join(root, "feats")
     os.makedirs(feats, exist_ok=True)
@@ -3582,11 +3645,12 @@ def phase_tgif(device, root, model_kw=None, dv=DV, s=S, n_train=64, n_test=40, B
             torch.cuda.empty_cache()
     if cuda:
         for run, name in ((runs[0], "frameqa"), (runs[4], "count")):
-            # the 70-clip GIF: t2s at t_pad 128 through "tiled" (frameqa trains
-            # on it, count scores it)
-            if not (run["by_name"]["k1"]["tiled"] > 0 and run["by_name"]["k1"]["whole"] > 0):
+            # the 70-clip GIF: t2s at t_pad 128 through "wide" (frameqa trains
+            # on it, count scores it), the rest through "whole"
+            k1 = run["by_name"]["k1"]
+            if not (k1["wide"] > 0 and k1["whole"] > 0 and k1["tiled"] == 0):
                 raise AssertionError(f"TGIF CLI {name}: K1 by name {run['by_name']}: no "
-                                     f"\"tiled\" for the 70-clip GIF")
+                                     f"\"wide\" for the 70-clip GIF, or a \"tiled\"")
         if not runs[0]["by_name"]["k2"]["tiled"] > 0:
             raise AssertionError(f"TGIF CLI frameqa: K2 by name {runs[0]['by_name']}: no "
                                  f"\"tiled\" for the 70-clip GIF")
@@ -4644,58 +4708,29 @@ def step_breakdown(prof, steps, top=8):
             "top_other_ms": dict(sorted(others.items(), key=lambda kv: -kv[1])[:top])}
 
 
-def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
-                          model_kw=REFERENCE_WIDTH):
-    """The flagship configuration at bist_tpu's default width (`model_kw`:
-    d_model 512, 8 heads; hop 1 through K1 "wide"), random weights from
-    seed 0:
-
-      * beam search (phase 3's settings) on n_batches batches of B test
-        turns, eager and through a DecodeProgram (`eager_and_replayed`: K1
-        "wide" 6 a batch through the wrappers and by kernel name in the
-        replays), then eager and replayed again under force_plain (no K1):
-        responses/s of all four, each graph pool, and every hypothesis's
-        tokens and length identical between the kernel path and the plain
-        path, eager and replayed;
-      * training without dropout on 2 cycled batches of train_B turns: one
-        step's loss and gradients against force_plain (phase 6's bounds,
-        K1 "wide" with residuals and K2 "wide" 6 each), `steps` eager Noam-
-        Adam steps (the wrappers' counts zeroed before, read after: K1 and
-        K2 "wide" 6 a step each) and a TrainProgram's warm-up, capture and
-        `steps` replays timed (ms/step, median after the first; its graph
-        pool), 2 replays under torch.profiler (K1 "wide" and K2 "wide" 6 a
-        step each by name) and the replayed step's device ms by kernel
-        (`step_breakdown`; empty on the CPU).
+def generation_against_plain(device, what, params, cfg, batches, variant):
+    """Beam search (phase 3's settings) on `batches` through the kernels,
+    eager and through a DecodeProgram (`eager_and_replayed`: K1 through
+    `variant` in the wrappers and by kernel name in the replays), then eager
+    and replayed again under force_plain (no K1): responses/s of the four,
+    each graph pool, and every hypothesis's tokens and length identical
+    between the kernel path and the plain path, eager and replayed.
     Returns the readings."""
     import torch
 
-    from bist_tpu_torch.config import GenerateConfig, TrainConfig
-    from bist_tpu_torch.data.avsd import load_avsd
-    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.config import GenerateConfig
     from bist_tpu_torch.decode.beam import beam_search
     from bist_tpu_torch.decode.compiled import DecodeProgram
-    from bist_tpu_torch.models.model import init_model
     from bist_tpu_torch.ops import dispatch
-    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
-    from bist_tpu_torch.train.compiled import TrainProgram
-    from bist_tpu_torch.train.loop import create_train_state, make_train_step
-    from bist_tpu_torch.vocab import get_vocabulary
+    from bist_tpu_torch.ops.bist_kernels import hop1_fused
 
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    wide = "wide" if cuda else None
-    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
-    cfg = flagship_cfg(len(vocab), **model_kw)
-    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
-                     undisclosed_only=True)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gcfg = GenerateConfig(**GEN)
-    batches = [to_device(b, device) for b in make_batches(data, n_batches, B, seed=0)]
-    params = init_model(0, cfg, device=device)
-    rows = n_batches * B
+    rows = sum(b.query.shape[0] for b in batches)
     program = DecodeProgram(params, cfg, gcfg)
-    kern, beam = eager_and_replayed(device, "beam_search, d_model 512",
+    kern, beam = eager_and_replayed(device, f"beam_search, {what}",
                                     lambda b: beam_search(params, cfg, b, gcfg), program,
-                                    batches, variant=wide)
+                                    batches, variant=variant)
     reset_hop1_counts()
     with dispatch.force_plain():
         beam_search(params, cfg, batches[0], gcfg)                   # warm-up
@@ -4713,7 +4748,7 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
         sync()
         plain_replay_s = time.perf_counter() - t0
     if hop1_fused.launches:
-        raise AssertionError(f"d_model 512: K1 launched {hop1_fused.launches} times under "
+        raise AssertionError(f"{what}: K1 launched {hop1_fused.launches} times under "
                              f"force_plain")
 
     def same(a, b):
@@ -4722,10 +4757,11 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
     differ = [i for i, (k, p, pr) in enumerate(zip(kern, plain, plain_replayed))
               if not (same(k, p) and same(p, pr))]
     if differ:
-        raise AssertionError(f"d_model 512: the beam tokens of batches {differ} differ "
+        raise AssertionError(f"{what}: the beam tokens of batches {differ} differ "
                              f"between the kernel path and the plain path")
     generation = {
-        "batches": n_batches, "batch_size": B,
+        "batches": len(batches), "batch_size": batches[0].query.shape[0],
+        "clips": [b.fts.shape[1] for b in batches],
         "responses_per_s": {"kernels_eager": beam["eager_responses_per_s"],
                             "kernels_replayed": beam["replayed_responses_per_s"],
                             "plain_eager": rows / plain_eager_s,
@@ -4735,8 +4771,52 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
         "replayed_k1_by_name": beam["replayed_k1_by_name"],
         "eager_launches": beam["eager_launches"],
         "tokens_identical_to_plain": {"eager": rows, "replayed": rows}}
-    log(f"d_model 512 generation: {json.dumps(generation)}")
+    log(f"{what} generation: {json.dumps(generation)}")
     del program, plain_program
+    return generation
+
+
+def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
+                          model_kw=REFERENCE_WIDTH):
+    """The flagship configuration at bist_tpu's default width (`model_kw`:
+    d_model 512, 8 heads; hop 1 through K1 "wide"), random weights from
+    seed 0:
+
+      * beam search (phase 3's settings) on n_batches batches of B test
+        turns against force_plain (`generation_against_plain`: K1 "wide" 6
+        a batch through the wrappers and by kernel name in the replays);
+      * training without dropout on 2 cycled batches of train_B turns: one
+        step's loss and gradients against force_plain (phase 6's bounds,
+        K1 "wide" with residuals and K2 "wide" 6 each), `steps` eager Noam-
+        Adam steps (the wrappers' counts zeroed before, read after: K1 and
+        K2 "wide" 6 a step each) and a TrainProgram's warm-up, capture and
+        `steps` replays timed (ms/step, median after the first; its graph
+        pool), 2 replays under torch.profiler (K1 "wide" and K2 "wide" 6 a
+        step each by name) and the replayed step's device ms by kernel
+        (`step_breakdown`; empty on the CPU).
+    Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wide = "wide" if cuda else None
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    cfg = flagship_cfg(len(vocab), **model_kw)
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
+                     undisclosed_only=True)
+    batches = [to_device(b, device) for b in make_batches(data, n_batches, B, seed=0)]
+    params = init_model(0, cfg, device=device)
+    generation = generation_against_plain(device, "d_model 512", params, cfg, batches, wide)
+    del params
 
     # training without dropout: K1 "wide" with residuals, K2 "wide"
     tcfg_model = flagship_cfg(len(vocab), **model_kw, dropout=0.0, attn_dropout=0.0)
@@ -4810,6 +4890,81 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
     if cuda:
         torch.cuda.empty_cache()
     return {"config": model_kw, "generation": generation, "training": training}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: videos of more than 64 clips
+
+
+LONG_CLIPS = (65, 180)       # an 11-30 s video's 16-frame clips at stride 4, 24 fps
+FLAGSHIP_WIDTH = dict(d_model=128, att_h=8)
+# K1's launches a batch by kernel: t2s attends over the T clips (Lk > 64:
+# "wide"), s2t over the 16 regions ("whole" at the flagship's width)
+LONG_WIDTHS = ((FLAGSHIP_WIDTH, {"wide": 3, "whole": 3}), (REFERENCE_WIDTH, {"wide": 6}))
+# the train step at d_model 512: K2 "tiled" at t2s (Lk > 64), "wide" at s2t
+LONG_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 3, "wide": 3}}
+
+
+def phase_long_video(device, n_batches=2, B=32, clips=LONG_CLIPS, dv=DV, s=S,
+                     widths=LONG_WIDTHS, train_kw=REFERENCE_WIDTH, train_variants=LONG_TRAIN):
+    """Videos of more than 64 clips: test turns with random grids of
+    clips[0]-clips[1] clips of s x dv (zero-padded to multiples of 40, up to
+    T 200), the flagship configuration at each of `widths` (model widths,
+    K1's launches a batch by kernel), random weights from seed 0:
+
+      * beam search (phase 3's settings) on n_batches batches of B turns
+        against force_plain (`generation_against_plain`: K1 by kernel as
+        `widths` says through the wrappers and by kernel name in the
+        replays; tokens and lengths identical; responses/s and graph pools);
+      * one train step at dropout 0 at `train_kw`'s width on a batch of B
+        such turns: loss and gradients against force_plain (phase 6's
+        bounds), K1 and K2 through the wrappers by kernel as
+        `train_variants` says.
+    On the CPU every count is 0 (the plain versions).  Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.models.model import init_model
+    from bist_tpu_torch.train.loop import create_train_state
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
+    data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
+                     undisclosed_only=True)
+    batches = [to_device(b, device) for b in make_batches(data, n_batches, B, seed=2,
+                                                          clips=clips, dv=dv, s=s)]
+    out = {"clips": list(clips), "generation": {}}
+    for model_kw, per_batch in widths:
+        cfg = flagship_cfg(len(vocab), dv=dv, **model_kw)
+        params = init_model(0, cfg, device=device)
+        what = f"long videos, d_model {model_kw['d_model']}"
+        out["generation"][str(model_kw["d_model"])] = generation_against_plain(
+            device, what, params, cfg, batches, per_batch if cuda else None)
+        del params
+    del batches
+
+    cfg = flagship_cfg(len(vocab), dv=dv, **train_kw, dropout=0.0, attn_dropout=0.0)
+    train_data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
+    batch = to_device(make_batches(train_data, 1, B, seed=3, answers=True, clips=clips, dv=dv,
+                                   s=s)[0], device)
+    state, _ = create_train_state(0, cfg, TrainConfig(warmup_steps=10), device=device)
+    grad_check = grads_against_plain(device, state, cfg, TrainConfig(warmup_steps=10), batch)
+    want = train_variants if cuda else {"hop1_fwd": {}, "hop1_bwd": {}}
+    if grad_check["variants"] != want:
+        raise AssertionError(f"long videos, d_model {train_kw['d_model']} gradient check: K1, "
+                             f"K2 by kernel {grad_check['variants']}, expected {want}")
+    out["train_step"] = dict(grad_check, d_model=train_kw["d_model"], batch_size=B,
+                             clips=batch.fts.shape[1])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"long videos: {json.dumps(out)}")
+    del state, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5041,24 +5196,51 @@ def main() -> int:
     print(f"reference width on {card}: {json.dumps(ref)}", flush=True)
     lap("reference width")
 
+    long = phase_long_video(device)
+    print(f"long videos on {card}: " + "; ".join(
+        f"d_model {w} beam search {g['responses_per_s']['kernels_replayed']:.1f} responses/s "
+        f"replayed ({g['responses_per_s']['kernels_eager']:.1f} eager) against plain "
+        f"{g['responses_per_s']['plain_replayed']:.1f} ({g['responses_per_s']['plain_eager']:.1f})"
+        f" over clips {g['clips']}, tokens identical to plain on "
+        f"{g['tokens_identical_to_plain']['replayed']} rows, K1 by name "
+        f"{json.dumps(g['replayed_k1_by_name'])}, graph pool {g['graph_pool_mb']['kernels']:.1f}"
+        f" MB against plain {g['graph_pool_mb']['plain']:.1f}"
+        for w, g in long["generation"].items())
+        + f"; train step d_model {long['train_step']['d_model']} at {long['train_step']['clips']}"
+          f" clips: loss {long['train_step']['loss_rel_diff']:.2e} rel of plain, K1/K2 by kernel "
+          f"{json.dumps(long['train_step']['variants'])}; {long['seconds']:.1f} s", flush=True)
+    print(f"long videos on {card}: {json.dumps(long)}", flush=True)
+    lap("long videos")
+
     ref_k1 = gen["replayed_k1_by_name"]
     ref_k2 = trn["eager_launches"]["hop1_bwd"]
+    long_k1 = {k: sum(g["replayed_k1_by_name"][k] for g in long["generation"].values())
+               for k in K1_NONE}
+    long_k2 = long["train_step"]["variants"]["hop1_bwd"]
     wide_main = next(c for c in hop1_cases if c["case"] == "t2s D=512")
     wide_bwd = next(c for c in bwd_cases if c["case"] == "train t2s D=512")
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
-                          main_path["launches"]["hop1_fwd"] + sum(ref_k1.values()),
+                          main_path["launches"]["hop1_fwd"] + sum(ref_k1.values())
+                          + sum(long_k1.values()),
                           f"beam_search replayed (one CUDA graph a geometry), counted by "
                           f"kernel name: the flagship's {main_path['batches']} batches of "
-                          f"{main_path['batch_size']} (phase 3) and the reference width's "
-                          f"{gen['batches']} batches of {gen['batch_size']} (phase 17)"),
+                          f"{main_path['batch_size']} (phase 3), the reference width's "
+                          f"{gen['batches']} batches of {gen['batch_size']} (phase 17) and "
+                          f"the long videos' batches at d_model 128 and 512 (phase 18)"),
              variants={k: main_path["hop1_variants"].get(k, 0) + ref_k1.get(k, 0)
-                       for k in K1_NONE if main_path["hop1_variants"].get(k, 0)
-                       + ref_k1.get(k, 0)},
+                       + long_k1[k] for k in K1_NONE
+                       if main_path["hop1_variants"].get(k, 0) + ref_k1.get(k, 0) + long_k1[k]},
              launches_main_path=main_path["launches"]["hop1_fwd"],
              launches_reference_width={"beam_search_replayed": ref_k1,
                                        "train_replayed": trn["replayed_by_name"]["k1"]},
+             # K1 kernels the card ran by name in the long videos' beam-search
+             # replays (phase 18) at each width, and through the wrapper in
+             # its train step
+             launches_long_video={"beam_search_replayed": {
+                 w: g["replayed_k1_by_name"] for w, g in long["generation"].items()},
+                 "train_step": long["train_step"]["variants"]["hop1_fwd"]},
              # "wide" at the reference's width (phase 2's t2s D=512 case)
              wide={k: wide_main[k] for k in ("case", "ms", "device_ms", "plain_ms",
                                              "bound_ms", "bound_by", "tiled_ms",
@@ -5090,14 +5272,17 @@ def main() -> int:
                           "seq_ranks_beam": spr["beam_k1_wrapper"]}),
         dict(kernel_entry("hop1_bwd", "bist_tpu_torch/csrc/hop1_bwd.cu",
                           "bist_tpu/ops/bist_kernels.py:243", bwd_cases,
-                          train["launches"]["hop1_bwd"] + sum(ref_k2.values()),
+                          train["launches"]["hop1_bwd"] + sum(ref_k2.values())
+                          + sum(long_k2.values()),
                           f"eager train steps, counted through the wrapper: the "
                           f"flagship's {train['steps']} steps of {train['batch_size']} "
-                          f"(phase 6) and the reference width's {trn['steps']} steps of "
-                          f"{trn['batch_size']} (phase 17)"),
+                          f"(phase 6), the reference width's {trn['steps']} steps of "
+                          f"{trn['batch_size']} (phase 17) and the long videos' step "
+                          f"(phase 18)"),
              variants={k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
-                       for k in K2_NONE if train["hop1_bwd_variants"].get(k, 0)
-                       + ref_k2.get(k, 0)},
+                       + long_k2.get(k, 0) for k in K2_NONE
+                       if train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
+                       + long_k2.get(k, 0)},
              launches_train=train["launches"]["hop1_bwd"],
              # "wide" at the reference's width (phase 2's train t2s D=512 case,
              # the train step's shape) and each of its kernels' device ms
@@ -5109,6 +5294,8 @@ def main() -> int:
              # kernel) the card ran in 2 train replays, by name
              launches_reference_width={"eager": ref_k2,
                                        "train_replayed": trn["replayed_by_name"]["k2"]},
+             # K2 through the wrapper in the long videos' train step (phase 18)
+             launches_long_video=long_k2,
              # K2 kernels (first pass) the card ran in 3 train replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],
              launches_tgif={k: v["k2"] for k, v in tgif_runs.items()},

@@ -24,6 +24,7 @@ from bist_tpu import export as jax_export
 from bist_tpu_torch import convert, export
 from bist_tpu_torch.config import TrainConfig, save_conf
 from torch_port_common import CFG_VARIANTS, configs, variant_id
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 HERE = os.path.dirname(os.path.abspath(__file__))

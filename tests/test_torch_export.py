@@ -29,6 +29,7 @@ from bist_tpu_torch.ops import bist_kernels, flash_attention
 from bist_tpu_torch.serving import Request, Responder
 from bist_tpu_torch.vocab import EOS, PAD, SOS, SPECIALS
 from bist_tpu_torch.weights import params_from_jax
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 SCORE_TOL = 1e-4

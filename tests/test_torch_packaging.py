@@ -15,6 +15,7 @@ import pytest
 
 from bist_tpu_torch.native import loader
 from bist_tpu_torch.ops import _build
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_CLIS = ("generate", "train", "serve", "evaluate", "extract_features",

@@ -30,6 +30,7 @@ from bist_tpu_torch.parallel import (DataParallel, batch_sharding, init_multihos
                                      local_example_slice, make_mesh, replicate)
 from bist_tpu_torch.train.loop import make_grad_step, trainable
 from bist_tpu_torch.weights import params_from_jax, tree_leaves
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CPU = torch.device("cpu")

@@ -37,6 +37,7 @@ from bist_tpu_torch.train.loop import create_train_state
 from bist_tpu_torch.vocab import SPECIALS
 from bist_tpu_torch.weights import load_params, params_from_jax, params_to_jax, save_params
 from torch_port_common import zoo_state_dict
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)
@@ -44,15 +45,6 @@ WORDS = "a the man is walking sitting what doing he yes no couch dog cat room"
 SERVE_MODEL = dict(nb_blocks=1, nb_venc_blocks=1, nb_cenc_blocks=1, d_model=16, att_h=2,
                    dropout=0.0, include_caption="summary", separate_caption=True,
                    ft_sizes=(8,))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads (the suite runs several test processes at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_vocab():

@@ -11,6 +11,7 @@ from bist_tpu.decode.beam import beam_search as jax_beam_search
 from bist_tpu_torch.config import GenerateConfig
 from bist_tpu_torch.decode.beam import NEG, beam_search, extract_hyps, stable_topk
 from torch_port_common import both_params, configs, np_batch, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 
 def test_stable_topk_prefers_lower_index_on_ties():

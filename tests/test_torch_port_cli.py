@@ -17,6 +17,7 @@ from bist_tpu.config import load_conf as jax_load_conf
 from bist_tpu_torch.cli import generate
 from bist_tpu_torch.config import load_conf
 from bist_tpu_torch.weights import load_params
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)

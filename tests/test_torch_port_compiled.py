@@ -18,6 +18,7 @@ from bist_tpu_torch.data.batching import Batch
 from bist_tpu_torch.decode import beam, sample
 from bist_tpu_torch.decode.compiled import DecodeProgram, describe
 from torch_port_common import both_params, configs, np_batch, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 SCORE_TOL = 1e-4
 

@@ -100,6 +100,13 @@ def test_hop1_kernel_matches_plain(cuda, B, G, Lq, Lk, D, h):
     ("wide", 2, 5, 12, 64, 512, 16, True, False),      # Lk 64, heads 32 wide
     ("wide", 2, 7, 33, 9, 512, 64, False, False),      # two query chunks, heads 8 wide
     ("wide", 3, 3, 17, 1, 256, 16, False, True),       # one kv row, heads 16 wide
+    # past 64 kv rows "wide" streams K and V in kv tiles, at D 128 too
+    ("wide", 2, 16, 32, 200, 128, 8, True, False),     # flagship t2s over 200 clips
+    ("wide", 2, 8, 32, 600, 512, 8, False, False),     # many kv tiles
+    ("wide", 2, 16, 32, 65, 256, 4, True, False),      # one row into a last kv tile
+    ("wide", 2, 16, 5, 130, 128, 8, True, True),       # one query tile, a bfloat16 grid
+    ("wide", 2, 5, 33, 100, 256, 32, True, False),     # d_k 8, two query chunks
+    ("wide", 2, 4, 40, 70, 128, 2, False, False),      # D 128, heads 64 wide
 ])
 def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
     """K1's three kernels at the main path's widths and around them, in the
@@ -130,8 +137,10 @@ def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, b
 def test_hop1_forced_variants_agree(cuda):
     """The measurement path (`_hop1_fused_as`): "tiled" takes the flagship
     widths and D 512 too and agrees with "whole" and "wide" (with and
-    without residuals); "whole" and "wide" refuse widths they do not take;
-    each counts its launches by kernel."""
+    without residuals, "wide" past 64 kv rows too); "whole" and "wide"
+    refuse widths they do not take (past 64 kv rows, Lk 40 at D 128, a
+    misaligned grid, D 64 past 64 kv rows); each counts its launches by
+    kernel."""
     rng = np.random.default_rng(8)
     p = {n: {k: t.to(cuda) for k, t in w.items()}
          for n, w in mha_init(torch.Generator().manual_seed(3), 8, 128).items()}
@@ -160,10 +169,45 @@ def test_hop1_forced_variants_agree(cuda):
         for a, b, n in zip(got if res else [got], want if res else [want],
                            ("out", "concat", "lse")):
             close(a, b, f"tiled vs wide {n}")
+    # past 64 kv rows (kv tiles): the same
+    kv = tensor(rng, (2, 70, 4, 512), cuda).transpose(1, 2)
+    mask = prefix_mask(rng, 2, 70, cuda)[:, None, :].contiguous()
+    for res in (False, True):
+        got = K1._hop1_fused_as("tiled", x, q, kv, p, 8, mask, res)
+        want = K1._hop1_fused_as("wide", x, q, kv, p, 8, mask, res)
+        for a, b, n in zip(got if res else [got], want if res else [want],
+                           ("out", "concat", "lse")):
+            close(a, b, f"tiled vs wide at Lk 70 {n}")
     for v in ("tiled", "wide"):
-        assert K1.hop1_fused.variants[v] == before.get(v, 0) + 2
+        assert K1.hop1_fused.variants[v] == before.get(v, 0) + 4
+    odd = tensor(rng, (2 * 4 * 70 * 512 + 1,), cuda)[1:].view(2, 4, 70, 512)
     with pytest.raises(RuntimeError, match="launch failed"):
-        K1._hop1_fused_as("wide", x, q, tensor(rng, (2, 4, 70, 512), cuda), p, 8)
+        K1._hop1_fused_as("wide", x, q, odd, p, 8)
+    p = {n: {k: t.to(cuda) for k, t in w.items()}
+         for n, w in mha_init(torch.Generator().manual_seed(3), 4, 64).items()}
+    x, q = tensor(rng, (2, 32, 64), cuda), tensor(rng, (2, 32, 64), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):         # D 64: "tiled" only
+        K1._hop1_fused_as("wide", x, q, tensor(rng, (2, 4, 70, 64), cuda), p, 4)
+
+
+@pytest.mark.cuda
+def test_hop1_variant_past_64_kv_rows(cuda):
+    """K1's rule past 64 kv rows (a video of more than 64 clips at t2s):
+    "wide" at D 128, 256 and 512 for aligned grids with d_k a multiple of 8
+    up to 64, "tiled" at D 64 and 1024 and for a misaligned grid; "whole" and
+    "wide" at Lk <= 64 as before.  K2 stays "tiled" past 64 kv rows."""
+    for D in (128, 256, 512):
+        for h in (D // 64, 8, D // 8):
+            for Lk in (65, 200, 600):
+                for Lq in (5, 32):
+                    assert K1.hop1_variant(Lq, Lk, D, h) == "wide", (Lq, Lk, D, h)
+                    assert K1.hop1_bwd_variant(Lq, Lk, D, h) == "tiled", (Lq, Lk, D, h)
+            assert K1.hop1_variant(32, 200, D, h, kv_vec=False) == "tiled"
+        for Lk in (1, 40, 64):
+            assert K1.hop1_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
+            assert K1.hop1_bwd_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
+    for D, h in ((64, 4), (1024, 8), (520, 8), (120, 8)):
+        assert K1.hop1_variant(32, 200, D, h) == "tiled", (D, h)
 
 
 @pytest.mark.cuda
@@ -387,12 +431,17 @@ def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):
     (2, 4, 5, 7, 32, 2, True), (2, 3, 33, 130, 128, 8, False),
     (2, 2, 8, 75, 512, 8, True), (4, 16, 32, 40, 128, 8, False),
     (2, 16, 32, 40, 512, 8, True), (3, 5, 12, 33, 256, 4, False),   # K1 "wide"
+    (2, 16, 32, 200, 512, 8, True), (2, 16, 32, 200, 128, 8, False),  # kv tiles
 ])
 def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_row):
     """K1's residuals and K2's six gradients against their plain versions:
     float32 and a bfloat16 grid, kv a strided view, a fully masked row; K2
     also on K1's own residuals (at D 256/512 with Lk <= 64 "wide"'s, which
-    K2 "wide" reads)."""
+    K2 "wide" reads; past 64 kv rows at D 128-512 "wide"'s over kv tiles,
+    which K2 "tiled" reads)."""
+    if Lk > 64 and D in (128, 512):
+        assert (K1.hop1_variant(Lq, Lk, D, h), K1.hop1_bwd_variant(Lq, Lk, D, h)) == \
+            ("wide", "tiled")
     rng = np.random.default_rng(5)
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda,
                                                  full_row)
@@ -807,6 +856,41 @@ def test_k1_runs_inside_replays(cuda):
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.device_type() == DeviceType.CUDA]
     assert sum("hop1_fwd_whole_kernel" in n for n in names) == 12, names[:40]
+    assert not any("hop1_fwd_tiles_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_long_video_replays_equal_eager(cuda):
+    """Videos of 200 clips: beam search replayed from one graph on two
+    alternating batches equals the eager function on each, and the trace of
+    2 replays shows K1 "wide"'s kv-tile attention kernel 2 a replay (t2s
+    over the clips, 2 layers) beside "whole" 2 (s2t over the regions), no
+    "tiled"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bist_tpu_torch.config import GenerateConfig
+    from bist_tpu_torch.decode.beam import beam_search
+    from bist_tpu_torch.decode.compiled import DecodeProgram
+
+    _, cfg, params = small_model(cuda)
+    rng = np.random.default_rng(6)
+    batches = [host_batch(rng, T=200), host_batch(rng, T=200)]
+    g = GenerateConfig(maxlen=5, beam=3, nbest=2)
+    prog = DecodeProgram(params, cfg, g)
+    for i in (0, 1, 0, 1):
+        got = prog(batches[i])
+        torch.cuda.synchronize()
+        assert same(got, beam_search(params, cfg, to_device(batches[i], cuda), g)), i
+    assert prog.stats()["captures"] == 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in (0, 1):
+            prog(batches[i])
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("hop1_fwd_wide_attn_tiles_kernel" in n for n in names) == 4, names[:40]
+    assert sum("hop1_fwd_whole_kernel" in n for n in names) == 4
     assert not any("hop1_fwd_tiles_kernel" in n for n in names)
 
 

@@ -21,6 +21,7 @@ from bist_tpu_torch.data.batching import Batch
 from bist_tpu_torch.decode import beam, sample
 from bist_tpu_torch.vocab import PAD, SOS, UNK, ids2words
 from torch_port_common import both_params, configs, np_batch, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 SCORE_TOL = 5e-4
 

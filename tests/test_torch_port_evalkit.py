@@ -15,6 +15,7 @@ from bist_tpu.evalkit import harness as jax_harness
 from bist_tpu.evalkit import meteor as jax_meteor
 from bist_tpu_torch.cli import evaluate, repo_root
 from bist_tpu_torch.evalkit import harness, meteor
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "dstc7avsd_eval")

@@ -24,21 +24,11 @@ from bist_tpu_torch.cli.generate_result_video import (annotate_frames, main as v
                                                       unit_labels, write_video)
 from bist_tpu_torch.models import backbones3d as zoo
 from torch_port_common import zoo_state_dict
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_TOL = 1e-5
 VIDEOS = {"a": 8, "b": 12, "c": 40}          # 1, 2 and 5 clips at stride 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads: the suite runs several test processes on the
-    CPU at once, and torch's default of a thread a core makes them thrash
-    (a 1-second ResNeXt-50 CLI run took 15 s so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

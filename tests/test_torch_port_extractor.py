@@ -26,22 +26,12 @@ from bist_tpu_torch.models import backbones3d as zoo
 from bist_tpu_torch.models import resnext3d as rx
 from bist_tpu_torch.weights import params_from_jax, params_to_jax
 from torch_port_common import zoo_state_dict
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 F32_TOL = 1e-5
 BF16_STEP = 2.0 ** -8
 MODES = ("spatio_temporal", "temporal_only", "features", "score")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads: the suite runs several test processes on the
-    CPU at once, and torch's default of a thread a core makes them thrash
-    (a 1-second ResNeXt-50 CLI run took 15 s so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def np_tree(tree):

@@ -19,6 +19,7 @@ from bist_tpu_torch.ops import bist_kernels as K1
 from bist_tpu_torch.ops import flash_attention as K3
 from bist_tpu_torch.weights import params_from_jax
 from torch_port_common import CPU, assert_close
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TOL = 2e-4
 
@@ -58,6 +59,12 @@ def j(a):
     (1, 2, 5, 7, 256, 4),
     (1, 2, 5, 7, 512, 8),      # bist_tpu's default d_model and heads
     (1, 2, 5, 7, 512, 16),
+    # past 64 kv rows (t2s over a video of more than 64 clips), where K1
+    # "wide" streams K and V in tiles of 16 rows: at the reference's width,
+    # one row into a last kv tile, and D 64
+    (1, 2, 5, 130, 512, 8),
+    (1, 2, 5, 65, 256, 4),
+    (1, 2, 5, 130, 64, 4),
 ])
 def test_hop1_plain_matches_jax(B, G, Lq, Lk, D, h, masked, rng):
     p, tp, x, q_proj, kv, mask = hop1_inputs(rng, B, G, Lq, Lk, D, h, masked)
@@ -80,6 +87,33 @@ def test_hop1_fully_masked_row_is_uniform_over_true_lk(rng):
                  TOL, "fully masked row vs hop1_reference")
     pallas = bist_hop1_fused(j(x), j(q_proj), j(kv), p, 4, j(mask), interpret=True)
     assert_close(plain[1], np.asarray(pallas)[1], TOL, "valid row vs Pallas")
+
+
+def test_hop1_residuals_past_64_kv_rows_match_pallas(rng):
+    """K1's training residuals at Lk 130, D 512 (the residuals K1 "wide"
+    writes after its last kv tile and K2 "tiled" reads): concat and lse of
+    the valid batch row against the Pallas kernel's (interpret mode; Lq
+    padded to 8 there); the fully masked row, which the Pallas kernel
+    spreads over its padding columns too, against its uniform attention over
+    the true Lk: concat the mean of V's rows, lse -1e9 (+ log Lk, below
+    float32's step there)."""
+    B, G, Lq, Lk, D, h = 2, 2, 5, 130, 512, 8
+    p, tp, x, q_proj, kv, mask = hop1_inputs(rng, B, G, Lq, Lk, D, h)
+    mask[0] = 0
+    out, concat, lse = K1.hop1_plain(t(x), t(q_proj), t(kv), tp, h, t(mask),
+                                     return_residuals=True)
+    assert concat.shape == (B, G, Lq, D) and lse.shape == (B, G, Lq, h)
+    assert_close(out, hop1_reference(j(x), j(q_proj), j(kv), p, h, j(mask)), TOL,
+                 "out vs hop1_reference")
+    jout, jconcat, jlse = bist_hop1_fused(j(x), j(q_proj), j(kv), p, h, j(mask),
+                                          return_residuals=True, interpret=True)
+    assert_close(out[1], np.asarray(jout)[1], TOL, "valid row: out vs Pallas")
+    assert_close(concat[1], np.asarray(jconcat)[1, :, :Lq], TOL, "valid row: concat vs Pallas")
+    assert_close(lse[1], np.asarray(jlse)[1, :, :Lq], TOL, "valid row: lse vs Pallas")
+    v = t(kv)[0] @ tp["wv"]["w"] + tp["wv"]["b"]                      # (G, Lk, D)
+    assert_close(concat[0], v.mean(1, keepdim=True).expand(G, Lq, D), TOL,
+                 "masked row: concat vs the mean of V")
+    assert torch.equal(lse[0], torch.full((G, Lq, h), -1e9))
 
 
 def test_hop1_wrapper_on_cpu_runs_plain_version(rng):

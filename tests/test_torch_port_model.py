@@ -22,6 +22,7 @@ from torch_port_common import (
     CFG_VARIANTS, CPU, assert_close, both_params, configs, np_batch,
     torch_batch, variant_id,
 )
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TOL = 5e-4
 

@@ -22,6 +22,7 @@ from bist_tpu_torch.data.loader import AVSDLoader
 from bist_tpu_torch.native import loader as native
 from bist_tpu_torch.ops._build import BUILD_DIR
 from bist_tpu_torch.vocab import get_vocabulary
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TAILS = {"tsd": (4, 8), "td": (8,)}
 

@@ -37,6 +37,7 @@ from bist_tpu_torch.models import layers
 from bist_tpu_torch.models import model as torch_model
 from bist_tpu_torch.vocab import SOS
 from torch_port_common import both_params, configs, np_batch, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 # |port - JAX| on log-probabilities, relative to max(|lp|, 1): four
 # bfloat16 spacings

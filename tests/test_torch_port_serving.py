@@ -30,6 +30,7 @@ from bist_tpu_torch.models.model import init_model
 from bist_tpu_torch.serving import DynamicBatcher, Request, Responder
 from bist_tpu_torch.vocab import EOS, SOS, SPECIALS, ids2words, make_id2word
 from bist_tpu_torch.weights import params_from_jax
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 WORDS = "a the man is walking sitting what doing he yes no couch dog cat room"
 MODEL = dict(nb_blocks=1, nb_venc_blocks=1, nb_cenc_blocks=1, d_model=16, att_h=2,

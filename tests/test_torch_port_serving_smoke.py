@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 from bist_tpu_torch.cli import serve
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)

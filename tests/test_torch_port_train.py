@@ -38,6 +38,7 @@ from bist_tpu_torch.train.schedule import make_optimizer, noam_schedule
 from bist_tpu_torch.vocab import get_vocabulary
 from bist_tpu_torch.weights import tree_leaves
 from torch_port_common import both_params, configs, np_batch, to_np, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 LOSS_KEYS = ("out", "temporal_ae", "spatial_ae")
 STEPS = 5

@@ -13,6 +13,7 @@ import chip_smoke
 from bist_tpu.config import load_conf as jax_load_conf
 from bist_tpu_torch.cli import train
 from bist_tpu_torch.weights import load_params
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)
 

@@ -16,6 +16,7 @@ from bist_tpu_torch.train.compiled import EvalProgram, TrainProgram
 from bist_tpu_torch.train.schedule import make_optimizer
 from bist_tpu_torch.weights import tree_leaves
 from torch_port_common import both_params, configs, np_batch, torch_batch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TCFG = TrainConfig(warmup_steps=10)
 

@@ -15,6 +15,7 @@ from bist_tpu.ops import bist_kernels as jk
 from bist_tpu_torch.ops import bist_kernels as K
 from bist_tpu_torch.weights import params_from_jax
 from torch_port_common import CPU, assert_close
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TOL = 2e-4
 GRAD_TOL = 5e-4

@@ -9,6 +9,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 
 def test_chip_smoke_phase_reference_width_on_cpu():

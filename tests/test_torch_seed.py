@@ -8,6 +8,7 @@ import torch
 
 from bist_tpu_torch.models.layers import dropout
 from bist_tpu_torch.train.loop import seed_for_step
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 
 def mask(seed: int, step: int, rank: int = 0) -> torch.Tensor:

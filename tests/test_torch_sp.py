@@ -45,6 +45,7 @@ from bist_tpu_torch.parallel import sp
 from bist_tpu_torch.train.loop import dropout_generator, make_grad_step, seed_for_step, trainable
 from bist_tpu_torch.vocab import PAD
 from bist_tpu_torch.weights import params_from_jax, tree_leaves
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CPU = torch.device("cpu")

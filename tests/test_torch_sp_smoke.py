@@ -5,6 +5,7 @@ one step against one process."""
 
 import numpy as np
 import torch
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 TINY = dict(d_model=32, att_h=4, nb_blocks=2, nb_venc_blocks=2, nb_cenc_blocks=2)
 

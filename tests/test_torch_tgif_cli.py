@@ -25,6 +25,7 @@ import torch
 from bist_tpu_torch.cli import train_tgif
 from bist_tpu_torch.tasks import tgifqa as P
 from bist_tpu_torch.train.checkpoint import load_checkpoint
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 WORDS = ("what color is the cat dog doing how many times does man jump red blue "
          "two three before after run").split()
@@ -58,14 +59,6 @@ def write_data(root, task, same_length=False, seed=0):
         paths[split].write_text("\n".join(lines) + "\n")
     return ["--task", task, "--train-tsv", str(paths["train"]), "--test-tsv",
             str(paths["test"]), "--feature-path", str(root / "feats")]
-
-
-@pytest.fixture(autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("task", TASKS)

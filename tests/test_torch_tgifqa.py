@@ -24,6 +24,7 @@ from bist_tpu_torch.tasks import tgifqa as P
 from bist_tpu_torch.train.compiled import StepProgram
 from bist_tpu_torch.weights import params_from_jax, params_to_jax, tree_leaves
 from chip_smoke import mc_heldout_batches
+from torch_threads import two_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TINY = dict(vocab_size=40, nb_blocks=2, nb_venc_blocks=2, d_model=16, att_h=2,
@@ -32,16 +33,6 @@ TASKS = ["frameqa", "count", "action", "transition"]
 MC = ("action", "transition")
 # parameters that shift a multiple-choice row's 5 scores by one constant
 MC_SHIFTS = ("head.b", "out_norm_t.bias", "out_norm_s.bias")
-
-
-@pytest.fixture(autouse=True)
-def few_threads():
-    """torch's default of a thread a core thrashes beside the suite's other
-    workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_cfgs(**kw):
