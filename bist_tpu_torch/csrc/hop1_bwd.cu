@@ -94,9 +94,10 @@
 // tile, [dk | dv]) split once a block.  The next step is more warps an SM
 // (ROADMAP).
 //
-// "wide", for hop1_fwd.cu's "wide" domain (D 256 or 512, d_k a multiple of
-// 8 up to 64, Lk <= 64, aligned kv rows; bist_tpu's default d_model 512
-// with 8 heads), reading "wide"'s residuals.  "whole"'s one block a group
+// "wide", for hop1_fwd.cu's "wide" domain (D 256 or 512 at any Lk, D 128
+// past 64 kv rows, d_k a multiple of 8 up to 64, aligned kv rows;
+// bist_tpu's default d_model 512 with 8 heads, and t2s over a video of more
+// than 64 clips), reading "wide"'s residuals.  "whole"'s one block a group
 // cannot hold a group there (at D 512 its K, V, dK and dV are 320 KB at Lk
 // 40), and "tiled" recomputes K/V from 2 MB of weights in every (b, g)
 // block on the FMA units.  Three quarters of the work are the three D x D
@@ -106,14 +107,20 @@
 // added to a float32 total: mma_step).  On the caller's stream:
 //   1. hop1_bwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] into
 //      the workspace (M x 2D), kv read through its strides (K1's stage 1);
-//   2. hop1_bwd_wide_attn_kernel: one block of 8 warps a (b, g, 128
-//      columns), all of Lq in chunks of 32 rows; one warp a (head, 16 kv
-//      rows) task computes sᵀ, dpᵀ, pᵀ and dsᵀ with kv rows in the MMA's
+//   2. hop1_bwd_wide_attn_kernel: one block of 8 warps a (b, g, kv slice,
+//      128 columns), all of Lq in chunks of 32 rows.  A slice is at most 64
+//      of the group's kv rows (4 tiles of 16, the tiles spread evenly over
+//      ceil(tiles / 4) slices: one slice up to 64 rows), since a block holds
+//      at most 4 tiles' K, V and dq shares (189 KB); dK and dV of a slice's
+//      rows need only the slice and all of Lq, so the slices' blocks share
+//      nothing but the query rows they read.  One warp a (head, 16 kv rows)
+//      task computes sᵀ, dpᵀ, pᵀ and dsᵀ with kv rows in the MMA's
 //      rows, so that dV = pᵀ d_concat and dK = dsᵀ q take the D fragments
 //      as A fragments and stay in registers, written over [K | V] in place
 //      (the block has read its K and V columns first); dq's share of each
 //      kv tile goes through a staging tile of dsᵀ, and the tiles' shares
-//      are summed in order into dq's partial per (b, g);
+//      are summed in order into dq's partial per (b, g, slice), which
+//      sum_middle adds over g and the slices in a fixed order;
 //   3. hop1_bwd_wide_dkv_kernel: dkv = [dK | dV] [Wkᵀ ; Wvᵀ], one GEMM
 //      with a 2D-deep contraction, in kv's dtype;
 //   4. hop1_bwd_wide_dw_kernel: [dWk | dWv] = kvᵀ [dK | dV] (D x 2D), kvᵀ
@@ -1444,9 +1451,10 @@ hop1_bwd_dw_whole_kernel(const TKV* __restrict__ kv, long long kv_sb, long long 
 }
 
 // ---------------------------------------------------------------------------
-// "wide": D 256 or 512 in four kernels and the fixed-order sums, the three
-// D x D products as GEMMs over every kv row of the launch (hop1_gemm.cuh in
-// K2's setting: splits rounded to nearest, chains of one k-step).
+// "wide": D 256 or 512, and D 128 past 64 kv rows, in four kernels and the
+// fixed-order sums, the three D x D products as GEMMs over every kv row of
+// the launch (hop1_gemm.cuh in K2's setting: splits rounded to nearest,
+// chains of one k-step).
 
 constexpr int kWideBwdThreads = 256;   // an attention-backward block: 8 warps
 constexpr int kWideQc = 32;            // query rows a chunk of it
@@ -1463,14 +1471,40 @@ hop1_bwd_wide_proj_kernel(const TKV* __restrict__ kv, long long kv_sb, long long
   wide_proj<TKV, true>(kv, kv_sb, kv_sg, kv_st, wk, bk, wv, bv, kvp, G, Lk, D, M);
 }
 
-// Floats of an attention-backward block's shared memory at Lk kv rows (mt =
-// ceil(Lk / 16) tiles of 16): K and V (16·mt x ld each), the query chunk's
-// q and d_concat (kWideQc x ld each), the dq partials of the mt kv tiles
-// (mt x kWideQc x ld) and each warp's 16-row staging tile of dsᵀ.
-__host__ __device__ inline int wide_bwd_attn_floats(int Lk) {
-  const int mt = (Lk + 15) / 16;
+// A group's kv rows are cut into slices of at most kWideSliceTiles 16-row
+// tiles (64 rows), one attention-backward block each: S = ceil(tiles /
+// kWideSliceTiles) slices, the tiles spread evenly (13 tiles: 4 + 3 + 3 +
+// 3).  Up to 64 kv rows S = 1, the whole group in one block.  The slice
+// size is K2's own, set by the block's shared memory (wide_bwd_attn_floats,
+// checked below), not by K1's kWideMaxLk.
+constexpr int kWideSliceTiles = 4;
+
+__host__ __device__ inline int wide_slices(int Lk) {
+  return ((Lk + 15) / 16 + kWideSliceTiles - 1) / kWideSliceTiles;
+}
+
+// The first 16-row tile of slice s of a group (s = wide_slices(Lk): the
+// tile past the last).
+__host__ __device__ inline int wide_slice_tile(int Lk, int s) {
+  const int mt = (Lk + 15) / 16, S = wide_slices(Lk), extra = mt % S;
+  return s * (mt / S) + (s < extra ? s : extra);
+}
+
+// Floats of an attention-backward block's shared memory for a slice of mt
+// 16-row tiles: K and V (16·mt x ld each), the query chunk's q and
+// d_concat (kWideQc x ld each), the dq partials of the mt kv tiles (mt x
+// kWideQc x ld) and each warp's 16-row staging tile of dsᵀ.
+__host__ __device__ constexpr int wide_bwd_attn_slice_floats(int mt) {
   return (2 * 16 * mt + 2 * kWideQc + mt * kWideQc) * (kWideCols + 4) +
          kWideBwdThreads / 32 * 16 * (kWideQc + 8);
+}
+static_assert(wide_bwd_attn_slice_floats(kWideSliceTiles) * sizeof(float) <= kSmemLimit,
+              "a full slice of K2 \"wide\"'s attention backward exceeds a block's shared memory");
+
+// The same at Lk kv rows: its largest slice, ceil(tiles / S) tiles.
+__host__ __device__ inline int wide_bwd_attn_floats(int Lk) {
+  const int S = wide_slices(Lk);
+  return wide_bwd_attn_slice_floats(((Lk + 15) / 16 + S - 1) / S);
 }
 
 // o = (the 16 x kWideQc tile a, as D fragments: kv rows x query rows) times
@@ -1497,7 +1531,8 @@ __device__ __forceinline__ void tile_t_times(const float (&a)[kNQ][4], const flo
 
 // A task's kv rows of dK or dV (o: kv rows t0, t0 + 8 x the head's columns
 // from `out`, row stride 2D): stored at the first query chunk, added to the
-// stored value at later ones; rows at or past Lk are the next group's.
+// stored value at later ones; rows at or past Lk are the next group's
+// (`inside` false).
 template <int kDk8>
 __device__ __forceinline__ void store_rows(float* out, int D, int t0, const bool (&inside)[2],
                                            bool add, const float (&o)[kDk8][4]) {
@@ -1518,11 +1553,12 @@ __device__ __forceinline__ void store_rows(float* out, int D, int t0, const bool
   }
 }
 
-// Stage 2: the attention backward of one (b, g) and kWideCols columns (hg =
-// kWideCols / d_k heads), all of Lq in chunks of kWideQc query rows.  K and V
-// come from the workspace (rows past Lk zeroed to the next 16).  One warp a
-// (head, 16-row kv tile m) task computes the transposed products, kv rows
-// in the MMA's rows and query rows in its columns:
+// Stage 2: the attention backward of one (b, g), one slice of its kv rows
+// (wide_slices: all of them up to 64) and kWideCols columns (hg = kWideCols
+// / d_k heads), all of Lq in chunks of kWideQc query rows.  The slice's K
+// and V come from the workspace (rows past Lk zeroed to the next 16).  One
+// warp a (head, 16-row kv tile m of the slice) task computes the transposed
+// products, kv rows in the MMA's rows and query rows in its columns:
 //   sᵀ = K_m qᵀ and dpᵀ = V_m d_concatᵀ (every product of the kernel a
 //   3xTF32 chain of one k-step: mma_step);
 //   pᵀ and dsᵀ in registers (the mask as the flags of the thread's two kv
@@ -1532,9 +1568,12 @@ __device__ __forceinline__ void store_rows(float* out, int D, int t0, const bool
 //   shared memory before any write; a later chunk adds to them);
 //   dq's share of the tile, ds K_m, with dsᵀ through the warp's staging tile
 //   as the transposed A operand, into the block's partial of tile m.
-// Then the tiles' partials are summed in order into the (b, g) partial of
-// dq.  No two tasks write one element: no atomics.  The semantics of
-// autograd through hop1_plain, as bwd_task's.  kDk8 = d_k / 8.
+// Then the tiles' partials are summed in order into the (b, g, slice)
+// partial of dq.  dK and dV of a slice's rows need only that slice and all
+// of Lq, and slices are disjoint: no two tasks or blocks write one element,
+// no atomics.  The mask row, p = 1/Lk of a fully masked batch row, lse and
+// Dh are the group's whole ones.  The semantics of autograd through
+// hop1_plain, as bwd_task's.  kDk8 = d_k / 8.
 template <int kDk8>
 __global__ void __launch_bounds__(kWideBwdThreads, 1)
 hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __restrict__ mask,
@@ -1548,7 +1587,11 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
   constexpr int kMQ = kWideQc / 16;      // 16-row query tiles of dq
   constexpr int kWarpsB = kWideBwdThreads / 32;
   extern __shared__ float4 smem4[];
-  const int mt = (Lk + 15) / 16, rows = 16 * mt;
+  const int S = wide_slices(Lk);
+  const int bg = blockIdx.x / S, sl = blockIdx.x % S, b = bg / G, cg = blockIdx.y * kWideCols;
+  const int m0 = wide_slice_tile(Lk, sl), mt = wide_slice_tile(Lk, sl + 1) - m0;
+  const int t_base = 16 * m0, rows = 16 * mt;
+  const int nk = min(Lk - t_base, rows);   // the slice's kv rows
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int fg = lane / 4, ft = lane % 4;
   float* k_s = reinterpret_cast<float*>(smem4);
@@ -1557,10 +1600,10 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
   float* c_s = q_s + kWideQc * ld;
   float* dq_s = c_s + kWideQc * ld;
   float* st_s = dq_s + mt * kWideQc * ld + warp * 16 * ldst;
-  const int bg = blockIdx.x, b = bg / G, cg = blockIdx.y * kWideCols;
-  float* kb = kvp + (size_t)bg * Lk * 2 * D + cg;   // K's columns; V's at + D
-  issue_rows<kWideCols, kWideBwdThreads>(k_s, ld, kb, 2 * D, Lk, rows);
-  issue_rows<kWideCols, kWideBwdThreads>(v_s, ld, kb + D, 2 * D, Lk, rows);
+  // the slice's rows of K's columns; V's at + D
+  float* kb = kvp + ((size_t)bg * Lk + t_base) * 2 * D + cg;
+  issue_rows<kWideCols, kWideBwdThreads>(k_s, ld, kb, 2 * D, nk, rows);
+  issue_rows<kWideCols, kWideBwdThreads>(v_s, ld, kb + D, 2 * D, nk, rows);
   cp_async_commit();
   const int* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * Lk;
   int any_valid = mask_b == nullptr;
@@ -1607,13 +1650,13 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
       // pᵀ = exp(s·scale - lse) and dsᵀ = pᵀ (dpᵀ - Dh) scale, both 0 past
       // Lk, past the chunk's rows and at masked kv rows; a fully masked
       // batch row attends uniformly (p = 1/Lk) and gets ds = 0
-      const int t0 = m * 16 + fg;
+      const int t0 = m * 16 + fg;   // the slice's row; the group's t_base + t0
       bool inside[2], valid[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int t = t0 + 8 * r;
-        inside[r] = t < Lk;
-        valid[r] = inside[r] && (mask_b == nullptr || mask_b[t] != 0);
+        inside[r] = t < nk;
+        valid[r] = inside[r] && (mask_b == nullptr || mask_b[t_base + t] != 0);
       }
 #pragma unroll
       for (int n = 0; n < kNQ; ++n)
@@ -1687,8 +1730,10 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
         }
     }
     __syncthreads();
-    // the chunk's rows of the (b, g) partial of dq: the kv tiles' in order
+    // the chunk's rows of the (b, g, slice) partial of dq: the kv tiles' in
+    // order
     constexpr int n4 = kWideCols / 4;
+    float* dq_o = dq_part + ((size_t)blockIdx.x * Lq + q0) * D + cg;
     for (int i = tid; i < nq * n4; i += kWideBwdThreads) {
       const int r = i / n4, e = i % n4 * 4;
       float4 a = *reinterpret_cast<const float4*>(dq_s + r * ld + e);
@@ -1696,7 +1741,7 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
         const float4 v = *reinterpret_cast<const float4*>(dq_s + (m * kWideQc + r) * ld + e);
         a = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
       }
-      *reinterpret_cast<float4*>(dq_part + ((size_t)bg * Lq + q0 + r) * D + cg + e) = a;
+      *reinterpret_cast<float4*>(dq_o + (size_t)r * D + e) = a;
     }
   }
 }
@@ -1826,10 +1871,11 @@ const void* wide_bwd_attn_kernel(int dk) {
 }
 
 // Floats of "wide"'s workspace: [K | V], overwritten in place by [dK | dV]
-// (M x 2D), dq's partial per (b, g) (B·G·Lq x D) and the dW partials.
+// (M x 2D), dq's partial per (b, g, kv slice) (B·G·S·Lq x D) and the dW
+// partials.
 long long wide_workspace_floats(int B, int G, int Lq, int Lk, int D) {
   const int M = B * G * Lk;
-  return (long long)M * 2 * D + (long long)B * G * Lq * D +
+  return (long long)M * 2 * D + (long long)B * G * wide_slices(Lk) * Lq * D +
          (long long)wide_dw_chunks(M) * (2LL * D * D + 2LL * D);
 }
 
@@ -1885,20 +1931,22 @@ int dw_whole_chunks(int nrows, int D) {
 // whether kv's rows are aligned 4-element vectors (kv_vec: "whole" and
 // "wide" copy them in 16-byte and 8-byte pieces) alone, never from an
 // error: "whole" has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a
-// multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide" D 256
-// or 512 with d_k a multiple of 8 up to 64, Lk <= kWideMaxLk and aligned
-// rows (hop1_fwd.cu's "wide" also takes longer kv and D 128 past 64 kv
-// rows: those launches come here to "tiled"); "tiled" every other width it
-// plans.  Every variant reads every forward's residuals: one layout,
-// concat (B, G, Lq, D) and lse (B, G, Lq, h), a fully masked row's lse
-// -1e9 (its -1e9 + log Lk in float32).
+// multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide"
+// hop1_fwd.cu's "wide" domain (D 256 or 512 at any Lk and D 128 past
+// kWideMaxLk kv rows, d_k a multiple of 8 up to 64, aligned rows; past
+// 4 16-row tiles a group's kv rows split over blocks, wide_slices);
+// "tiled" every other width it plans (D 64 past 64 kv rows, D 1024,
+// misaligned grids, the padded head widths).  Every variant reads every
+// forward's residuals: one layout, concat (B, G, Lq, D) and lse (B, G, Lq,
+// h), a fully masked row's lse -1e9 (its -1e9 + log Lk in float32).
 int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
   if (kv_vec && (D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 && Lk <= kWholeMaxLk &&
       bwd_whole_smem(Lq, Lk, D, h, bwd_groups(2, Lk), 4) <= kSmemLimit)
     return kVariantWhole;
-  if (kv_vec && (D == 256 || D == 512) && dk % 8 == 0 && dk <= 64 && Lk <= kWideMaxLk)
+  if (kv_vec && dk % 8 == 0 && dk <= 64 &&
+      (D == 256 || D == 512 || (D == 128 && Lk > kWideMaxLk)))
     return kVariantWide;
   int qc, tk, hg;
   size_t smem;
@@ -2014,16 +2062,16 @@ int launch_wide(const float* q, const TKV* kv, long long kv_sb, long long kv_sg,
     const int rc = set_smem(fn[i], smem[i]);
     if (rc != 0) return rc;
   }
-  const int M = B * G * Lk, mtiles = (M + kGM - 1) / kGM;
+  const int M = B * G * Lk, mtiles = (M + kGM - 1) / kGM, S = wide_slices(Lk);
   float* kvp = ws;
   float* dq_part = kvp + (size_t)M * 2 * D;
-  float* part = dq_part + (size_t)B * G * Lq * D;
+  float* part = dq_part + (size_t)B * G * S * Lq * D;
   hop1_bwd_wide_proj_kernel<TKV><<<(2 * D / kGN) * mtiles, kWideThreads, smem[0], stream>>>(
       kv, kv_sb, kv_sg, kv_st, wk, bk, wv, bv, kvp, G, Lk, D, M);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   void* attn_args[] = {&q, &kvp, &mask, &dcc, &dh, &lse, &dq_part, &G, &Lq, &Lk, &D, &h, &scale};
-  rc = (int)cudaLaunchKernel(fn[1], dim3((unsigned)(B * G), (unsigned)(D / kWideCols)),
+  rc = (int)cudaLaunchKernel(fn[1], dim3((unsigned)(B * G * S), (unsigned)(D / kWideCols)),
                              dim3(kWideBwdThreads), attn_args, smem[1], stream);
   if (rc != 0) return rc;
   hop1_bwd_wide_dkv_kernel<TKV><<<(D / kGN) * mtiles, kWideThreads, smem[2], stream>>>(
@@ -2036,7 +2084,7 @@ int launch_wide(const float* q, const TKV* kv, long long kv_sb, long long kv_sg,
                                                                   part, G, Lk, D, M);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = sum_middle(dq_part, dq, B, G, (long long)Lq * D, stream);
+  rc = sum_middle(dq_part, dq, B, G * S, (long long)Lq * D, stream);
   if (rc != 0) return rc;
   return sum_middle(part, wgrad, 1, chunks, 2LL * D * D + 2LL * D, stream);
 }

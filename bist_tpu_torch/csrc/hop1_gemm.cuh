@@ -23,8 +23,10 @@ constexpr int kGM = 128, kGN = 128;    // a GEMM block's tile
 constexpr int kGK = 32;                // contraction rows a ring stage
 constexpr int kGStages = 3;            // cp.async ring stages
 constexpr int kWideCols = 128;         // head columns an attention block of K1 or K2
-// kv rows of a group K2 "wide" takes (hop1_bwd.cu's rule), and K1 "wide"'s
-// attention kernel holds whole (past it, K1 streams them in kv tiles)
+// kv rows of a group K1 "wide"'s attention kernel holds whole (past it, K1
+// streams them in kv tiles); K1 and K2 "wide" take D 128 only past it.
+// K2's slices of a group's kv rows have their own size (hop1_bwd.cu,
+// kWideSliceTiles).
 constexpr int kWideMaxLk = 64;
 
 // Shared memory of a GEMM block, in floats: kGStages stages of an A tile and

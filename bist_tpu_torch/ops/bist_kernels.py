@@ -274,10 +274,12 @@ def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> s
     tensor-core dW pass; K1 "whole"'s domain: D 64 or 128, d_k a multiple
     of 8 up to 32, Lk <= 64, aligned rows, any Lq), "wide" (a projection
     GEMM, an attention-backward kernel, a dkv GEMM and a split dW GEMM,
-    3xTF32 on the tensor cores; D 256 or 512, d_k a multiple of 8 up to 64,
-    Lk <= 64, aligned rows: K1 "wide"'s domain up to 64 kv rows) or "tiled"
-    (FMA passes; every other width, K1 "wide"'s launches past 64 kv rows
-    among them).  Each reads whichever K1 kernel's residuals, one layout
+    3xTF32 on the tensor cores; K1 "wide"'s domain: D 256 or 512 at any
+    Lk and D 128 past 64 kv rows, d_k a multiple of 8 up to 64, aligned
+    rows; past 64 kv rows a group's rows split over attention blocks of at
+    most 64) or "tiled" (FMA passes; every other width: D 64 past 64 kv
+    rows, D 1024, misaligned grids, the padded head widths).  Each reads
+    whichever K1 kernel's residuals, one layout
     for all three: concat (B, G, Lq, D), lse (B, G, Lq, h), a fully masked
     row's lse -1e9.  ValueError for widths none takes.  Builds the library
     on first use."""

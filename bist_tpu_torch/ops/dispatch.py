@@ -22,11 +22,11 @@ three kernels by shape (`ops.bist_kernels.hop1_variant`): "whole" at the
 flagship's D 64/128 up to 64 kv rows, "wide" at D 256/512 (`bist_tpu`'s
 default d_model 512 with 8 heads) and, past 64 kv rows (t2s over a video
 of more than 64 clips), at D 128 too, "tiled" elsewhere.  K2 has the same
-three (`hop1_bwd_variant`), "wide" only up to 64 kv rows.  All three write
-one residual layout (concat (B, G, Lq, D), lse (B, G, Lq, h)), so K2 reads
+three (`hop1_bwd_variant`) over the same domains.  All three write one
+residual layout (concat (B, G, Lq, D), lse (B, G, Lq, h)), so K2 reads
 whichever forward ran.  "tiled" is known to be slower than the plain path
-at the widths it still holds: D 1024, D 64 past 64 kv rows, misaligned
-grids, and K2 past 64 kv rows (PERF.md, section 6; ROADMAP's K4).
+at the widths it still holds: D 1024, D 64 past 64 kv rows and misaligned
+grids (PERF.md, section 6; ROADMAP's K4).
 
 `force_plain()` turns both kernels off, so one batch can run through the
 kernels and through the plain PyTorch paths for comparison (tests,

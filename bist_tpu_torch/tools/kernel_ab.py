@@ -14,8 +14,12 @@ directory and runs its own `chip_smoke.check_hop1` / `check_hop1_bwd` /
 version (a tree whose check also times "tiled" beside "whole" reports
 that too; K3 at head dims 64, 320 and 16, each beside one SDPA call),
 then `phase_train` for 16 flagship steps (ms/step, and the device
-ms/step of all kernels and of the hop-1 kernels).  Prints one JSON line
-per process and, last, the per-case
+ms/step of all kernels and of the hop-1 kernels), then phase 18's train
+step (`long_step` in CHILD, from the tree's own chip_smoke helpers:
+d_model 512, B 32, 65-180 clips; runs of LONG_STEPS eager steps through
+the kernels and under force_plain in turns, ms/step from the host; K2's
+launches by kernel; the device ms by kernel of 2 steps under
+torch.profiler).  Prints one JSON line per process and, last, the per-case
 readings of both trees side by side ("ms" by single call, "device_ms" back
 to back; chip_smoke.py's methods; for K3 also "kernel_only_ms", its
 kernels' own device time a call from torch.profiler, which the host's work
@@ -65,6 +69,9 @@ CASES = [
     ("hop1_bwd", "train s2t D=512", "check_hop1_bwd",
      ("train s2t D=512", 32, 40, 32, 16, 512, 8, False, False, 50),
      {"variant": "wide", "vs_tiled": True}),
+    ("hop1_bwd", "train t2s D=256", "check_hop1_bwd",
+     ("train t2s D=256", 32, 16, 32, 40, 256, 8, True, True, 51),
+     {"variant": "wide", "vs_tiled": True}),
     ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4),
      {}),
     ("flash_fwd", "kv=32768, d=320", "check_flash",
@@ -73,11 +80,13 @@ CASES = [
      {}),
     ("train", "step", "phase_train", ((), 16), {}),
 ]
+# phase 18's train step: steps a run of `long_step` (CHILD), after the cases
+LONG_STEPS = 10
 
 # run inside a tree (the working directory): its chip_smoke, its kernels;
-# the cases come as JSON in argv[1]
+# the cases come as JSON in argv[1], LONG_STEPS in argv[2]
 CHILD = r"""
-import inspect, json, re, sys
+import contextlib, inspect, json, re, statistics, sys, time
 import torch
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
@@ -86,6 +95,53 @@ from bist_tpu_torch.ops import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build()
 dev = torch.device("cuda")
+
+
+def long_step(dev, steps):
+    # chip_smoke's phase 18 train step: d_model 512, B 32, 65-180 clips
+    from bist_tpu_torch.config import TrainConfig
+    from bist_tpu_torch.data.avsd import load_avsd
+    from bist_tpu_torch.data.batching import to_device
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd
+    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+    from bist_tpu_torch.vocab import get_vocabulary
+
+    cs = chip_smoke
+    vocab = get_vocabulary(cs.TEST_JSON, cutoff=3, include_caption="summary")
+    data = load_avsd(cs.TEST_JSON, vocab, include_caption="summary", separate_caption=True)
+    batch = to_device(cs.make_batches(data, 1, 32, seed=3, answers=True,
+                                      clips=cs.LONG_CLIPS)[0], dev)
+    cfg = cs.flagship_cfg(len(vocab), **cs.REFERENCE_WIDTH, dropout=0.0, attn_dropout=0.0)
+    tcfg = TrainConfig(warmup_steps=10)
+    state, tx = create_train_state(0, cfg, tcfg, device=dev)
+    step = make_train_step(cfg, tcfg, tx)
+
+    def run(n, plain):
+        st, times = cs.copy_state(state), []
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            for _ in range(n):
+                t0 = time.perf_counter()
+                st, _ = step(st, batch, None)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    run(1, False)
+    run(1, True)
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    ms = {False: [], True: []}
+    for plain in (False, True, True, False):
+        ms[plain] += run(steps, plain)
+    variants = dict(hop1_bwd.variants)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(2, False)
+    return {"ms_per_step": statistics.median(ms[False]),
+            "plain_ms_per_step": statistics.median(ms[True]),
+            "eager_ms": ms[False], "plain_eager_ms": ms[True], "k2_variants": variants,
+            "breakdown": cs.step_breakdown(prof, 2)}
+
+
 keys = ("ms", "device_ms", "plain_ms", "max_abs_err", "variant", "tiled_ms",
         "tiled_device_ms", "library_ms", "library_device_ms", "bound_ms", "ms_per_step")
 out = {}
@@ -107,12 +163,14 @@ for kernel, case, fn, args, kw in json.loads(sys.argv[1]):
     for k in ("device_ms_per_step", "hop1_kernels_ms_per_step"):
         if r.get("profile"):
             out[f"{kernel} {case}"][k] = r["profile"][k]
+out["train long video step"] = long_step(dev, int(sys.argv[2]))
 print(json.dumps(out))
 """
 
 
 def run_tree(tree: str) -> dict:
-    r = subprocess.run([sys.executable, "-c", CHILD, json.dumps(CASES)], cwd=tree,
+    r = subprocess.run([sys.executable, "-c", CHILD, json.dumps(CASES), str(LONG_STEPS)],
+                       cwd=tree,
                        capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"{tree}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")

@@ -659,7 +659,8 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
 
 
 def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
-                   full_row=False, *, variant=None, vs_tiled=False, bf16=False):
+                   full_row=False, *, variant=None, vs_tiled=False, bf16=False,
+                   memory=False):
     """One K2 case: the residuals of the plain forward on random inputs, a
     random upstream gradient, d_concat and Dh as `hop1_trainable`'s glue
     makes them; every gradient held against `hop1_bwd_plain` evaluated in
@@ -674,7 +675,10 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
     bfloat16 grid as an operand; `bound_f32_ms` counts every operation at
     the float32 rate (the bound of the FMA kernels).  For "wide" also each
     of its kernels' device ms a call (`kernel_device_ms`) and whether two
-    calls give bit-identical gradients (`bit_identical`)."""
+    calls give bit-identical gradients (`bit_identical`).  With `memory` the
+    device memory one call of the kernel and one of the plain version add
+    at their peak ("peak_mb": "wide"'s workspace against plain's K, V and
+    scores)."""
     import torch
 
     from bist_tpu_torch.ops.bist_kernels import (_hop1_bwd_as, hop1_bwd, hop1_bwd_plain,
@@ -719,6 +723,8 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
             raise AssertionError(f"hop1_bwd {name}: two calls of \"wide\" differ")
         extra = {"bit_identical": True, "kernel_device_ms": kernel_device_ms(
             run, r"hop1_bwd_wide_\w+?_kernel|sum_middle_kernel")}
+    if memory:
+        extra["peak_mb"] = {"kernel": peak_mb(run), "plain": peak_mb(plain)}
     if vs_tiled:
         tiled = lambda: _hop1_bwd_as("tiled", *args)
         extra.update(tiled_max_abs_err=agree(tiled(), f"{name} (tiled)"),
@@ -808,8 +814,8 @@ def phase_kernels(device):
         # the same inputs.  Many kv tiles at the reference's width, the
         # flagship's t2s (a fully masked batch row) and the reference's at
         # 200 clips, one row into a last kv tile, a bfloat16 grid, one video
-        # through the generate CLI, the training launch with K2 ("tiled" at
-        # Lk > 64) on its residuals
+        # through the generate CLI, the training launch with K2 ("wide" over
+        # kv slices) on its residuals
         check_hop1(device, "multi-tile", "wide", 4, 8, 32, 600, 512, 8, True, False, 3,
                    vs_tiled=True),
         check_hop1(device, "t2s Lk200", "wide", 64, 16, 32, 200, 128, 8, True, True, 60,
@@ -909,6 +915,25 @@ def phase_kernels(device):
                        full_row=True, variant="wide", vs_tiled=True),
         check_hop1_bwd(device, "train t2s D=512 bf16", 32, 16, 32, 40, 512, 8, True, True, 54,
                        bf16=True, variant="wide", vs_tiled=True),
+        # past 64 kv rows (t2s over a video of more than 64 clips) "wide"
+        # splits a group's kv rows over attention blocks of at most 64: the
+        # long-video train step's t2s at the reference's width and at the
+        # flagship's (phase 18's shapes), many slices, one row into a last
+        # tile with a fully masked batch row, a bfloat16 grid, d_k 8; each
+        # against "tiled" at the same inputs, with its peak memory against
+        # plain's
+        check_hop1_bwd(device, "train t2s Lk200 D=512", 32, 16, 32, 200, 512, 8, True, True,
+                       66, variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "train t2s Lk200 D=128", 32, 16, 32, 200, 128, 8, True, True,
+                       67, variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "multi-tile Lk600 D=512", 4, 8, 32, 600, 512, 8, True, False,
+                       68, variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "t2s Lk65 D=256 h=4", 32, 16, 32, 65, 256, 4, True, True, 69,
+                       full_row=True, variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "train t2s Lk200 D=512 bf16", 32, 16, 32, 200, 512, 8, True,
+                       True, 70, bf16=True, variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "t2s Lk130 D=128 h=16", 8, 16, 32, 130, 128, 16, True, True,
+                       71, variant="wide", vs_tiled=True, memory=True),
         # the widths "wide" is not built for (D 1024: two head groups)
         check_hop1_bwd(device, "t2s D=120 h=8", 8, 16, 32, 40, 120, 8, True, True, 23,
                        full_row=True, variant="tiled"),
@@ -3282,7 +3307,7 @@ def write_tgif_dataset(root, n_train=64, n_test=40, n_gifs=40, t_range=(8, 40), 
     """Synthetic TGIF-QA splits under `root`: .npy grids (T, s, dv) of
     n_gifs GIFs of t_range clips and one of long_t clips ("long", in
     frameqa's train split and count's test split only, so t_pad 128 sends
-    t2s's K1 through "wide" and its K2 through "tiled"), and each task's
+    t2s's K1 and K2 through "wide" past 64 kv rows), and each task's
     train and test TSVs in the public format.  Returns {task: (train tsv,
     test tsv)} and the feature directory."""
     rng = np.random.default_rng(seed)
@@ -3651,9 +3676,10 @@ def phase_tgif(device, root, model_kw=None, dv=DV, s=S, n_train=64, n_test=40, B
             if not (k1["wide"] > 0 and k1["whole"] > 0 and k1["tiled"] == 0):
                 raise AssertionError(f"TGIF CLI {name}: K1 by name {run['by_name']}: no "
                                      f"\"wide\" for the 70-clip GIF, or a \"tiled\"")
-        if not runs[0]["by_name"]["k2"]["tiled"] > 0:
+        k2 = runs[0]["by_name"]["k2"]
+        if not (k2["wide"] > 0 and k2["tiled"] == 0):
             raise AssertionError(f"TGIF CLI frameqa: K2 by name {runs[0]['by_name']}: no "
-                                 f"\"tiled\" for the 70-clip GIF")
+                                 f"\"wide\" for the 70-clip GIF, or a \"tiled\"")
     out["cli"] = runs
     out["cli_seconds"] = time.perf_counter() - t0
 
@@ -4901,8 +4927,58 @@ FLAGSHIP_WIDTH = dict(d_model=128, att_h=8)
 # K1's launches a batch by kernel: t2s attends over the T clips (Lk > 64:
 # "wide"), s2t over the 16 regions ("whole" at the flagship's width)
 LONG_WIDTHS = ((FLAGSHIP_WIDTH, {"wide": 3, "whole": 3}), (REFERENCE_WIDTH, {"wide": 6}))
-# the train step at d_model 512: K2 "tiled" at t2s (Lk > 64), "wide" at s2t
-LONG_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 3, "wide": 3}}
+# the train step at d_model 512: K1 and K2 "wide" at t2s (Lk > 64: K2's kv
+# rows over slices of at most 64) and at s2t
+LONG_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"wide": 6}}
+LONG_TRAIN_STEPS = 3         # timed steps a run of `long_train_speed`
+
+
+def long_train_speed(device, state, cfg, tcfg, tx, batch):
+    """Eager train steps on `batch` through the kernels and under
+    force_plain, each from a copy of `state`: one warm-up step each, then
+    runs of LONG_TRAIN_STEPS steps in turns (kernels, plain, plain,
+    kernels), ms a step from the host with the device synchronised after
+    each (median over both runs); K1 and K2 through the wrappers by
+    kernel over the kernels' runs; then the device ms of 2 kernel steps by
+    kernel under torch.profiler (`step_breakdown`; empty on the CPU)."""
+    import torch
+
+    from bist_tpu_torch.ops import dispatch
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.loop import make_train_step
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    step = make_train_step(cfg, tcfg, tx)
+
+    def run(n, plain):
+        st, times = copy_state(state), []
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            for _ in range(n):
+                t0 = time.perf_counter()
+                st, m = step(st, batch, None)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"long videos train step (plain {plain}): loss {m['loss']}")
+        return times
+
+    run(1, False)
+    run(1, True)
+    reset_hop1_counts()
+    hop1_bwd.launches, hop1_bwd.variants = 0, {}
+    ms = {"kernels": [], "plain": []}
+    for plain in (False, True, True, False):
+        ms["plain" if plain else "kernels"] += run(LONG_TRAIN_STEPS, plain)
+    counts = {"hop1_fwd": dict(hop1_fused.variants), "hop1_bwd": dict(hop1_bwd.variants)}
+    breakdown = {}
+    if cuda:
+        with profiler_window(device) as prof:
+            run(2, False)
+        breakdown = step_breakdown(prof, 2)
+    return {"steps_a_run": LONG_TRAIN_STEPS,
+            "eager_ms_per_step": {k: statistics.median(v) for k, v in ms.items()},
+            "eager_ms": ms, "kernel_launches": counts, "breakdown": breakdown}
 
 
 def phase_long_video(device, n_batches=2, B=32, clips=LONG_CLIPS, dv=DV, s=S,
@@ -4919,7 +4995,9 @@ def phase_long_video(device, n_batches=2, B=32, clips=LONG_CLIPS, dv=DV, s=S,
       * one train step at dropout 0 at `train_kw`'s width on a batch of B
         such turns: loss and gradients against force_plain (phase 6's
         bounds), K1 and K2 through the wrappers by kernel as
-        `train_variants` says.
+        `train_variants` says; then its eager ms/step against force_plain
+        and its device ms by kernel (`long_train_speed`; K1 and K2 by
+        kernel `train_variants` a step).
     On the CPU every count is 0 (the plain versions).  Returns the readings."""
     import torch
 
@@ -4951,14 +5029,21 @@ def phase_long_video(device, n_batches=2, B=32, clips=LONG_CLIPS, dv=DV, s=S,
     train_data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
     batch = to_device(make_batches(train_data, 1, B, seed=3, answers=True, clips=clips, dv=dv,
                                    s=s)[0], device)
-    state, _ = create_train_state(0, cfg, TrainConfig(warmup_steps=10), device=device)
-    grad_check = grads_against_plain(device, state, cfg, TrainConfig(warmup_steps=10), batch)
+    tcfg = TrainConfig(warmup_steps=10)
+    state, tx = create_train_state(0, cfg, tcfg, device=device)
+    grad_check = grads_against_plain(device, state, cfg, tcfg, batch)
     want = train_variants if cuda else {"hop1_fwd": {}, "hop1_bwd": {}}
     if grad_check["variants"] != want:
         raise AssertionError(f"long videos, d_model {train_kw['d_model']} gradient check: K1, "
                              f"K2 by kernel {grad_check['variants']}, expected {want}")
+    speed = long_train_speed(device, state, cfg, tcfg, tx, batch)
+    runs = 2 * LONG_TRAIN_STEPS
+    want = {k: {v: n * runs for v, n in c.items()} for k, c in want.items()}
+    if speed["kernel_launches"] != want:
+        raise AssertionError(f"long videos, d_model {train_kw['d_model']} train steps: K1, K2 "
+                             f"by kernel {speed['kernel_launches']}, expected {want}")
     out["train_step"] = dict(grad_check, d_model=train_kw["d_model"], batch_size=B,
-                             clips=batch.fts.shape[1])
+                             clips=batch.fts.shape[1], speed=speed)
     out["seconds"] = time.perf_counter() - t0
     log(f"long videos: {json.dumps(out)}")
     del state, batch
@@ -5208,7 +5293,12 @@ def main() -> int:
         for w, g in long["generation"].items())
         + f"; train step d_model {long['train_step']['d_model']} at {long['train_step']['clips']}"
           f" clips: loss {long['train_step']['loss_rel_diff']:.2e} rel of plain, K1/K2 by kernel "
-          f"{json.dumps(long['train_step']['variants'])}; {long['seconds']:.1f} s", flush=True)
+          f"{json.dumps(long['train_step']['variants'])}, eager ms/step "
+          f"{json.dumps(long['train_step']['speed']['eager_ms_per_step'])}, device ms/step "
+          f"{long['train_step']['speed']['breakdown']['device_ms_per_step']:.2f}: K1 "
+          f"{json.dumps(long['train_step']['speed']['breakdown']['k1_ms'])}, K2 "
+          f"{json.dumps(long['train_step']['speed']['breakdown']['k2_ms'])}; "
+          f"{long['seconds']:.1f} s", flush=True)
     print(f"long videos on {card}: {json.dumps(long)}", flush=True)
     lap("long videos")
 
@@ -5216,9 +5306,14 @@ def main() -> int:
     ref_k2 = trn["eager_launches"]["hop1_bwd"]
     long_k1 = {k: sum(g["replayed_k1_by_name"][k] for g in long["generation"].values())
                for k in K1_NONE}
-    long_k2 = long["train_step"]["variants"]["hop1_bwd"]
+    # K2 through the wrapper in the long videos' gradient check and timed
+    # eager steps (phase 18)
+    long_k2 = {k: long["train_step"]["variants"]["hop1_bwd"].get(k, 0)
+               + long["train_step"]["speed"]["kernel_launches"]["hop1_bwd"].get(k, 0)
+               for k in K2_NONE}
     wide_main = next(c for c in hop1_cases if c["case"] == "t2s D=512")
     wide_bwd = next(c for c in bwd_cases if c["case"] == "train t2s D=512")
+    wide_bwd_long = next(c for c in bwd_cases if c["case"] == "train t2s Lk200 D=512")
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -5277,8 +5372,8 @@ def main() -> int:
                           f"eager train steps, counted through the wrapper: the "
                           f"flagship's {train['steps']} steps of {train['batch_size']} "
                           f"(phase 6), the reference width's {trn['steps']} steps of "
-                          f"{trn['batch_size']} (phase 17) and the long videos' step "
-                          f"(phase 18)"),
+                          f"{trn['batch_size']} (phase 17) and the long videos' gradient "
+                          f"check and timed steps (phase 18)"),
              variants={k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
                        + long_k2.get(k, 0) for k in K2_NONE
                        if train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
@@ -5289,12 +5384,17 @@ def main() -> int:
              wide={k: wide_bwd[k] for k in ("case", "ms", "device_ms", "plain_ms", "bound_ms",
                                             "bound_by", "tiled_ms", "max_abs_err",
                                             "kernel_device_ms")},
+             # "wide" past 64 kv rows (phase 2's train t2s Lk200 D=512 case,
+             # phase 18's train step's t2s shape)
+             wide_past_64={k: wide_bwd_long[k] for k in (
+                 "case", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "tiled_ms",
+                 "max_abs_err", "kernel_device_ms", "peak_mb")},
              # K2 at the reference width (phase 17): eager steps through the
              # wrapper, and kernels (first pass; "wide" by its attention
              # kernel) the card ran in 2 train replays, by name
              launches_reference_width={"eager": ref_k2,
                                        "train_replayed": trn["replayed_by_name"]["k2"]},
-             # K2 through the wrapper in the long videos' train step (phase 18)
+             # K2 through the wrapper in the long videos' train steps (phase 18)
              launches_long_video=long_k2,
              # K2 kernels (first pass) the card ran in 3 train replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k2"],

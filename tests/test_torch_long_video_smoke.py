@@ -2,8 +2,9 @@
 the clips through K1 "wide"'s kv tiles on the card) on the CPU at tiny
 widths, where K1 and K2 are their plain versions: beam search eager and
 through a DecodeProgram against force_plain at two widths, token for token,
-over grids of 65-180 clips, and one train step's gradients against
-force_plain; and how the phase counts K1's kv-tile kernel by name."""
+over grids of 65-180 clips, one train step's gradients against
+force_plain and its eager steps timed against force_plain; and how the
+phase counts K1's kv-tile kernel by name."""
 
 from types import SimpleNamespace
 
@@ -32,6 +33,11 @@ def test_chip_smoke_phase_long_video_on_cpu():
     assert step["launches"] == (0, 0) and step["loss_rel_diff"] <= 5e-4
     assert step["variants"] == {"hop1_fwd": {}, "hop1_bwd": {}}
     assert 64 < step["clips"] <= 200
+    # the train step's eager ms against force_plain: 2 runs each
+    speed, runs = step["speed"], 2 * chip_smoke.LONG_TRAIN_STEPS
+    assert {k: len(v) for k, v in speed["eager_ms"].items()} == {"kernels": runs, "plain": runs}
+    assert speed["kernel_launches"] == {"hop1_fwd": {}, "hop1_bwd": {}}
+    assert speed["breakdown"] == {}
 
 
 def test_k1_ran_counts_wide_once_by_its_attention_kernel():

@@ -342,3 +342,21 @@ def test_chip_smoke_phases_on_cpu(monkeypatch):
     monkeypatch.setattr(dispatch, "FLASH_MIN_KV", 0)
     mha = chip_smoke.phase_mha_flash(cpu, B=1, Lk=300)
     assert mha["launches"] == 0 and mha["max_abs_err"] <= 2e-4
+
+
+def test_kernel_ab_long_step_binds_to_chip_smokes_helpers():
+    """kernel_ab's phase 18 train step (`long_step`, run inside each tree)
+    calls chip_smoke's helpers with these arguments: they must bind to this
+    tree's, and the constants it reads must be there."""
+    import inspect
+
+    from bist_tpu_torch.tools import kernel_ab
+
+    assert "long_step(dev, int(sys.argv[2]))" in kernel_ab.CHILD and kernel_ab.LONG_STEPS >= 3
+    inspect.signature(chip_smoke.make_batches).bind(None, 1, 32, seed=3, answers=True,
+                                                    clips=chip_smoke.LONG_CLIPS)
+    inspect.signature(chip_smoke.flagship_cfg).bind(1, **chip_smoke.REFERENCE_WIDTH,
+                                                    dropout=0.0, attn_dropout=0.0)
+    inspect.signature(chip_smoke.copy_state).bind(None)
+    inspect.signature(chip_smoke.step_breakdown).bind(None, 2)
+    assert chip_smoke.REFERENCE_WIDTH == dict(d_model=512, att_h=8)

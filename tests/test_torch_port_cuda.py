@@ -192,22 +192,25 @@ def test_hop1_forced_variants_agree(cuda):
 
 @pytest.mark.cuda
 def test_hop1_variant_past_64_kv_rows(cuda):
-    """K1's rule past 64 kv rows (a video of more than 64 clips at t2s):
-    "wide" at D 128, 256 and 512 for aligned grids with d_k a multiple of 8
-    up to 64, "tiled" at D 64 and 1024 and for a misaligned grid; "whole" and
-    "wide" at Lk <= 64 as before.  K2 stays "tiled" past 64 kv rows."""
+    """K1's and K2's rule past 64 kv rows (a video of more than 64 clips at
+    t2s): "wide" at D 128, 256 and 512 for aligned grids with d_k a multiple
+    of 8 up to 64, "tiled" at D 64 and 1024, for a misaligned grid and at
+    the padded head widths; "whole" and "wide" at Lk <= 64 as before.  K2
+    takes the kernel K1 takes."""
     for D in (128, 256, 512):
-        for h in (D // 64, 8, D // 8):
+        for h in (D // 64, D // 32, 8, D // 8):
             for Lk in (65, 200, 600):
                 for Lq in (5, 32):
                     assert K1.hop1_variant(Lq, Lk, D, h) == "wide", (Lq, Lk, D, h)
-                    assert K1.hop1_bwd_variant(Lq, Lk, D, h) == "tiled", (Lq, Lk, D, h)
+                    assert K1.hop1_bwd_variant(Lq, Lk, D, h) == "wide", (Lq, Lk, D, h)
             assert K1.hop1_variant(32, 200, D, h, kv_vec=False) == "tiled"
+            assert K1.hop1_bwd_variant(32, 200, D, h, kv_vec=False) == "tiled"
         for Lk in (1, 40, 64):
             assert K1.hop1_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
             assert K1.hop1_bwd_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
     for D, h in ((64, 4), (1024, 8), (520, 8), (120, 8)):
         assert K1.hop1_variant(32, 200, D, h) == "tiled", (D, h)
+        assert K1.hop1_bwd_variant(32, 200, D, h) == "tiled", (D, h)
 
 
 @pytest.mark.cuda
@@ -438,10 +441,10 @@ def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_
     float32 and a bfloat16 grid, kv a strided view, a fully masked row; K2
     also on K1's own residuals (at D 256/512 with Lk <= 64 "wide"'s, which
     K2 "wide" reads; past 64 kv rows at D 128-512 "wide"'s over kv tiles,
-    which K2 "tiled" reads)."""
+    which K2 "wide" reads over kv slices)."""
     if Lk > 64 and D in (128, 512):
         assert (K1.hop1_variant(Lq, Lk, D, h), K1.hop1_bwd_variant(Lq, Lk, D, h)) == \
-            ("wide", "tiled")
+            ("wide", "wide")
     rng = np.random.default_rng(5)
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda,
                                                  full_row)
@@ -500,6 +503,17 @@ def bwd_grads_agree(got, want, kv, what):
     ("wide", 2, 5, 40, 23, 512, 32, False, False),     # d_k 16, two query chunks
     ("wide", 2, 5, 17, 33, 256, 8, True, True),        # d_k 32
     ("wide", 3, 7, 37, 1, 512, 8, False, False),       # one kv row
+    # past 64 kv rows "wide" splits a group's kv rows over blocks of at most
+    # 64 (batch row 0 fully masked in each)
+    ("wide", 2, 16, 32, 200, 512, 8, True, False),     # reference t2s over 200 clips
+    ("wide", 2, 16, 32, 200, 128, 8, True, False),     # flagship t2s, d_k 16
+    ("wide", 2, 4, 32, 600, 512, 8, False, False),     # ten slices
+    ("wide", 2, 16, 32, 65, 256, 4, True, False),      # one row into a last tile, d_k 64
+    ("wide", 2, 16, 32, 200, 512, 8, True, True),      # a bfloat16 grid
+    ("wide", 2, 5, 33, 130, 128, 16, True, False),     # D 128, d_k 8, two query chunks
+    ("wide", 2, 5, 17, 130, 256, 8, True, True),       # d_k 32, a bfloat16 grid
+    ("wide", 2, 4, 40, 70, 128, 2, False, False),      # D 128, d_k 64
+    ("wide", 3, 3, 5, 600, 128, 4, True, False),       # D 128, d_k 32, ten slices
 ])
 def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
     """K2's three kernels at the training step's widths and around them,
@@ -531,10 +545,10 @@ def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, stride
 @pytest.mark.cuda
 def test_hop1_bwd_forced_variants_agree(cuda):
     """The measurement path (`_hop1_bwd_as`): "tiled" takes the flagship
-    and the reference widths too and agrees with "whole" and "wide";
-    "whole" refuses widths it does not take (Lk 70, D 96, a misaligned
-    grid), "wide" likewise (D 1024, Lk 70, a misaligned grid); each counts
-    its launches by kernel."""
+    and the reference widths too and agrees with "whole" and "wide" (up to
+    and past 64 kv rows); "whole" refuses widths it does not take (Lk 70, D
+    96, a misaligned grid), "wide" likewise (D 1024, D 64 past 64 kv rows,
+    a misaligned grid); each counts its launches by kernel."""
     rng = np.random.default_rng(10)
     B, G, Lq, Lk, D, h = 2, 16, 32, 40, 128, 8
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda, True)
@@ -564,7 +578,13 @@ def test_hop1_bwd_forced_variants_agree(cuda):
                     "tiled vs wide")
     for v in ("tiled", "wide"):
         assert K1.hop1_bwd.variants[v] == before.get(v, 0) + 1
-    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 16, 1024, 8), (2, 4, 8, 70, 512, 8)):
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 32, 200, 512, 8), (2, 4, 8, 70, 128, 8)):
+        p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
+        args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
+                p["wv"]["b"], h_)
+        bwd_grads_agree(K1._hop1_bwd_as("tiled", *args), K1._hop1_bwd_as("wide", *args), kv,
+                        f"tiled vs wide at Lk {Lk_} D {D_}")
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 16, 1024, 8), (2, 4, 8, 70, 64, 4)):
         p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1._hop1_bwd_as("wide", q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
@@ -578,18 +598,20 @@ def test_hop1_bwd_forced_variants_agree(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Lk,D", [(40, 512), (200, 512), (200, 128)])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_hop1_bwd_wide_bit_identical(cuda, bf16):
+def test_hop1_bwd_wide_bit_identical(cuda, bf16, Lk, D):
     """K2 "wide" sums in a fixed order (no float atomics): two calls on the
     same inputs give bit-identical gradients, at the reference width's
-    train-step shape (t2s, a strided view, a fully masked row)."""
+    train-step shape (t2s, a strided view, a fully masked row) and over 200
+    clips (four kv slices a group, their dq partials summed in order)."""
     rng = np.random.default_rng(12)
-    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 8, 16, 32, 40, 512, 8, cuda, True)
+    p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, 8, 16, 32, Lk, D, 8, cuda, True)
     if bf16:
         kv = kv.to(torch.bfloat16)
     args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
             p["wv"]["b"], 8)
-    assert K1.hop1_bwd_variant(32, 40, 512, 8, K1._rows_vec4(kv)) == "wide"
+    assert K1.hop1_bwd_variant(32, Lk, D, 8, K1._rows_vec4(kv)) == "wide"
     first, second = K1.hop1_bwd(*args), K1.hop1_bwd(*args)
     for a, b, n in zip(first, second, ("dq", "dkv", "dWk", "dWv", "dbk", "dbv")):
         assert torch.equal(a, b), n

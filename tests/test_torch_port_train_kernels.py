@@ -102,6 +102,11 @@ def bwd_case(rng, B, G, Lq, Lk, D, h, masked, full_row=False):
     pytest.param(7, True, 256, 8, id="7-True-D256-h8"),
     pytest.param(7, True, 512, 8, id="7-True-D512-h8"),
     pytest.param(7, True, 512, 16, id="7-True-D512-h16"),
+    # past 64 kv rows, where K2 "wide" splits a group's rows over blocks:
+    # D 512 and D 128 (d_k 64, 16 and 8), one row into a last 16-row tile
+    pytest.param(130, True, 512, 8, id="130-True-D512-h8"),
+    pytest.param(65, True, 128, 8, id="65-True-D128-h8"),
+    pytest.param(65, False, 128, 16, id="65-False-D128-h16"),
 ])
 def test_hop1_bwd_plain_matches_pallas(Lk, masked, D, h, rng):
     """hop1_bwd_plain against _hop1_bwd_pallas (interpret mode) on the same
@@ -196,11 +201,14 @@ def test_hop1_bwd_plain_equals_autograd_through_hop1_plain(masked, rng):
     (2, 2, 9, 120, 8),         # d_k 15
     (1, 2, 6, 520, 8),         # above 512, d_k 65
     (1, 2, 5, 1024, 8),        # two head groups in K2
-    # the widths K1 "wide" takes (K2 "tiled" on its residuals)
+    # the widths K1 and K2 "wide" take
     (1, 2, 7, 256, 8),
     (1, 2, 7, 256, 4),
     (1, 2, 7, 512, 8),
     (1, 2, 7, 512, 16),
+    # past 64 kv rows (K1 and K2 "wide" on the card): D 512 and D 128
+    (1, 2, 130, 512, 8),
+    (1, 2, 65, 128, 8),
 ])
 def test_hop1_trainable_grads_match_jax(B, G, Lk, D, h, rng):
     """All 9 gradients against jax.grad of JAX's hop1_trainable (Pallas
