@@ -33,7 +33,7 @@
 // rows, both summed in a fixed order by sum_middle_kernel.  Three designs
 // for the passes that do the work, chosen by shape before any launch
 // (`hop1_bwd_variant`, exported as bist_hop1_bwd_variant; the rule of
-// hop1_fwd.cu's `hop1_variant`):
+// hop1_fwd.cu's `hop1_variant` up to D 512 and d_k 64):
 //
 // "whole", for hop1_fwd.cu's "whole" domain (D 64 or 128, a head width d_k
 // a multiple of 8 up to 32, Lk <= 64, kv rows of aligned 4-element vectors)
@@ -94,8 +94,9 @@
 // tile, [dk | dv]) split once a block.  The next step is more warps an SM
 // (ROADMAP).
 //
-// "wide", for hop1_fwd.cu's "wide" domain (D 256 or 512 at any Lk, D 128
-// past 64 kv rows, d_k a multiple of 8 up to 64, aligned kv rows;
+// "wide", for D 256 or 512 at any Lk and D 128 past 64 kv rows, d_k a
+// multiple of 8 up to 64, aligned kv rows (where hop1_fwd.cu's is "wide"
+// too; its D 384 and 640-1024 and d_k 128 stay "tiled" here);
 // bist_tpu's default d_model 512 with 8 heads, and t2s over a video of more
 // than 64 clips), reading "wide"'s residuals.  "whole"'s one block a group
 // cannot hold a group there (at D 512 its K, V, dK and dV are 320 KB at Lk
@@ -1932,11 +1933,11 @@ int dw_whole_chunks(int nrows, int D) {
 // "wide" copy them in 16-byte and 8-byte pieces) alone, never from an
 // error: "whole" has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a
 // multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide"
-// hop1_fwd.cu's "wide" domain (D 256 or 512 at any Lk and D 128 past
-// kWideMaxLk kv rows, d_k a multiple of 8 up to 64, aligned rows; past
-// 4 16-row tiles a group's kv rows split over blocks, wide_slices);
-// "tiled" every other width it plans (D 64 past 64 kv rows, D 1024,
-// misaligned grids, the padded head widths).  Every variant reads every
+// D 256 or 512 at any Lk and D 128 past kWideMaxLk kv rows, d_k a
+// multiple of 8 up to 64, aligned rows (past 4 16-row tiles a group's kv
+// rows split over blocks, wide_slices); "tiled" every other width it plans
+// (D 64 past 64 kv rows, D 384 and 640 and up, d_k 128, misaligned grids,
+// the padded head widths).  Every variant reads every
 // forward's residuals: one layout, concat (B, G, Lq, D) and lse (B, G, Lq,
 // h), a fully masked row's lse -1e9 (its -1e9 + log Lk in float32).
 int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {

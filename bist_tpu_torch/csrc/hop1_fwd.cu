@@ -23,9 +23,11 @@
 //
 // Three variants, chosen by shape and kv's alignment before any launch
 // (`hop1_variant`, exported as bist_hop1_fwd_variant): "whole" at D 64/128
-// with Lk <= 64, "wide" at D 256/512 at any Lk and at D 128 past 64 kv rows
-// (both with d_k a multiple of 8 and kv rows of aligned 4-element vectors)
-// and "tiled" at every other width (D 64 past 64 kv rows among them).
+// with Lk <= 64, "wide" at every D that is a multiple of 128 from 256 to
+// 1024 at any Lk and at D 128 past 64 kv rows (both with d_k 8, 16, 32, 64
+// or 128 and kv rows of aligned 4-element vectors) and "tiled" at every
+// other width (D above 1024, D 64 past 64 kv rows, heads that do not tile
+// 128 columns among them).
 //
 // "whole" (hop1_fwd_whole_kernel), for D 64 or 128, a head width d_k a
 // multiple of 8 up to 32 and Lk <= 64: the main path's widths
@@ -79,17 +81,20 @@
 // the MMA's 8-wide dimension (no padding, 17 % fewer MMAs) ran slower: its
 // row tiles split the products into stretches of 2 dependent chains.
 //
-// "wide" (D 256 or 512, d_k a multiple of 8 up to 64: 8, 16, 32 or 64;
-// bist_tpu's default d_model 512 with 8 heads; and D 128 past 64 kv rows,
-// t2s over a video of more than 64 clips): "whole"'s one block a group
-// cannot hold the group at these widths (at D 512 the kv tile alone is 99
-// KB and K with V 198 KB; at D 128 and 200 clips K with V 205 KB), and
-// "tiled" streams [Wk | Wv] (2 MB) and Wo (1 MB) through every (b, g, query
-// chunk) block to serve 40 kv and 32 query rows.  More than 85 % of the
-// operations are the two weight products (t2s D 512 B64: 42.9 GFLOP of
-// projection, 17.2 of Wo, 2.7 of attention), so "wide" runs them as GEMMs
-// over every row of the launch, each weight tile serving 128 rows, in three
-// kernels on one stream:
+// "wide" (D a multiple of 128 from 256 to 1024: bist_tpu's default d_model
+// 512 with 8 heads, and 1024 with 8, d_k 128; and D 128 past 64 kv rows,
+// t2s over a video of more than 64 clips; d_k 8, 16, 32, 64 or 128, the
+// head widths whose heads tile an attention block's 128 columns):
+// "whole"'s one block a group cannot hold the group at these widths (at D
+// 512 the kv tile alone is 99 KB and K with V 198 KB; at D 128 and 200
+// clips K with V 205 KB), and "tiled" streams [Wk | Wv] (2 MB at D 512, 8
+// MB at D 1024) and Wo through every (b, g, query chunk) block to serve 40
+// kv and 32 query rows (at D 1024 it ran 10x slower than the plain path).
+// More than 85 % of the operations are the two weight products (t2s D 512
+// B64: 42.9 GFLOP of projection, 17.2 of Wo, 2.7 of attention; t2s D 1024
+// B8: 21.5, 8.6, 0.7), so "wide" runs them as GEMMs over every row of the
+// launch, each weight tile serving 128 rows, in three kernels on one
+// stream:
 //   1. hop1_fwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] over
 //      the B·G·Lk kv rows (read through kv's strides: t2s's strided view),
 //      into a float32 workspace;
@@ -100,7 +105,13 @@
 //      group's K and V whole ("whole"'s attention_task), past that
 //      hop1_fwd_wide_attn_tiles_kernel streams them in kv tiles with an
 //      online softmax kept in registers; writes concat (the training
-//      residual, or the workspace) and lse;
+//      residual, or the workspace) and lse.  Both are built for each head
+//      width (kDk8 = d_k / 8); at d_k 128 one head fills the block's
+//      columns, a warp takes one 16-row query tile of it (64 p·v
+//      accumulators a thread; q's fragments load from shared memory a
+//      k-step at a time, as at every width), so 2 of the 4 warps work at
+//      32 query rows, 1 at 16: attention is ~2 % of the launch's products
+//      there (~10 % of its time on the H100, PERF.md);
 //   3. hop1_fwd_wide_out_kernel: out = x + (concat Wo + bo) over the B·G·Lq
 //      rows, x broadcast over g in the epilogue.
 // Stages 1 and 3 share one GEMM (wide_gemm, hop1_gemm.cuh, which K2
@@ -879,10 +890,13 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// "wide": D 256 or 512 in three kernels, the weight products as two GEMMs
-// over every row of the launch.
+// "wide": D a multiple of 128 up to 1024 in three kernels, the weight
+// products as two GEMMs over every row of the launch.
 
 constexpr int kWideAttnThreads = 128;  // an attention block: 4 warps
+// widest D "wide" takes: the widths its cases on the card cover (phase 2 of
+// chip_smoke.py); the GEMMs take any multiple of kGN
+constexpr int kWideMaxD = 1024;
 constexpr int kWideTile = 16;          // kv rows a tile of the streaming attention kernel
 
 // Floats of a ring stage of the streaming attention kernel (Lk >
@@ -999,7 +1013,8 @@ hop1_fwd_wide_attn_kernel(const float* __restrict__ q, const float* __restrict__
 // masked row attends uniformly over the true Lk.  After the last tile each
 // task writes its concat columns over the q columns it read and lse = m +
 // log l; the block then copies its rows into concat.  Whatever the number
-// of tiles, a warp holds 32 accumulator floats (kSlots·kQT·kDk8 = 8).
+// of tiles, a warp holds 32 accumulator floats a thread (kSlots·kQT·kDk8 =
+// 8) up to d_k 64, and 64 at d_k 128 (one task a warp, kQT 1).
 template <int kDk8, int kQT>
 __device__ __forceinline__ void wide_tile_task(const float* q_s, const float* k_s,
                                                const float* v_s, int mi0, int hd, int ntk,
@@ -1250,17 +1265,20 @@ hop1_fwd_wide_out_kernel(const float* __restrict__ concat, const float* __restri
     }
 }
 
-// The attention kernel for head width d_k (8, 16, 32 or 64): the whole
-// group in shared memory up to kWideMaxLk kv rows, else the streaming one,
-// with two query tiles a task where the heads are up to 32 wide and a block
-// takes 32 query rows.
+// The attention kernel for head width d_k (8, 16, 32, 64 or 128): the
+// whole group in shared memory up to kWideMaxLk kv rows, else the streaming
+// one, with two query tiles a task where the heads are up to 32 wide and a
+// block takes 32 query rows; null for any other d_k (hop1_variant never
+// gives "wide" one).
 const void* wide_attn_kernel(int Lq, int Lk, int dk) {
   if (Lk <= kWideMaxLk) {
     switch (dk) {
       case 8: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<1>);
       case 16: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<2>);
       case 32: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<4>);
-      default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<8>);
+      case 64: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<8>);
+      case 128: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_kernel<16>);
+      default: return nullptr;
     }
   }
   const bool pair = Lq > 16;
@@ -1274,7 +1292,9 @@ const void* wide_attn_kernel(int Lq, int Lk, int dk) {
     case 32:
       return pair ? reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<4, 2>)
                   : reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<4, 1>);
-    default: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<8, 1>);
+    case 64: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<8, 1>);
+    case 128: return reinterpret_cast<const void*>(hop1_fwd_wide_attn_tiles_kernel<16, 1>);
+    default: return nullptr;
   }
 }
 
@@ -1304,6 +1324,7 @@ int launch_wide(const float* x, const float* q, const TKV* kv, long long kv_sb,
   const size_t smem_proj = GemmLayout<TKV>::bytes, smem_out = GemmLayout<float>::bytes;
   const size_t smem_attn = wide_attn_smem(Lq, Lk);
   const void* attn = wide_attn_kernel(Lq, Lk, dk);
+  if (attn == nullptr) return (int)cudaErrorInvalidValue;
   const std::pair<const void*, size_t> fns[] = {
       {reinterpret_cast<const void*>(hop1_fwd_wide_proj_kernel<TKV>), smem_proj},
       {attn, smem_attn},
@@ -1353,8 +1374,11 @@ size_t whole_smem(int Lq, int Lk, int D, int G, int kv_bytes) {
 // whether kv's rows are aligned 4-element vectors ("whole" and "wide" copy
 // them in 16-byte and 8-byte pieces) alone ("whole": the float32 grid's
 // shared memory at two groups, the most it can need), never by an error.
-// "wide"'s head widths at D 256 and 512 (a multiple of 8 up to 64) are
-// 8, 16, 32 and 64: whole heads in its 128-column attention blocks.
+// "wide" takes D a multiple of kWideCols from 256 to kWideMaxD at any Lk,
+// and D 128 past kWideMaxLk kv rows, with d_k a multiple of 8 that divides
+// kWideCols (8, 16, 32, 64, 128: whole heads in its 128-column attention
+// blocks, one instantiation each); "tiled" the rest (D above kWideMaxD,
+// d_k 24, 48, 96, 15, 65, ..., D 64 past kWideMaxLk kv rows).
 int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
@@ -1362,8 +1386,9 @@ int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
       whole_rows(1, Lk) <= kWholeMaxRows &&
       whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
     return kVariantWhole;
-  if (kv_vec && dk % 8 == 0 && dk <= 64 &&
-      (D == 256 || D == 512 || (D == 128 && Lk > kWideMaxLk)))
+  if (kv_vec && dk % 8 == 0 && kWideCols % dk == 0 &&
+      ((D % kWideCols == 0 && D >= 2 * kWideCols && D <= kWideMaxD) ||
+       (D == kWideCols && Lk > kWideMaxLk)))
     return kVariantWide;
   int qc, tk, hg;
   size_t smem;

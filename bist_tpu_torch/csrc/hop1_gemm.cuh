@@ -1,4 +1,4 @@
-// The tensor-core GEMM of the "wide" hop-1 kernels (D 256 or 512): K1's
+// The tensor-core GEMM of the "wide" hop-1 kernels (D a multiple of 128): K1's
 // projection and Wo products (hop1_fwd.cu) and K2's projection, dkv and dW
 // products (hop1_bwd.cu), each over every row of a launch.  A block of 8
 // warps takes a 128 x 128 output tile, its operands streamed through a

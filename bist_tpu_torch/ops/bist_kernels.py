@@ -15,8 +15,9 @@ before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
 gradients of q_proj, kv and the K/V weights.  Their launchers choose a
 kernel by shape (`hop1_variant`, `hop1_bwd_variant`): "whole" at the
 flagship's widths (D 64/128 up to 64 kv rows: every product on the tensor
-cores as 3xTF32, which keeps float32 accuracy), "wide" at D 256/512 and,
-K1 only, past 64 kv rows at D 128 (the weight products as tensor-core GEMMs
+cores as 3xTF32, which keeps float32 accuracy), "wide" at D 256/512 and
+past 64 kv rows at D 128 (K1 also at D 384-1024 and d_k 128: every D that
+is a multiple of 128 up to 1024; the weight products as tensor-core GEMMs
 over every row of the launch, two in K1 and three in K2, the attention or
 its backward between them, through a workspace this module allocates;
 K1's attention streams K and V in kv tiles past 64 kv rows) and "tiled"
@@ -215,11 +216,13 @@ def hop1_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> str:
     of 8 up to 32, Lk <= 64, aligned rows), "wide" (a projection GEMM, an
     attention kernel and a Wo GEMM, 3xTF32 on the tensor cores; the
     attention holds a group's K and V up to 64 kv rows and streams them in
-    tiles of 16 with an online softmax past that; D 256 or 512 at any Lk,
-    and D 128 past 64 kv rows, d_k a multiple of 8 up to 64, aligned rows)
-    or "tiled" (head groups, kv tiles with an online softmax, FMAs; every
-    other width: D 64 past 64 kv rows, D 1024, misaligned grids); ValueError
-    for widths none takes.  Builds the library on first use."""
+    tiles of 16 with an online softmax past that; every D that is a
+    multiple of 128 from 256 to 1024 at any Lk, and D 128 past 64 kv rows,
+    d_k 8, 16, 32, 64 or 128 (heads that tile its 128-column attention
+    blocks), aligned rows) or "tiled" (head groups, kv tiles with an online
+    softmax, FMAs; every other width: D above 1024, D 64 past 64 kv rows,
+    d_k 24, 48, 96, 15, 65 and the like, misaligned grids); ValueError for
+    widths none takes.  Builds the library on first use."""
     code = _fwd_lib().bist_hop1_fwd_variant(Lq, Lk, D, h, int(kv_vec))
     if code not in HOP1_VARIANTS:
         raise ValueError(f"hop1_fused: no kernel takes Lq={Lq} Lk={Lk} D={D} h={h}")
@@ -274,11 +277,12 @@ def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> s
     tensor-core dW pass; K1 "whole"'s domain: D 64 or 128, d_k a multiple
     of 8 up to 32, Lk <= 64, aligned rows, any Lq), "wide" (a projection
     GEMM, an attention-backward kernel, a dkv GEMM and a split dW GEMM,
-    3xTF32 on the tensor cores; K1 "wide"'s domain: D 256 or 512 at any
-    Lk and D 128 past 64 kv rows, d_k a multiple of 8 up to 64, aligned
-    rows; past 64 kv rows a group's rows split over attention blocks of at
+    3xTF32 on the tensor cores; D 256 or 512 at any Lk and D 128 past 64
+    kv rows, d_k a multiple of 8 up to 64, aligned rows, where K1 is "wide"
+    too; past 64 kv rows a group's rows split over attention blocks of at
     most 64) or "tiled" (FMA passes; every other width: D 64 past 64 kv
-    rows, D 1024, misaligned grids, the padded head widths).  Each reads
+    rows, D 384 and 640-1024, where K1 is "wide", d_k 128, misaligned
+    grids, the padded head widths).  Each reads
     whichever K1 kernel's residuals, one layout
     for all three: concat (B, G, Lq, D), lse (B, G, Lq, h), a fully masked
     row's lse -1e9.  ValueError for widths none takes.  Builds the library

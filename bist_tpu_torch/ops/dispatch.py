@@ -19,14 +19,18 @@ Neither rule looks at widths, dtypes or alignment: on the card a call that
 meets it goes to the kernel, which takes float32 and bfloat16 grids, every
 D with D % h == 0 (hop 1) and every head dim (flash).  K1 chooses among
 three kernels by shape (`ops.bist_kernels.hop1_variant`): "whole" at the
-flagship's D 64/128 up to 64 kv rows, "wide" at D 256/512 (`bist_tpu`'s
-default d_model 512 with 8 heads) and, past 64 kv rows (t2s over a video
-of more than 64 clips), at D 128 too, "tiled" elsewhere.  K2 has the same
-three (`hop1_bwd_variant`) over the same domains.  All three write one
-residual layout (concat (B, G, Lq, D), lse (B, G, Lq, h)), so K2 reads
-whichever forward ran.  "tiled" is known to be slower than the plain path
-at the widths it still holds: D 1024, D 64 past 64 kv rows and misaligned
-grids (PERF.md, section 6; ROADMAP's K4).
+flagship's D 64/128 up to 64 kv rows, "wide" at every D that is a
+multiple of 128 from 256 to 1024 (`bist_tpu`'s default d_model 512 with 8
+heads, d_model 1024 with 8) with d_k 8, 16, 32, 64 or 128 and, past 64 kv
+rows (t2s over a video of more than 64 clips), at D 128 too, "tiled"
+elsewhere: D above 1024, heads that do not tile 128 columns (d_k 24, 48,
+96, 15, 65, ...), D 64 past 64 kv rows and misaligned grids.  K2 has the
+same three (`hop1_bwd_variant`); its "wide" takes D 128 past 64 kv rows and
+D 256/512 with d_k up to 64, and "tiled" the widths K1 "wide" adds above
+(ROADMAP's K4.3.2).  All three write one residual layout (concat (B, G,
+Lq, D), lse (B, G, Lq, h)), so K2 reads whichever forward ran.  "tiled" is
+known to be slower than the plain path at the widths it still holds
+(PERF.md, section 6; ROADMAP's K4).
 
 `force_plain()` turns both kernels off, so one batch can run through the
 kernels and through the plain PyTorch paths for comparison (tests,

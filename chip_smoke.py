@@ -31,8 +31,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      of more than 64 clips: K1 "wide" over kv tiles at D 128-512, 65-600
      kv rows, a bfloat16 grid, one video, the training launch with K2
      "tiled" on its residuals; "t2s Lk200" and "t2s Lk200 D=512" with the
-     peak device memory of a call against plain's).  K1 and K2 also run at
-     widths neither takes (D 120, 520 and 1024 with 8 heads).  K3 (one kernel,
+     peak device memory of a call against plain's); at d_k 128 and every
+     D that is a multiple of 128 up to 1024 (K1 "wide" at D 1024 with 8 and
+     16 heads, t2s at B 8 and 64, s2t, 200 kv rows, a bfloat16 grid, the
+     training launch with K2 "tiled" on its residuals; D 512 with 4 heads,
+     D 768 with 12).  K1 and K2 also run at widths neither takes (D 120,
+     384 and 520 with 8 heads; K2 also at D 1024).  K3 (one kernel,
      csrc/flash_fwd.cu) at mha's shape in float32 and on a bfloat16 grid,
      one query row at d 16 and head dim 320, each beside one SDPA call by
      both methods;
@@ -249,7 +253,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      train step's loss and gradients at dropout 0 against force_plain
      (phase 6's bounds; K1 "wide" and K2 "wide" 6 each), 5 eager steps
      and a TrainProgram's replays (ms/step; K1 "wide" and K2 "wide" 6 a
-     step by kernel name).
+     step by kernel name).  Then the same configuration at d_model 1024
+     with 8 heads (d_k 128; K1 "wide"): beam search on 1 batch of 64
+     turns, eager and replayed, against force_plain the same way (K1
+     "wide" 6 a batch through the wrappers and by kernel name), and one
+     train step's loss and gradients against force_plain (K1 "wide" 6 with
+     residuals, K2 "tiled" 6).
  18. videos of more than 64 clips: 2 batches of 32 test turns with random
      grids of 65-180 clips (an 11-30 s video's 16-frame clips at stride 4,
      24 fps; padded to multiples of 40 by bucket_len, up to T 200), beam
@@ -874,14 +883,40 @@ def phase_kernels(device):
                    32, bf16=True),
         check_hop1(device, "serve s2t bf16", "whole", 32, 48, 32, 16, 128, 8, False, False,
                    33, bf16=True),
-        # widths "whole" is not built for: d_k 15 (padded to 16 in the
-        # kernel), D above 512 with d_k 65, D 1024; a bfloat16 grid
+        # "wide" at every D that is a multiple of 128 up to 1024 with heads
+        # that tile 128 columns: d_k 128 (one head an attention block) at
+        # D 1024 (8 heads) and at the reference's width (4 heads), d_k 64 at
+        # D 1024 and 768; each against "tiled" at the same inputs.  t2s at
+        # B 8 (the old "tiled" case, to compare with its earlier times) and
+        # at the main path's B 64, s2t, the kv-tile kernel past 64 kv rows,
+        # a bfloat16 grid, the training launch with K2 ("tiled" at D 1024)
+        # on its residuals
+        check_hop1(device, "t2s D=1024 h=8", "wide", 8, 16, 32, 40, 1024, 8, True, True,
+                   21, vs_tiled=True),
+        check_hop1(device, "t2s D=1024 B64", "wide", 64, 16, 32, 40, 1024, 8, True, True,
+                   72, vs_tiled=True),
+        check_hop1(device, "s2t D=1024", "wide", 64, 40, 32, 16, 1024, 8, False, False, 73,
+                   vs_tiled=True),
+        check_hop1(device, "t2s D=1024 h=16", "wide", 8, 16, 32, 40, 1024, 16, True, True,
+                   74, vs_tiled=True),
+        check_hop1(device, "t2s D=512 h=4", "wide", 64, 16, 32, 40, 512, 4, True, True, 75,
+                   vs_tiled=True),
+        check_hop1(device, "t2s Lk200 D=1024", "wide", 8, 16, 32, 200, 1024, 8, True, True,
+                   76, vs_tiled=True),
+        check_hop1(device, "t2s D=768 h=12", "wide", 8, 16, 32, 40, 768, 12, True, True, 77,
+                   vs_tiled=True),
+        check_hop1(device, "t2s D=1024 bf16", "wide", 8, 16, 32, 40, 1024, 8, True, True, 78,
+                   bf16=True, vs_tiled=True),
+        check_hop1(device, "train t2s D=1024", "wide", 32, 16, 32, 40, 1024, 8, True, True,
+                   79, True, vs_tiled=True, bwd=True),
+        # widths "whole" and "wide" are not built for: d_k 15 (padded to 16
+        # in the kernel), D above 512 with d_k 65, d_k 48; a bfloat16 grid
         check_hop1(device, "t2s D=120 h=8", "tiled", 8, 16, 32, 40, 120, 8, True, True,
                    19),
         check_hop1(device, "t2s D=520 h=8", "tiled", 8, 16, 32, 40, 520, 8, True, True,
                    20),
-        check_hop1(device, "t2s D=1024 h=8", "tiled", 8, 16, 32, 40, 1024, 8, True, True,
-                   21),
+        check_hop1(device, "t2s D=384 h=8", "tiled", 8, 16, 32, 40, 384, 8, True, True,
+                   80),
         check_hop1(device, "t2s D=120 h=8 bf16", "tiled", 8, 16, 32, 40, 120, 8, True,
                    True, 22, bf16=True),
     ]
@@ -4802,62 +4837,78 @@ def generation_against_plain(device, what, params, cfg, batches, variant):
     return generation
 
 
-def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
-                          model_kw=REFERENCE_WIDTH):
-    """The flagship configuration at bist_tpu's default width (`model_kw`:
-    d_model 512, 8 heads; hop 1 through K1 "wide"), random weights from
-    seed 0:
-
-      * beam search (phase 3's settings) on n_batches batches of B test
-        turns against force_plain (`generation_against_plain`: K1 "wide" 6
-        a batch through the wrappers and by kernel name in the replays);
-      * training without dropout on 2 cycled batches of train_B turns: one
-        step's loss and gradients against force_plain (phase 6's bounds,
-        K1 "wide" with residuals and K2 "wide" 6 each), `steps` eager Noam-
-        Adam steps (the wrappers' counts zeroed before, read after: K1 and
-        K2 "wide" 6 a step each) and a TrainProgram's warm-up, capture and
-        `steps` replays timed (ms/step, median after the first; its graph
-        pool), 2 replays under torch.profiler (K1 "wide" and K2 "wide" 6 a
-        step each by name) and the replayed step's device ms by kernel
-        (`step_breakdown`; empty on the CPU).
-    Returns the readings."""
-    import torch
-
+def width_leg(device, model_kw, n_batches, B, train_B, want):
+    """The flagship configuration at `model_kw`'s width, random weights from
+    seed 0: beam search (phase 3's settings) on n_batches batches of B test
+    turns against force_plain (`generation_against_plain`: K1 "wide" 6 a
+    batch through the wrappers and by kernel name in the replays, tokens
+    identical), then, without dropout, 2 batches of train_B train turns and
+    the first one's loss and gradients against force_plain (phase 6's
+    bounds), K1 and K2 through the wrappers by kernel as `want` says on the
+    card (none on the CPU).  Returns the generation's readings, the
+    gradient check, the train state, its optimizer, the model and train
+    configurations and the train batches."""
     from bist_tpu_torch.config import TrainConfig
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import to_device
     from bist_tpu_torch.models.model import init_model
-    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
-    from bist_tpu_torch.train.compiled import TrainProgram
-    from bist_tpu_torch.train.loop import create_train_state, make_train_step
+    from bist_tpu_torch.train.loop import create_train_state
     from bist_tpu_torch.vocab import get_vocabulary
 
     cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    wide = "wide" if cuda else None
+    what = f"d_model {model_kw['d_model']}"
     vocab = get_vocabulary(TEST_JSON, cutoff=3, include_caption="summary")
     cfg = flagship_cfg(len(vocab), **model_kw)
     data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True,
                      undisclosed_only=True)
     batches = [to_device(b, device) for b in make_batches(data, n_batches, B, seed=0)]
     params = init_model(0, cfg, device=device)
-    generation = generation_against_plain(device, "d_model 512", params, cfg, batches, wide)
-    del params
+    generation = generation_against_plain(device, what, params, cfg, batches,
+                                          "wide" if cuda else None)
+    del params, batches
 
-    # training without dropout: K1 "wide" with residuals, K2 "wide"
     tcfg_model = flagship_cfg(len(vocab), **model_kw, dropout=0.0, attn_dropout=0.0)
     tcfg = TrainConfig(warmup_steps=10)
     train_data = load_avsd(TEST_JSON, vocab, include_caption="summary", separate_caption=True)
     tb = [to_device(b, device) for b in make_batches(train_data, 2, train_B, seed=1,
                                                      answers=True)]
     state, tx = create_train_state(0, tcfg_model, tcfg, device=device)
-    start = copy_state(state)
     grad_check = grads_against_plain(device, state, tcfg_model, tcfg, tb[0])
-    want = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"wide": 6}} if cuda else \
-        {"hop1_fwd": {}, "hop1_bwd": {}}
+    want = want if cuda else {"hop1_fwd": {}, "hop1_bwd": {}}
     if grad_check["variants"] != want:
-        raise AssertionError(f"d_model 512 gradient check: K1, K2 by kernel "
+        raise AssertionError(f"{what} gradient check: K1, K2 by kernel "
                              f"{grad_check['variants']}, expected {want}")
+    return generation, grad_check, state, tx, tcfg_model, tcfg, tb
+
+
+def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
+                          model_kw=REFERENCE_WIDTH):
+    """The flagship configuration at bist_tpu's default width (`model_kw`:
+    d_model 512, 8 heads; hop 1 through K1 "wide"), random weights from
+    seed 0:
+
+      * beam search and one step's loss and gradients against force_plain
+        (`width_leg`: K1 "wide" with residuals and K2 "wide" 6 each);
+      * training without dropout on the 2 cycled train batches: `steps`
+        eager Noam-Adam steps (the wrappers' counts zeroed before, read
+        after: K1 and K2 "wide" 6 a step each) and a TrainProgram's warm-up,
+        capture and `steps` replays timed (ms/step, median after the first;
+        its graph pool), 2 replays under torch.profiler (K1 "wide" and K2
+        "wide" 6 a step each by name) and the replayed step's device ms by
+        kernel (`step_breakdown`; empty on the CPU).
+    Returns the readings."""
+    import torch
+
+    from bist_tpu_torch.ops.bist_kernels import hop1_bwd, hop1_fused
+    from bist_tpu_torch.train.compiled import TrainProgram
+    from bist_tpu_torch.train.loop import make_train_step
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    generation, grad_check, state, tx, tcfg_model, tcfg, tb = width_leg(
+        device, model_kw, n_batches, B, train_B,
+        {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"wide": 6}})
+    start = copy_state(state)
     step = make_train_step(tcfg_model, tcfg, tx)
     reset_hop1_counts()
     hop1_bwd.launches, hop1_bwd.variants = 0, {}
@@ -4916,6 +4967,32 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
     if cuda:
         torch.cuda.empty_cache()
     return {"config": model_kw, "generation": generation, "training": training}
+
+
+WIDTH_1024 = dict(d_model=1024, att_h=8)
+# K1 and K2 through the wrappers by kernel in phase 17's d_model 1024
+# gradient check: K2 keeps "tiled" at D 1024 (ROADMAP's K4.3.2)
+WIDTH_1024_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 6}}
+
+
+def phase_width_1024(device, B=64, train_B=32, model_kw=WIDTH_1024):
+    """Phase 17's leg at d_model 1024 with 8 heads (`model_kw`; d_k 128,
+    hop 1 through K1 "wide"): `width_leg` on 1 batch of B test turns and a
+    train batch of train_B turns, K1 and K2 in its gradient check as
+    WIDTH_1024_TRAIN says.  Returns the readings."""
+    import torch
+
+    t0 = time.perf_counter()
+    generation, grad_check, state, *_ = width_leg(device, model_kw, 1, B, train_B,
+                                                  WIDTH_1024_TRAIN)
+    out = {"config": model_kw, "generation": generation,
+           "training": {"batch_size": train_B, "grad_check": grad_check},
+           "seconds": time.perf_counter() - t0}
+    log(f"d_model {model_kw['d_model']}: {json.dumps(out)}")
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5281,6 +5358,20 @@ def main() -> int:
     print(f"reference width on {card}: {json.dumps(ref)}", flush=True)
     lap("reference width")
 
+    w1024 = phase_width_1024(device)
+    rps = w1024["generation"]["responses_per_s"]
+    chk = w1024["training"]["grad_check"]
+    print(f"d_model 1024, 8 heads on {card}: beam search {rps['kernels_replayed']:.1f} "
+          f"responses/s replayed ({rps['kernels_eager']:.1f} eager) against plain "
+          f"{rps['plain_replayed']:.1f} ({rps['plain_eager']:.1f}), tokens identical to plain "
+          f"on {w1024['generation']['tokens_identical_to_plain']['replayed']} rows, K1 by name "
+          f"{json.dumps(w1024['generation']['replayed_k1_by_name'])}; train step B "
+          f"{w1024['training']['batch_size']}: loss {chk['loss_rel_diff']:.2e} rel of plain, "
+          f"gradients max |diff| {chk['max_abs_diff']:.2e}, K1/K2 by kernel "
+          f"{json.dumps(chk['variants'])}; {w1024['seconds']:.1f} s", flush=True)
+    print(f"d_model 1024 on {card}: {json.dumps(w1024)}", flush=True)
+    lap("d_model 1024")
+
     long = phase_long_video(device)
     print(f"long videos on {card}: " + "; ".join(
         f"d_model {w} beam search {g['responses_per_s']['kernels_replayed']:.1f} responses/s "
@@ -5302,8 +5393,14 @@ def main() -> int:
     print(f"long videos on {card}: {json.dumps(long)}", flush=True)
     lap("long videos")
 
-    ref_k1 = gen["replayed_k1_by_name"]
-    ref_k2 = trn["eager_launches"]["hop1_bwd"]
+    # phase 17 at d_model 512 and, for K1 in the replays, at d_model 1024
+    ref_k1 = {k: gen["replayed_k1_by_name"][k]
+              + w1024["generation"]["replayed_k1_by_name"][k] for k in K1_NONE}
+    # K2 through the wrapper in phase 17's eager steps and its d_model 1024
+    # gradient check
+    ref_k2 = {k: trn["eager_launches"]["hop1_bwd"].get(k, 0)
+              + chk["variants"]["hop1_bwd"].get(k, 0) for k in K2_NONE}
+    ref_k2 = {k: n for k, n in ref_k2.items() if n}
     long_k1 = {k: sum(g["replayed_k1_by_name"][k] for g in long["generation"].values())
                for k in K1_NONE}
     # K2 through the wrapper in the long videos' gradient check and timed
@@ -5312,6 +5409,7 @@ def main() -> int:
                + long["train_step"]["speed"]["kernel_launches"]["hop1_bwd"].get(k, 0)
                for k in K2_NONE}
     wide_main = next(c for c in hop1_cases if c["case"] == "t2s D=512")
+    wide_1024 = next(c for c in hop1_cases if c["case"] == "t2s D=1024 h=8")
     wide_bwd = next(c for c in bwd_cases if c["case"] == "train t2s D=512")
     wide_bwd_long = next(c for c in bwd_cases if c["case"] == "train t2s Lk200 D=512")
     kernels = [
@@ -5322,14 +5420,20 @@ def main() -> int:
                           f"beam_search replayed (one CUDA graph a geometry), counted by "
                           f"kernel name: the flagship's {main_path['batches']} batches of "
                           f"{main_path['batch_size']} (phase 3), the reference width's "
-                          f"{gen['batches']} batches of {gen['batch_size']} (phase 17) and "
+                          f"{gen['batches']} batches of {gen['batch_size']} and d_model "
+                          f"1024's {w1024['generation']['batches']} (phase 17) and "
                           f"the long videos' batches at d_model 128 and 512 (phase 18)"),
              variants={k: main_path["hop1_variants"].get(k, 0) + ref_k1.get(k, 0)
                        + long_k1[k] for k in K1_NONE
                        if main_path["hop1_variants"].get(k, 0) + ref_k1.get(k, 0) + long_k1[k]},
              launches_main_path=main_path["launches"]["hop1_fwd"],
-             launches_reference_width={"beam_search_replayed": ref_k1,
+             launches_reference_width={"beam_search_replayed": gen["replayed_k1_by_name"],
                                        "train_replayed": trn["replayed_by_name"]["k1"]},
+             # phase 17's d_model 1024 leg: K1 by name in its beam-search
+             # replays, through the wrapper in its gradient check
+             launches_width_1024={
+                 "beam_search_replayed": w1024["generation"]["replayed_k1_by_name"],
+                 "grad_check": chk["variants"]["hop1_fwd"]},
              # K1 kernels the card ran by name in the long videos' beam-search
              # replays (phase 18) at each width, and through the wrapper in
              # its train step
@@ -5340,6 +5444,12 @@ def main() -> int:
              wide={k: wide_main[k] for k in ("case", "ms", "device_ms", "plain_ms",
                                              "bound_ms", "bound_by", "tiled_ms",
                                              "max_abs_err")},
+             # "wide" at D 1024, d_k 128 (phase 2's t2s D=1024 h=8 case, B 8)
+             # and each of its kernels' device ms
+             wide_d1024={k: wide_1024[k] for k in (
+                 "case", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                 "bound_by", "tiled_ms", "tiled_device_ms", "max_abs_err",
+                 "kernel_device_ms")},
              launches_train=train["launches"]["hop1_fwd"],
              # K1 kernels the card ran in 3 train and 2 eval replays, by name
              launches_train_replayed=train["compiled"]["no_dropout"]["replayed_by_name"]["k1"],
@@ -5372,8 +5482,9 @@ def main() -> int:
                           f"eager train steps, counted through the wrapper: the "
                           f"flagship's {train['steps']} steps of {train['batch_size']} "
                           f"(phase 6), the reference width's {trn['steps']} steps of "
-                          f"{trn['batch_size']} (phase 17) and the long videos' gradient "
-                          f"check and timed steps (phase 18)"),
+                          f"{trn['batch_size']} and d_model 1024's gradient check (phase "
+                          f"17) and the long videos' gradient check and timed steps "
+                          f"(phase 18)"),
              variants={k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
                        + long_k2.get(k, 0) for k in K2_NONE
                        if train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
@@ -5390,8 +5501,9 @@ def main() -> int:
                  "case", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "tiled_ms",
                  "max_abs_err", "kernel_device_ms", "peak_mb")},
              # K2 at the reference width (phase 17): eager steps through the
-             # wrapper, and kernels (first pass; "wide" by its attention
-             # kernel) the card ran in 2 train replays, by name
+             # wrapper (and d_model 1024's gradient check: "tiled"), and
+             # kernels (first pass; "wide" by its attention kernel) the card
+             # ran in 2 train replays, by name
              launches_reference_width={"eager": ref_k2,
                                        "train_replayed": trn["replayed_by_name"]["k2"]},
              # K2 through the wrapper in the long videos' train steps (phase 18)

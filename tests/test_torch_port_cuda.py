@@ -107,6 +107,17 @@ def test_hop1_kernel_matches_plain(cuda, B, G, Lq, Lk, D, h):
     ("wide", 2, 16, 5, 130, 128, 8, True, True),       # one query tile, a bfloat16 grid
     ("wide", 2, 5, 33, 100, 256, 32, True, False),     # d_k 8, two query chunks
     ("wide", 2, 4, 40, 70, 128, 2, False, False),      # D 128, heads 64 wide
+    # d_k 128 (one head an attention block) and every D that is a multiple
+    # of 128 up to 1024
+    ("wide", 2, 16, 32, 40, 1024, 8, True, False),     # d_model 1024, 8 heads
+    ("wide", 2, 40, 32, 16, 1024, 8, False, False),    # s2t
+    ("wide", 3, 16, 5, 37, 1024, 8, True, False),      # rows that fill no tile
+    ("wide", 2, 16, 32, 40, 512, 4, True, True),       # a bfloat16 grid
+    ("wide", 2, 8, 32, 130, 1024, 8, True, False),     # kv tiles at d_k 128
+    ("wide", 2, 8, 12, 65, 384, 3, False, False),      # one query tile, D 384
+    ("wide", 2, 4, 33, 100, 128, 1, False, False),     # D 128 past 64 kv rows, d_k 128
+    ("wide", 2, 16, 32, 40, 768, 12, True, False),     # D 768, heads 64 wide
+    ("wide", 2, 7, 33, 9, 640, 80, False, False),      # D 640, heads 8 wide
 ])
 def test_hop1_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
     """K1's three kernels at the main path's widths and around them, in the
@@ -193,24 +204,34 @@ def test_hop1_forced_variants_agree(cuda):
 @pytest.mark.cuda
 def test_hop1_variant_past_64_kv_rows(cuda):
     """K1's and K2's rule past 64 kv rows (a video of more than 64 clips at
-    t2s): "wide" at D 128, 256 and 512 for aligned grids with d_k a multiple
-    of 8 up to 64, "tiled" at D 64 and 1024, for a misaligned grid and at
-    the padded head widths; "whole" and "wide" at Lk <= 64 as before.  K2
-    takes the kernel K1 takes."""
-    for D in (128, 256, 512):
-        for h in (D // 64, D // 32, 8, D // 8):
-            for Lk in (65, 200, 600):
+    t2s) and below: K1 "wide" at D 128 past 64 kv rows and at every D that
+    is a multiple of 128 from 256 to 1024 at any Lk, for aligned grids with
+    d_k 8, 16, 32, 64 or 128 (heads that tile 128 columns); "tiled" at D
+    64, 384 with 8 heads (d_k 48), 520, 120 and 1152, for a misaligned grid
+    and at the padded head widths; "whole" at D 128 up to 64 kv rows with
+    d_k up to 32.  K2 takes K1's "wide" at D 128, 256 and 512 with d_k up
+    to 64, and "tiled" at the widths K1 "wide" adds."""
+    for D in (128, 256, 384, 512, 640, 768, 896, 1024):
+        for dk in (8, 16, 32, 64, 128):
+            h = D // dk
+            k2_wide = D in (128, 256, 512) and dk <= 64
+            for Lk in (1, 40, 64, 65, 200, 600):
                 for Lq in (5, 32):
-                    assert K1.hop1_variant(Lq, Lk, D, h) == "wide", (Lq, Lk, D, h)
-                    assert K1.hop1_bwd_variant(Lq, Lk, D, h) == "wide", (Lq, Lk, D, h)
+                    want = "whole" if D == 128 and Lk <= 64 and dk <= 32 else \
+                        "tiled" if D == 128 and Lk <= 64 else "wide"
+                    assert K1.hop1_variant(Lq, Lk, D, h) == want, (Lq, Lk, D, h)
+                    # K2 "whole" has a shared-memory rule of its own: held at
+                    # 8 heads
+                    if want != "whole" or h == 8:
+                        assert K1.hop1_bwd_variant(Lq, Lk, D, h) == \
+                            ("tiled" if want == "wide" and not k2_wide else want), \
+                            (Lq, Lk, D, h)
             assert K1.hop1_variant(32, 200, D, h, kv_vec=False) == "tiled"
             assert K1.hop1_bwd_variant(32, 200, D, h, kv_vec=False) == "tiled"
-        for Lk in (1, 40, 64):
-            assert K1.hop1_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
-            assert K1.hop1_bwd_variant(32, Lk, D, 8) == ("whole" if D == 128 else "wide")
-    for D, h in ((64, 4), (1024, 8), (520, 8), (120, 8)):
-        assert K1.hop1_variant(32, 200, D, h) == "tiled", (D, h)
-        assert K1.hop1_bwd_variant(32, 200, D, h) == "tiled", (D, h)
+    for D, h in ((64, 4), (520, 8), (120, 8), (384, 8), (1152, 8), (1024, 4), (768, 8)):
+        for Lk in (200,) if D == 64 else (40, 200):
+            assert K1.hop1_variant(32, Lk, D, h) == "tiled", (D, h, Lk)
+            assert K1.hop1_bwd_variant(32, Lk, D, h) == "tiled", (D, h, Lk)
 
 
 @pytest.mark.cuda
@@ -325,8 +346,8 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
     it never runs the plain version: a bfloat16 model's hop 1 and long-kv
     mha launch K1 and K3; hop 1 (K1, K1 with residuals, K2) at widths
     "whole" and "wide" do not take (D not a multiple of 8, d_k not one of 4,
-    D above 512, a misaligned grid: "tiled"; the same grid aligned goes to
-    "whole" at D 128 and "wide" at D 512), float32 and bfloat16 grids with a
+    d_k 65, a misaligned grid: "tiled"; the same grid aligned goes to
+    "whole" at D 128 and "wide" at D 512 and 1024), float32 and bfloat16 grids with a
     fully masked row, and K3 at head dim 320, launch and agree with the
     plain versions within 2e-4 + 2e-4·|plain| (a bfloat16 dkv within one
     rounding)."""
@@ -369,7 +390,7 @@ def test_bf16_model_and_wide_hop1_launch_or_raise(cuda, monkeypatch):
         raw = tensor(rng, (B * Lk * G * D + 1,), cuda)
         # a t2s-style strided view, its rows one element off the 16 bytes
         grid = raw[1:].view(B, Lk, G, D).transpose(1, 2)
-        if D in (128, 512):
+        if D in (128, 512, 1024):
             assert K1.hop1_variant(Lq, Lk, D, h, K1._rows_vec4(grid)) == "tiled"
             aligned = raw[:-1].view(B, Lk, G, D).transpose(1, 2)
             assert K1.hop1_variant(Lq, Lk, D, h, K1._rows_vec4(aligned)) == \
