@@ -33,7 +33,8 @@
 // rows, both summed in a fixed order by sum_middle_kernel.  Three designs
 // for the passes that do the work, chosen by shape before any launch
 // (`hop1_bwd_variant`, exported as bist_hop1_bwd_variant; the rule of
-// hop1_fwd.cu's `hop1_variant` up to D 512 and d_k 64):
+// hop1_fwd.cu's `hop1_variant`, "wide"'s from one function of both,
+// hop1_gemm.cuh's wide_widths):
 //
 // "whole", for hop1_fwd.cu's "whole" domain (D 64 or 128, a head width d_k
 // a multiple of 8 up to 32, Lk <= 64, kv rows of aligned 4-element vectors)
@@ -94,25 +95,27 @@
 // tile, [dk | dv]) split once a block.  The next step is more warps an SM
 // (ROADMAP).
 //
-// "wide", for D 256 or 512 at any Lk and D 128 past 64 kv rows, d_k a
-// multiple of 8 up to 64, aligned kv rows (where hop1_fwd.cu's is "wide"
-// too; its D 384 and 640-1024 and d_k 128 stay "tiled" here);
-// bist_tpu's default d_model 512 with 8 heads, and t2s over a video of more
-// than 64 clips), reading "wide"'s residuals.  "whole"'s one block a group
-// cannot hold a group there (at D 512 its K, V, dK and dV are 320 KB at Lk
-// 40), and "tiled" recomputes K/V from 2 MB of weights in every (b, g)
-// block on the FMA units.  Three quarters of the work are the three D x D
-// products, so they become GEMMs over every kv row of the launch (M =
+// "wide", for hop1_fwd.cu's "wide" domain (wide_widths: every D that is a
+// multiple of 128 from 256 to 1024 at any Lk and D 128 past 64 kv rows,
+// d_k 8, 16, 32, 64 or 128, aligned kv rows; bist_tpu's default d_model 512
+// with 8 heads, d_model 1024 with 8, and t2s over a video of more than 64
+// clips), reading "wide"'s residuals.  "whole"'s one block a group cannot
+// hold a group there (at D 512 its K, V, dK and dV are 320 KB at Lk 40),
+// and "tiled" recomputes K/V from 2 MB of weights (8 MB at D 1024) in every
+// (b, g) block on the FMA units (at D 1024 3.4x slower than the plain
+// path).  Three quarters of the work are the three D x D products, so they
+// become GEMMs over every kv row of the launch (M =
 // B·G·Lk), the weights resident in L2, on hop1_gemm.cuh's tensor-core GEMM
 // in K2's setting (splits rounded to nearest, each k-step's three passes
 // added to a float32 total: mma_step).  On the caller's stream:
 //   1. hop1_bwd_wide_proj_kernel: [K | V] = kv [Wk | Wv] + [bk | bv] into
 //      the workspace (M x 2D), kv read through its strides (K1's stage 1);
 //   2. hop1_bwd_wide_attn_kernel: one block of 8 warps a (b, g, kv slice,
-//      128 columns), all of Lq in chunks of 32 rows.  A slice is at most 64
-//      of the group's kv rows (4 tiles of 16, the tiles spread evenly over
-//      ceil(tiles / 4) slices: one slice up to 64 rows), since a block holds
-//      at most 4 tiles' K, V and dq shares (189 KB); dK and dV of a slice's
+//      128 columns: 128 / d_k heads), all of Lq in chunks of 32 rows.  A
+//      slice is at most 64 of the group's kv rows (4 tiles of 16, the
+//      tiles spread evenly over ceil(tiles / 4) slices: one slice up to 64
+//      rows), since a block holds at most 4 tiles' K, V and dq shares (189
+//      KB); dK and dV of a slice's
 //      rows need only the slice and all of Lq, so the slices' blocks share
 //      nothing but the query rows they read.  One warp a (head, 16 kv rows)
 //      task computes sᵀ, dpᵀ, pᵀ and dsᵀ with kv rows in the MMA's
@@ -121,7 +124,12 @@
 //      (the block has read its K and V columns first); dq's share of each
 //      kv tile goes through a staging tile of dsᵀ, and the tiles' shares
 //      are summed in order into dq's partial per (b, g, slice), which
-//      sum_middle adds over g and the slices in a fixed order;
+//      sum_middle adds over g and the slices in a fixed order.  At d_k 128
+//      (one head a block) a task is one half of the head's output columns:
+//      two warps compute the same sᵀ and dpᵀ over all 128 columns and each
+//      writes 64 columns of dV, dK and dq, which holds a thread to d_k 64's
+//      accumulators (64 for dq's share, where a whole head would take 128
+//      of the 255 registers) and keeps 8 warps busy on 4 kv tiles;
 //   3. hop1_bwd_wide_dkv_kernel: dkv = [dK | dV] [Wkᵀ ; Wvᵀ], one GEMM
 //      with a 2D-deep contraction, in kv's dtype;
 //   4. hop1_bwd_wide_dw_kernel: [dWk | dWv] = kvᵀ [dK | dV] (D x 2D), kvᵀ
@@ -130,7 +138,9 @@
 //      fill the SMs; dbk, dbv as float32 column sums of the staged [dK |
 //      dV] tiles in blocked order, not on the tensor cores (dbk is
 //      analytically 0).
-// Every GEMM and the attention kernel run one block of 8 warps an SM.
+// Every GEMM and the attention kernel run one block of 8 warps an SM; the
+// GEMMs tile D in 128s (at D 1024 dkv contracts over 2D = 2048 rows, and a
+// dW chunk has 128 output tiles and an 8.4 MB partial).
 // What bounds it: operations.  At the reference width's train step (t2s
 // B32 G16 Lq32 Lk40 D512) the three GEMMs are 3 x 21.5 GFLOP and the
 // bound is 0.41 ms at 495/3 TFLOP/s; it takes ~1.8 ms of device time, its
@@ -1452,10 +1462,10 @@ hop1_bwd_dw_whole_kernel(const TKV* __restrict__ kv, long long kv_sb, long long 
 }
 
 // ---------------------------------------------------------------------------
-// "wide": D 256 or 512, and D 128 past 64 kv rows, in four kernels and the
-// fixed-order sums, the three D x D products as GEMMs over every kv row of
-// the launch (hop1_gemm.cuh in K2's setting: splits rounded to nearest,
-// chains of one k-step).
+// "wide": wide_widths' D (a multiple of 128 from 256 to 1024, and 128 past
+// 64 kv rows) in four kernels and the fixed-order sums, the three D x D
+// products as GEMMs over every kv row of the launch (hop1_gemm.cuh in K2's
+// setting: splits rounded to nearest, chains of one k-step).
 
 constexpr int kWideBwdThreads = 256;   // an attention-backward block: 8 warps
 constexpr int kWideQc = 32;            // query rows a chunk of it
@@ -1574,7 +1584,9 @@ __device__ __forceinline__ void store_rows(float* out, int D, int t0, const bool
 // of Lq, and slices are disjoint: no two tasks or blocks write one element,
 // no atomics.  The mask row, p = 1/Lk of a fully masked batch row, lse and
 // Dh are the group's whole ones.  The semantics of autograd through
-// hop1_plain, as bwd_task's.  kDk8 = d_k / 8.
+// hop1_plain, as bwd_task's.  kDk8 = d_k / 8.  Past d_k 64 a task writes
+// one half of its head's columns (kParts tasks a head and kv tile, the same
+// sᵀ and dpᵀ in each): a thread holds at most 8 8-column output tiles.
 template <int kDk8>
 __global__ void __launch_bounds__(kWideBwdThreads, 1)
 hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __restrict__ mask,
@@ -1586,6 +1598,8 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
   constexpr int dk = 8 * kDk8, hg = kWideCols / dk;
   constexpr int kNQ = kWideQc / 8;       // 8-column tiles of sᵀ (query rows)
   constexpr int kMQ = kWideQc / 16;      // 16-row query tiles of dq
+  constexpr int kDo8 = kDk8 < 8 ? kDk8 : 8;   // 8-column output tiles a task
+  constexpr int kParts = kDk8 / kDo8;         // tasks a (head, kv tile)
   constexpr int kWarpsB = kWideBwdThreads / 32;
   extern __shared__ float4 smem4[];
   const int S = wide_slices(Lk);
@@ -1623,9 +1637,10 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();   // K and V (at the first chunk), q and d_concat landed
-    for (int task = warp; task < hg * mt; task += kWarpsB) {
-      const int hd = task / mt, m = task % mt;
+    for (int task = warp; task < hg * mt * kParts; task += kWarpsB) {
+      const int hd = task / (mt * kParts), m = task / kParts % mt, part = task % kParts;
       const int hc = hd * dk, head = cg / dk + hd;
+      const int oc = hc + part * 8 * kDo8;   // the task's first output column
       const float* km = k_s + m * 16 * ld + hc;
       const float* vm = v_s + m * 16 * ld + hc;
       // sᵀ and dpᵀ: kv rows m·16 + fg (+ 8), query rows n·8 + 2·ft (+ 1)
@@ -1634,7 +1649,10 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
       for (int n = 0; n < kNQ; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
+      // d_k 128's 16 k-steps 4 at a time: unrolled whole, the loop spilled
+      // at the 255 registers (ptxas: 238 registers and no spill this way,
+      // and faster on the H100)
+#pragma unroll (kDk8 > 8 ? 4 : kDk8)
       for (int ks = 0; ks < kDk8; ++ks) {
         uint32_t kh[4], kl[4], vh[4], vl[4];
         load_a_rows<false, true>(km + ks * 8, ld, fg, ft, kh, kl);
@@ -1683,15 +1701,17 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
           }
         }
       {
-        // dV_m = pᵀ d_concat and dK_m = dsᵀ q into the workspace
-        float o[kDk8][4];
-        tile_t_times<kNQ, kDk8>(s, c_s + hc, ld, fg, ft, o);
-        store_rows<kDk8>(kb + D + hc + 2 * ft, D, t0, inside, q0 > 0, o);
-        tile_t_times<kNQ, kDk8>(dp, q_s + hc, ld, fg, ft, o);
-        store_rows<kDk8>(kb + hc + 2 * ft, D, t0, inside, q0 > 0, o);
+        // the task's columns of dV_m = pᵀ d_concat and dK_m = dsᵀ q into
+        // the workspace
+        float o[kDo8][4];
+        tile_t_times<kNQ, kDo8>(s, c_s + oc, ld, fg, ft, o);
+        store_rows<kDo8>(kb + D + oc + 2 * ft, D, t0, inside, q0 > 0, o);
+        tile_t_times<kNQ, kDo8>(dp, q_s + oc, ld, fg, ft, o);
+        store_rows<kDo8>(kb + oc + 2 * ft, D, t0, inside, q0 > 0, o);
       }
-      // dq's share of kv tile m: ds K_m, ds through the staging tile (dsᵀ:
-      // kv rows x query rows) as the transposed A operand
+      // the task's columns of dq's share of kv tile m: ds K_m, ds through
+      // the staging tile (dsᵀ: kv rows x query rows) as the transposed A
+      // operand
 #pragma unroll
       for (int n = 0; n < kNQ; ++n) {
         float* dst = st_s + fg * ldst + n * 8 + 2 * ft;
@@ -1699,11 +1719,11 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
         *reinterpret_cast<float2*>(dst + 8 * ldst) = make_float2(dp[n][2], dp[n][3]);
       }
       __syncwarp();
-      float o[kMQ][kDk8][4];
+      float o[kMQ][kDo8][4];
 #pragma unroll
       for (int mi = 0; mi < kMQ; ++mi)
 #pragma unroll
-        for (int c = 0; c < kDk8; ++c)
+        for (int c = 0; c < kDo8; ++c)
           o[mi][c][0] = o[mi][c][1] = o[mi][c][2] = o[mi][c][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
@@ -1713,9 +1733,9 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
           load_a_cols<false, true>(st_s + ks * 8 * ldst + mi * 16, ldst, fg, ft, ah[mi],
                                    al[mi]);
 #pragma unroll
-        for (int c = 0; c < kDk8; ++c) {
+        for (int c = 0; c < kDo8; ++c) {
           uint32_t bh[2], bl[2];
-          load_b<true>(km + ks * 8 * ld + c * 8, ld, fg, ft, bh, bl);
+          load_b<true>(km + ks * 8 * ld + (oc - hc) + c * 8, ld, fg, ft, bh, bl);
 #pragma unroll
           for (int mi = 0; mi < kMQ; ++mi) mma_step<false>(o[mi][c], ah[mi], al[mi], bh, bl);
         }
@@ -1724,8 +1744,8 @@ hop1_bwd_wide_attn_kernel(const float* __restrict__ q, float* kvp, const int* __
 #pragma unroll
       for (int mi = 0; mi < kMQ; ++mi)
 #pragma unroll
-        for (int c = 0; c < kDk8; ++c) {
-          float* dst = dq_s + (m * kWideQc + mi * 16 + fg) * ld + hc + c * 8 + 2 * ft;
+        for (int c = 0; c < kDo8; ++c) {
+          float* dst = dq_s + (m * kWideQc + mi * 16 + fg) * ld + oc + c * 8 + 2 * ft;
           *reinterpret_cast<float2*>(dst) = make_float2(o[mi][c][0], o[mi][c][1]);
           *reinterpret_cast<float2*>(dst + 8 * ld) = make_float2(o[mi][c][2], o[mi][c][3]);
         }
@@ -1861,13 +1881,16 @@ hop1_bwd_wide_dw_kernel(const TKV* __restrict__ kv, long long kv_sb, long long k
 // step; 32 output tiles each at D 512, enough blocks for every SM).
 int wide_dw_chunks(int M) { return (M + kWideDwRows - 1) / kWideDwRows; }
 
-// The attention-backward kernel for head width d_k (8, 16, 32 or 64).
+// The attention-backward kernel for head width d_k (8, 16, 32, 64 or 128);
+// null for any other d_k (hop1_bwd_variant never gives "wide" one).
 const void* wide_bwd_attn_kernel(int dk) {
   switch (dk) {
     case 8: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<1>);
     case 16: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<2>);
     case 32: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<4>);
-    default: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<8>);
+    case 64: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<8>);
+    case 128: return reinterpret_cast<const void*>(hop1_bwd_wide_attn_kernel<16>);
+    default: return nullptr;
   }
 }
 
@@ -1933,11 +1956,12 @@ int dw_whole_chunks(int nrows, int D) {
 // "wide" copy them in 16-byte and 8-byte pieces) alone, never from an
 // error: "whole" has hop1_fwd.cu's "whole" domain (D 64 or 128, d_k a
 // multiple of 8 up to 32, Lk <= 64, aligned rows) at any Lq, "wide"
-// D 256 or 512 at any Lk and D 128 past kWideMaxLk kv rows, d_k a
-// multiple of 8 up to 64, aligned rows (past 4 16-row tiles a group's kv
-// rows split over blocks, wide_slices); "tiled" every other width it plans
-// (D 64 past 64 kv rows, D 384 and 640 and up, d_k 128, misaligned grids,
-// the padded head widths).  Every variant reads every
+// hop1_fwd.cu's "wide" domain, from the one rule of both (wide_widths: D a
+// multiple of 128 from 256 to kWideMaxD at any Lk and D 128 past
+// kWideMaxLk kv rows, d_k 8, 16, 32, 64 or 128, aligned rows; past 4
+// 16-row tiles a group's kv rows split over blocks, wide_slices); "tiled"
+// every other width it plans (D above 1024, d_k 24, 48, 96, 15, 65, ...,
+// D 64 past 64 kv rows, misaligned grids).  Every variant reads every
 // forward's residuals: one layout, concat (B, G, Lq, D) and lse (B, G, Lq,
 // h), a fully masked row's lse -1e9 (its -1e9 + log Lk in float32).
 int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
@@ -1946,9 +1970,7 @@ int hop1_bwd_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (kv_vec && (D == 64 || D == 128) && dk % 8 == 0 && dk <= 32 && Lk <= kWholeMaxLk &&
       bwd_whole_smem(Lq, Lk, D, h, bwd_groups(2, Lk), 4) <= kSmemLimit)
     return kVariantWhole;
-  if (kv_vec && dk % 8 == 0 && dk <= 64 &&
-      (D == 256 || D == 512 || (D == 128 && Lk > kWideMaxLk)))
-    return kVariantWide;
+  if (wide_widths(Lk, D, dk, kv_vec)) return kVariantWide;
   int qc, tk, hg;
   size_t smem;
   return hop1_bwd_plan(Lq, Lk, D, h, &qc, &tk, &hg, &smem) ? kVariantTiled : kVariantNone;
@@ -2059,6 +2081,7 @@ int launch_wide(const float* q, const TKV* kv, long long kv_sb, long long kv_sg,
   int threads[4];
   size_t smem[4];
   wide_kernels<TKV>(Lk, D, h, fn, threads, smem);
+  if (fn[1] == nullptr) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 4; ++i) {
     const int rc = set_smem(fn[i], smem[i]);
     if (rc != 0) return rc;

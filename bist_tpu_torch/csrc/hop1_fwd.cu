@@ -894,9 +894,6 @@ hop1_fwd_whole_kernel(const float* __restrict__ x, const float* __restrict__ q,
 // products as two GEMMs over every row of the launch.
 
 constexpr int kWideAttnThreads = 128;  // an attention block: 4 warps
-// widest D "wide" takes: the widths its cases on the card cover (phase 2 of
-// chip_smoke.py); the GEMMs take any multiple of kGN
-constexpr int kWideMaxD = 1024;
 constexpr int kWideTile = 16;          // kv rows a tile of the streaming attention kernel
 
 // Floats of a ring stage of the streaming attention kernel (Lk >
@@ -1374,11 +1371,10 @@ size_t whole_smem(int Lq, int Lk, int D, int G, int kv_bytes) {
 // whether kv's rows are aligned 4-element vectors ("whole" and "wide" copy
 // them in 16-byte and 8-byte pieces) alone ("whole": the float32 grid's
 // shared memory at two groups, the most it can need), never by an error.
-// "wide" takes D a multiple of kWideCols from 256 to kWideMaxD at any Lk,
-// and D 128 past kWideMaxLk kv rows, with d_k a multiple of 8 that divides
-// kWideCols (8, 16, 32, 64, 128: whole heads in its 128-column attention
-// blocks, one instantiation each); "tiled" the rest (D above kWideMaxD,
-// d_k 24, 48, 96, 15, 65, ..., D 64 past kWideMaxLk kv rows).
+// "wide" takes wide_widths' domain (hop1_gemm.cuh, K2's too): D a multiple
+// of kWideCols from 256 to kWideMaxD at any Lk, and D 128 past kWideMaxLk
+// kv rows, with d_k 8, 16, 32, 64 or 128; "tiled" the rest (D above
+// kWideMaxD, d_k 24, 48, 96, 15, 65, ..., D 64 past kWideMaxLk kv rows).
 int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
   if (!widths_ok(D, h) || Lq < 1 || Lk < 1) return kVariantNone;
   const int dk = D / h;
@@ -1386,10 +1382,7 @@ int hop1_variant(int Lq, int Lk, int D, int h, bool kv_vec) {
       whole_rows(1, Lk) <= kWholeMaxRows &&
       whole_smem(Lq, Lk, D, 2, 4) <= kSmemLimit)
     return kVariantWhole;
-  if (kv_vec && dk % 8 == 0 && kWideCols % dk == 0 &&
-      ((D % kWideCols == 0 && D >= 2 * kWideCols && D <= kWideMaxD) ||
-       (D == kWideCols && Lk > kWideMaxLk)))
-    return kVariantWide;
+  if (wide_widths(Lk, D, dk, kv_vec)) return kVariantWide;
   int qc, tk, hg;
   size_t smem;
   return hop1_plan(Lq, Lk, D, h, &qc, &tk, &hg, &smem) ? kVariantTiled : kVariantNone;

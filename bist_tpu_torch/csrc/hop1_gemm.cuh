@@ -28,6 +28,25 @@ constexpr int kWideCols = 128;         // head columns an attention block of K1 
 // K2's slices of a group's kv rows have their own size (hop1_bwd.cu,
 // kWideSliceTiles).
 constexpr int kWideMaxLk = 64;
+// widest D "wide" takes: the widths its cases on the card cover (phase 2 of
+// chip_smoke.py); the GEMMs take any multiple of kGN
+constexpr int kWideMaxD = 1024;
+
+// The widths K1 "wide" (hop1_fwd.cu's hop1_variant) and K2 "wide"
+// (hop1_bwd.cu's hop1_bwd_variant) take, one rule for both so that the
+// backward's domain is the forward's: every D that is a multiple of
+// kWideCols from 256 to kWideMaxD at any Lk, and D kWideCols past
+// kWideMaxLk kv rows, with a head width dk a multiple of 8 that divides
+// kWideCols (8, 16, 32, 64, 128: whole heads in the 128-column attention
+// blocks, one instantiation each) and kv rows of aligned 4-element vectors
+// (kv_vec: the kernels copy them in 16-byte and 8-byte pieces).  Each
+// variant function tests its own "whole" rule first; the two never overlap
+// with this one (they take D 64/128 up to kWideMaxLk kv rows).
+inline bool wide_widths(int Lk, int D, int dk, bool kv_vec) {
+  return kv_vec && dk % 8 == 0 && kWideCols % dk == 0 &&
+         ((D % kWideCols == 0 && D >= 2 * kWideCols && D <= kWideMaxD) ||
+          (D == kWideCols && Lk > kWideMaxLk));
+}
 
 // Shared memory of a GEMM block, in floats: kGStages stages of an A tile and
 // a W tile, then the A tile's kGM row offsets (long long).  The A tile is

@@ -15,13 +15,14 @@ before Wo) and per-head `lse`; K2 recomputes K/V from them and returns the
 gradients of q_proj, kv and the K/V weights.  Their launchers choose a
 kernel by shape (`hop1_variant`, `hop1_bwd_variant`): "whole" at the
 flagship's widths (D 64/128 up to 64 kv rows: every product on the tensor
-cores as 3xTF32, which keeps float32 accuracy), "wide" at D 256/512 and
-past 64 kv rows at D 128 (K1 also at D 384-1024 and d_k 128: every D that
-is a multiple of 128 up to 1024; the weight products as tensor-core GEMMs
-over every row of the launch, two in K1 and three in K2, the attention or
-its backward between them, through a workspace this module allocates;
-K1's attention streams K and V in kv tiles past 64 kv rows) and "tiled"
-at every other width with D % h == 0.  The kernels
+cores as 3xTF32, which keeps float32 accuracy), "wide" at every D that is
+a multiple of 128 from 256 to 1024 and past 64 kv rows at D 128, with d_k
+8, 16, 32, 64 or 128 (one rule of both kernels, `csrc/hop1_gemm.cuh`'s
+`wide_widths`; the weight products as tensor-core GEMMs over every row of
+the launch, two in K1 and three in K2, the attention or its backward
+between them, through a workspace this module allocates; K1's attention
+streams K and V in kv tiles past 64 kv rows, K2's splits a group's kv rows
+over blocks) and "tiled" at every other width with D % h == 0.  The kernels
 hold each head's columns padded with zeros to a multiple of 4; the wrappers
 hand q, the weights and d_concat over in that layout (`_pad_heads`) and take
 the padding off what comes back, which changes no number.  See the sources
@@ -277,12 +278,13 @@ def hop1_bwd_variant(Lq: int, Lk: int, D: int, h: int, kv_vec: bool = True) -> s
     tensor-core dW pass; K1 "whole"'s domain: D 64 or 128, d_k a multiple
     of 8 up to 32, Lk <= 64, aligned rows, any Lq), "wide" (a projection
     GEMM, an attention-backward kernel, a dkv GEMM and a split dW GEMM,
-    3xTF32 on the tensor cores; D 256 or 512 at any Lk and D 128 past 64
-    kv rows, d_k a multiple of 8 up to 64, aligned rows, where K1 is "wide"
-    too; past 64 kv rows a group's rows split over attention blocks of at
-    most 64) or "tiled" (FMA passes; every other width: D 64 past 64 kv
-    rows, D 384 and 640-1024, where K1 is "wide", d_k 128, misaligned
-    grids, the padded head widths).  Each reads
+    3xTF32 on the tensor cores; K1 "wide"'s domain, from one rule of both:
+    every D that is a multiple of 128 from 256 to 1024 at any Lk and D 128
+    past 64 kv rows, d_k 8, 16, 32, 64 or 128, aligned rows; past 64 kv
+    rows a group's rows split over attention blocks of at most 64; at d_k
+    128 two warps a head, each on half its columns) or "tiled" (FMA
+    passes; every other width: D above 1024, d_k 24, 48, 96, 15, 65 and
+    the like, D 64 past 64 kv rows, misaligned grids).  Each reads
     whichever K1 kernel's residuals, one layout
     for all three: concat (B, G, Lq, D), lse (B, G, Lq, h), a fully masked
     row's lse -1e9.  ValueError for widths none takes.  Builds the library

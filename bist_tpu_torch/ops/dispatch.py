@@ -25,12 +25,12 @@ heads, d_model 1024 with 8) with d_k 8, 16, 32, 64 or 128 and, past 64 kv
 rows (t2s over a video of more than 64 clips), at D 128 too, "tiled"
 elsewhere: D above 1024, heads that do not tile 128 columns (d_k 24, 48,
 96, 15, 65, ...), D 64 past 64 kv rows and misaligned grids.  K2 has the
-same three (`hop1_bwd_variant`); its "wide" takes D 128 past 64 kv rows and
-D 256/512 with d_k up to 64, and "tiled" the widths K1 "wide" adds above
-(ROADMAP's K4.3.2).  All three write one residual layout (concat (B, G,
-Lq, D), lse (B, G, Lq, h)), so K2 reads whichever forward ran.  "tiled" is
-known to be slower than the plain path at the widths it still holds
-(PERF.md, section 6; ROADMAP's K4).
+same three (`hop1_bwd_variant`) over the same domains: its "wide" and K1's
+come from one rule (`csrc/hop1_gemm.cuh`'s `wide_widths`), so a train step
+that runs K1 "wide" runs K2 "wide".  All three write one residual layout
+(concat (B, G, Lq, D), lse (B, G, Lq, h)), so K2 reads whichever forward
+ran.  "tiled" is known to be slower than the plain path at the widths it
+still holds (PERF.md, section 6; ROADMAP's K4).
 
 `force_plain()` turns both kernels off, so one batch can run through the
 kernels and through the plain PyTorch paths for comparison (tests,

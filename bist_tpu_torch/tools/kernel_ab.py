@@ -15,15 +15,16 @@ version (a tree whose check also times "tiled" beside "whole" reports
 that too; K3 at head dims 64, 320 and 16, each beside one SDPA call),
 then `phase_train` for 16 flagship steps (ms/step, and the device
 ms/step of all kernels and of the hop-1 kernels), then phase 18's train
-step (`long_step` in CHILD, from the tree's own chip_smoke helpers:
-d_model 512, B 32, 65-180 clips; runs of LONG_STEPS eager steps through
-the kernels and under force_plain in turns, ms/step from the host; K2's
-launches by kernel; the device ms by kernel of 2 steps under
-torch.profiler).  Prints one JSON line per process and, last, the per-case
-readings of both trees side by side ("ms" by single call, "device_ms" back
-to back; chip_smoke.py's methods; for K3 also "kernel_only_ms", its
-kernels' own device time a call from torch.profiler, which the host's work
-cannot move).  Compare two versions only inside one such run: between runs
+step and phase 17's d_model 1024 one (`step_speed` in CHILD, from the
+tree's own chip_smoke helpers: d_model 512, B 32, 65-180 clips, runs of
+LONG_STEPS steps; d_model 1024 with 8 heads, B 32, 8-40 clips, runs of
+WIDTH_STEPS steps; eager steps through the kernels and under force_plain
+in turns, ms/step from the host; K2's launches by kernel; the device ms
+by kernel of 2 steps under torch.profiler).  Prints one JSON line per
+process and, last, the per-case readings of both trees side by side
+("ms" by single call, "device_ms" back to back; chip_smoke.py's methods;
+for K3 also "kernel_only_ms", its kernels' own device time a call from
+torch.profiler, which the host's work cannot move).  Compare two versions only inside one such run: between runs
 the host moves the single-call times.  With
 `--sass`, the named kernel libraries of both trees' builds are also
 disassembled (cuobjdump -sass) and their instructions compared kernel by
@@ -72,6 +73,9 @@ CASES = [
     ("hop1_bwd", "train t2s D=256", "check_hop1_bwd",
      ("train t2s D=256", 32, 16, 32, 40, 256, 8, True, True, 51),
      {"variant": "wide", "vs_tiled": True}),
+    # d_model 1024's train step shape: each tree's own K2 kernel there
+    ("hop1_bwd", "train t2s D=1024", "check_hop1_bwd",
+     ("train t2s D=1024", 32, 16, 32, 40, 1024, 8, True, True, 81), {}),
     ("flash_fwd", "mha kv=32768", "check_flash", ("mha kv=32768", 128, 32, 32768, 64, True, 4),
      {}),
     ("flash_fwd", "kv=32768, d=320", "check_flash",
@@ -80,11 +84,13 @@ CASES = [
      {}),
     ("train", "step", "phase_train", ((), 16), {}),
 ]
-# phase 18's train step: steps a run of `long_step` (CHILD), after the cases
+# steps a run of `step_speed` (CHILD), after the cases: phase 18's train
+# step, phase 17's d_model 1024 one
 LONG_STEPS = 10
+WIDTH_STEPS = 3
 
 # run inside a tree (the working directory): its chip_smoke, its kernels;
-# the cases come as JSON in argv[1], LONG_STEPS in argv[2]
+# the cases come as JSON in argv[1], LONG_STEPS and WIDTH_STEPS in argv[2:4]
 CHILD = r"""
 import contextlib, inspect, json, re, statistics, sys, time
 import torch
@@ -97,8 +103,8 @@ _build.build()
 dev = torch.device("cuda")
 
 
-def long_step(dev, steps):
-    # chip_smoke's phase 18 train step: d_model 512, B 32, 65-180 clips
+def step_speed(dev, steps, model_kw, clips, seed):
+    # a train step of chip_smoke's at model_kw's width, B 32, over clips
     from bist_tpu_torch.config import TrainConfig
     from bist_tpu_torch.data.avsd import load_avsd
     from bist_tpu_torch.data.batching import to_device
@@ -110,9 +116,9 @@ def long_step(dev, steps):
     cs = chip_smoke
     vocab = get_vocabulary(cs.TEST_JSON, cutoff=3, include_caption="summary")
     data = load_avsd(cs.TEST_JSON, vocab, include_caption="summary", separate_caption=True)
-    batch = to_device(cs.make_batches(data, 1, 32, seed=3, answers=True,
-                                      clips=cs.LONG_CLIPS)[0], dev)
-    cfg = cs.flagship_cfg(len(vocab), **cs.REFERENCE_WIDTH, dropout=0.0, attn_dropout=0.0)
+    batch = to_device(cs.make_batches(data, 1, 32, seed=seed, answers=True,
+                                      clips=clips)[0], dev)
+    cfg = cs.flagship_cfg(len(vocab), **model_kw, dropout=0.0, attn_dropout=0.0)
     tcfg = TrainConfig(warmup_steps=10)
     state, tx = create_train_state(0, cfg, tcfg, device=dev)
     step = make_train_step(cfg, tcfg, tx)
@@ -163,13 +169,17 @@ for kernel, case, fn, args, kw in json.loads(sys.argv[1]):
     for k in ("device_ms_per_step", "hop1_kernels_ms_per_step"):
         if r.get("profile"):
             out[f"{kernel} {case}"][k] = r["profile"][k]
-out["train long video step"] = long_step(dev, int(sys.argv[2]))
+out["train long video step"] = step_speed(dev, int(sys.argv[2]), chip_smoke.REFERENCE_WIDTH,
+                                         chip_smoke.LONG_CLIPS, 3)
+out["train d_model 1024 step"] = step_speed(dev, int(sys.argv[3]), chip_smoke.WIDTH_1024,
+                                            (8, chip_smoke.T_MAX), 1)
 print(json.dumps(out))
 """
 
 
 def run_tree(tree: str) -> dict:
-    r = subprocess.run([sys.executable, "-c", CHILD, json.dumps(CASES), str(LONG_STEPS)],
+    r = subprocess.run([sys.executable, "-c", CHILD, json.dumps(CASES), str(LONG_STEPS),
+                        str(WIDTH_STEPS)],
                        cwd=tree,
                        capture_output=True, text=True, timeout=900)
     if r.returncode != 0:

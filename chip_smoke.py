@@ -669,7 +669,7 @@ def check_hop1(device, name, variant, B, G, Lq, Lk, D, h, masked, strided_t2s,
 
 def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
                    full_row=False, *, variant=None, vs_tiled=False, bf16=False,
-                   memory=False):
+                   memory=False, hold_tiled=True):
     """One K2 case: the residuals of the plain forward on random inputs, a
     random upstream gradient, d_concat and Dh as `hop1_trainable`'s glue
     makes them; every gradient held against `hop1_bwd_plain` evaluated in
@@ -677,7 +677,9 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
     evaluation, the timed plain version).  With
     `variant` the case must run that kernel ("whole", "wide" or "tiled", the
     three of csrc/hop1_bwd.cu); with `vs_tiled` "tiled" is checked and
-    timed at the same inputs too (as `check_hop1` times it); with `bf16` a
+    timed at the same inputs too (as `check_hop1` times it; with
+    `hold_tiled` false, where "tiled" is known to miss the tolerance, its
+    error is read ("tiled_within_tol") and not held); with `bf16` a
     bfloat16 grid (dkv then
     within one bfloat16 step).  The bound counts every product at the rate
     "whole" and "wide" run it: 3xTF32, two passes for the products with a
@@ -736,8 +738,16 @@ def check_hop1_bwd(device, name, B, G, Lq, Lk, D, h, masked, strided_t2s, seed,
         extra["peak_mb"] = {"kernel": peak_mb(run), "plain": peak_mb(plain)}
     if vs_tiled:
         tiled = lambda: _hop1_bwd_as("tiled", *args)
-        extra.update(tiled_max_abs_err=agree(tiled(), f"{name} (tiled)"),
-                     tiled_ms=time_ms(tiled, reps=5, warmup=1),
+        if hold_tiled:
+            extra["tiled_max_abs_err"] = agree(tiled(), f"{name} (tiled)")
+        else:
+            t_got = tiled()
+            extra["tiled_max_abs_err"] = max((a.float() - b.float()).abs().max().item()
+                                             for a, b in zip(t_got, want))
+            extra["tiled_within_tol"] = all(
+                torch.allclose(a.float(), b.float(), rtol=TOL, atol=TOL)
+                for a, b in zip(t_got, want))
+        extra.update(tiled_ms=time_ms(tiled, reps=5, warmup=1),
                      tiled_device_ms=device_time_ms(tiled, launches=5, reps=3, warmup=1))
     nbytes, flops, kv_flops = hop1_bwd_work(B, G, Lq, Lk, D, h, masked, kv.element_size())
     if bf16:
@@ -889,7 +899,7 @@ def phase_kernels(device):
         # D 1024 and 768; each against "tiled" at the same inputs.  t2s at
         # B 8 (the old "tiled" case, to compare with its earlier times) and
         # at the main path's B 64, s2t, the kv-tile kernel past 64 kv rows,
-        # a bfloat16 grid, the training launch with K2 ("tiled" at D 1024)
+        # a bfloat16 grid, the training launch with K2 ("wide" at D 1024)
         # on its residuals
         check_hop1(device, "t2s D=1024 h=8", "wide", 8, 16, 32, 40, 1024, 8, True, True,
                    21, vs_tiled=True),
@@ -969,12 +979,35 @@ def phase_kernels(device):
                        True, 70, bf16=True, variant="wide", vs_tiled=True, memory=True),
         check_hop1_bwd(device, "t2s Lk130 D=128 h=16", 8, 16, 32, 130, 128, 16, True, True,
                        71, variant="wide", vs_tiled=True, memory=True),
-        # the widths "wide" is not built for (D 1024: two head groups)
+        # "wide" at K1 "wide"'s widths past D 512 and d_k 64: d_model 1024
+        # with 8 heads (d_k 128, two warps a head) at B 8 (the old "tiled"
+        # case, its seed and a fully masked row, to compare with its
+        # earlier times), at the train step's B 32 (phase 17's d_model 1024
+        # leg) t2s and s2t, d_k 128 at the reference's width, D 768, past 64
+        # kv rows with its peak memory against plain's, a bfloat16 grid;
+        # each against "tiled" at the same inputs
+        check_hop1_bwd(device, "t2s D=1024 h=8", 8, 16, 32, 40, 1024, 8, True, True, 25,
+                       full_row=True, variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "train t2s D=1024", 32, 16, 32, 40, 1024, 8, True, True, 81,
+                       variant="wide", vs_tiled=True, memory=True),
+        # ("tiled", its dW summed over 20,480 kv rows on the FMA units,
+        # misses the tolerance in dWk there: its error read, not held)
+        check_hop1_bwd(device, "train s2t D=1024", 32, 40, 32, 16, 1024, 8, False, False, 82,
+                       variant="wide", vs_tiled=True, hold_tiled=False),
+        check_hop1_bwd(device, "t2s D=512 h=4", 8, 16, 32, 40, 512, 4, True, True, 83,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "t2s D=768 h=12", 8, 16, 32, 40, 768, 12, True, True, 84,
+                       variant="wide", vs_tiled=True),
+        check_hop1_bwd(device, "t2s Lk200 D=1024", 8, 16, 32, 200, 1024, 8, True, True, 85,
+                       variant="wide", vs_tiled=True, memory=True),
+        check_hop1_bwd(device, "t2s D=1024 bf16", 8, 16, 32, 40, 1024, 8, True, True, 86,
+                       bf16=True, variant="wide", vs_tiled=True),
+        # the widths "wide" is not built for: d_k 15, d_k 65, D above 1024
         check_hop1_bwd(device, "t2s D=120 h=8", 8, 16, 32, 40, 120, 8, True, True, 23,
                        full_row=True, variant="tiled"),
         check_hop1_bwd(device, "t2s D=520 h=8", 8, 16, 32, 40, 520, 8, True, True, 24,
                        full_row=True, variant="tiled"),
-        check_hop1_bwd(device, "t2s D=1024 h=8", 8, 16, 32, 40, 1024, 8, True, True, 25,
+        check_hop1_bwd(device, "t2s D=1152 h=8", 8, 16, 32, 40, 1152, 8, True, True, 87,
                        full_row=True, variant="tiled"),
     ]
     flash = [
@@ -4970,26 +5003,35 @@ def phase_reference_width(device, n_batches=2, B=64, train_B=32, steps=5,
 
 
 WIDTH_1024 = dict(d_model=1024, att_h=8)
-# K1 and K2 through the wrappers by kernel in phase 17's d_model 1024
-# gradient check: K2 keeps "tiled" at D 1024 (ROADMAP's K4.3.2)
-WIDTH_1024_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"tiled": 6}}
+# K1 and K2 through the wrappers by kernel in a train step of phase 17's
+# d_model 1024 leg (its gradient check, and each timed step)
+WIDTH_1024_TRAIN = {"hop1_fwd": {"wide": 6}, "hop1_bwd": {"wide": 6}}
 
 
 def phase_width_1024(device, B=64, train_B=32, model_kw=WIDTH_1024):
     """Phase 17's leg at d_model 1024 with 8 heads (`model_kw`; d_k 128,
-    hop 1 through K1 "wide"): `width_leg` on 1 batch of B test turns and a
-    train batch of train_B turns, K1 and K2 in its gradient check as
-    WIDTH_1024_TRAIN says.  Returns the readings."""
+    hop 1 through K1 and K2 "wide"): `width_leg` on 1 batch of B test turns
+    and a train batch of train_B turns, K1 and K2 in its gradient check as
+    WIDTH_1024_TRAIN says; then that batch's eager train step against
+    force_plain and its device ms by kernel (`long_train_speed`, K1 and K2
+    by kernel WIDTH_1024_TRAIN a step).  Returns the readings."""
     import torch
 
     t0 = time.perf_counter()
-    generation, grad_check, state, *_ = width_leg(device, model_kw, 1, B, train_B,
-                                                  WIDTH_1024_TRAIN)
+    generation, grad_check, state, tx, tcfg_model, tcfg, tb = width_leg(
+        device, model_kw, 1, B, train_B, WIDTH_1024_TRAIN)
+    speed = long_train_speed(device, state, tcfg_model, tcfg, tx, tb[0])
+    runs = 2 * LONG_TRAIN_STEPS
+    want = {k: {v: n * runs for v, n in c.items()} for k, c in WIDTH_1024_TRAIN.items()} \
+        if device.type == "cuda" else {"hop1_fwd": {}, "hop1_bwd": {}}
+    if speed["kernel_launches"] != want:
+        raise AssertionError(f"d_model {model_kw['d_model']} train steps: K1, K2 by kernel "
+                             f"{speed['kernel_launches']}, expected {want}")
     out = {"config": model_kw, "generation": generation,
-           "training": {"batch_size": train_B, "grad_check": grad_check},
+           "training": {"batch_size": train_B, "grad_check": grad_check, "speed": speed},
            "seconds": time.perf_counter() - t0}
     log(f"d_model {model_kw['d_model']}: {json.dumps(out)}")
-    del state
+    del state, tb
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -5037,7 +5079,7 @@ def long_train_speed(device, state, cfg, tcfg, tx, batch):
                 sync()
                 times.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(float(m["loss"])):
-            raise AssertionError(f"long videos train step (plain {plain}): loss {m['loss']}")
+            raise AssertionError(f"eager train step (plain {plain}): loss {m['loss']}")
         return times
 
     run(1, False)
@@ -5361,6 +5403,7 @@ def main() -> int:
     w1024 = phase_width_1024(device)
     rps = w1024["generation"]["responses_per_s"]
     chk = w1024["training"]["grad_check"]
+    w_speed = w1024["training"]["speed"]
     print(f"d_model 1024, 8 heads on {card}: beam search {rps['kernels_replayed']:.1f} "
           f"responses/s replayed ({rps['kernels_eager']:.1f} eager) against plain "
           f"{rps['plain_replayed']:.1f} ({rps['plain_eager']:.1f}), tokens identical to plain "
@@ -5368,7 +5411,11 @@ def main() -> int:
           f"{json.dumps(w1024['generation']['replayed_k1_by_name'])}; train step B "
           f"{w1024['training']['batch_size']}: loss {chk['loss_rel_diff']:.2e} rel of plain, "
           f"gradients max |diff| {chk['max_abs_diff']:.2e}, K1/K2 by kernel "
-          f"{json.dumps(chk['variants'])}; {w1024['seconds']:.1f} s", flush=True)
+          f"{json.dumps(chk['variants'])}; eager ms/step "
+          f"{json.dumps(w_speed['eager_ms_per_step'])}, device ms/step "
+          f"{w_speed['breakdown']['device_ms_per_step']:.2f}: K1 "
+          f"{json.dumps(w_speed['breakdown']['k1_ms'])}, K2 "
+          f"{json.dumps(w_speed['breakdown']['k2_ms'])}; {w1024['seconds']:.1f} s", flush=True)
     print(f"d_model 1024 on {card}: {json.dumps(w1024)}", flush=True)
     lap("d_model 1024")
 
@@ -5397,9 +5444,10 @@ def main() -> int:
     ref_k1 = {k: gen["replayed_k1_by_name"][k]
               + w1024["generation"]["replayed_k1_by_name"][k] for k in K1_NONE}
     # K2 through the wrapper in phase 17's eager steps and its d_model 1024
-    # gradient check
+    # gradient check and timed eager steps
     ref_k2 = {k: trn["eager_launches"]["hop1_bwd"].get(k, 0)
-              + chk["variants"]["hop1_bwd"].get(k, 0) for k in K2_NONE}
+              + chk["variants"]["hop1_bwd"].get(k, 0)
+              + w_speed["kernel_launches"]["hop1_bwd"].get(k, 0) for k in K2_NONE}
     ref_k2 = {k: n for k, n in ref_k2.items() if n}
     long_k1 = {k: sum(g["replayed_k1_by_name"][k] for g in long["generation"].values())
                for k in K1_NONE}
@@ -5412,6 +5460,14 @@ def main() -> int:
     wide_1024 = next(c for c in hop1_cases if c["case"] == "t2s D=1024 h=8")
     wide_bwd = next(c for c in bwd_cases if c["case"] == "train t2s D=512")
     wide_bwd_long = next(c for c in bwd_cases if c["case"] == "train t2s Lk200 D=512")
+    wide_bwd_1024 = next(c for c in bwd_cases if c["case"] == "train t2s D=1024")
+    # K2 by kernel over the paths: "tiled" runs only in phase 2's forced and
+    # "tiled"-only cases
+    k2_variants = {k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
+                   + long_k2.get(k, 0) for k in K2_NONE}
+    k2_variants = {k: n for k, n in k2_variants.items() if n}
+    if "tiled" in k2_variants:
+        raise AssertionError(f"K2 \"tiled\" ran on a path: {k2_variants}")
     kernels = [
         dict(kernel_entry("hop1_fwd", "bist_tpu_torch/csrc/hop1_fwd.cu",
                           "bist_tpu/ops/bist_kernels.py:63", hop1_cases,
@@ -5433,7 +5489,8 @@ def main() -> int:
              # replays, through the wrapper in its gradient check
              launches_width_1024={
                  "beam_search_replayed": w1024["generation"]["replayed_k1_by_name"],
-                 "grad_check": chk["variants"]["hop1_fwd"]},
+                 "grad_check": chk["variants"]["hop1_fwd"],
+                 "train_steps": w_speed["kernel_launches"]["hop1_fwd"]},
              # K1 kernels the card ran by name in the long videos' beam-search
              # replays (phase 18) at each width, and through the wrapper in
              # its train step
@@ -5482,13 +5539,10 @@ def main() -> int:
                           f"eager train steps, counted through the wrapper: the "
                           f"flagship's {train['steps']} steps of {train['batch_size']} "
                           f"(phase 6), the reference width's {trn['steps']} steps of "
-                          f"{trn['batch_size']} and d_model 1024's gradient check (phase "
-                          f"17) and the long videos' gradient check and timed steps "
-                          f"(phase 18)"),
-             variants={k: train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
-                       + long_k2.get(k, 0) for k in K2_NONE
-                       if train["hop1_bwd_variants"].get(k, 0) + ref_k2.get(k, 0)
-                       + long_k2.get(k, 0)},
+                          f"{trn['batch_size']} and d_model 1024's gradient check and "
+                          f"timed steps (phase 17) and the long videos' gradient check "
+                          f"and timed steps (phase 18)"),
+             variants=k2_variants,
              launches_train=train["launches"]["hop1_bwd"],
              # "wide" at the reference's width (phase 2's train t2s D=512 case,
              # the train step's shape) and each of its kernels' device ms
@@ -5500,10 +5554,16 @@ def main() -> int:
              wide_past_64={k: wide_bwd_long[k] for k in (
                  "case", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "tiled_ms",
                  "max_abs_err", "kernel_device_ms", "peak_mb")},
+             # "wide" at d_model 1024, d_k 128 (phase 2's train t2s D=1024
+             # case, phase 17's d_model 1024 train step's t2s shape)
+             wide_d1024={k: wide_bwd_1024[k] for k in (
+                 "case", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                 "bound_by", "tiled_ms", "tiled_device_ms", "max_abs_err",
+                 "kernel_device_ms", "peak_mb")},
              # K2 at the reference width (phase 17): eager steps through the
-             # wrapper (and d_model 1024's gradient check: "tiled"), and
-             # kernels (first pass; "wide" by its attention kernel) the card
-             # ran in 2 train replays, by name
+             # wrapper (and d_model 1024's gradient check and timed steps),
+             # and kernels (first pass; "wide" by its attention kernel) the
+             # card ran in 2 train replays, by name
              launches_reference_width={"eager": ref_k2,
                                        "train_replayed": trn["replayed_by_name"]["k2"]},
              # K2 through the wrapper in the long videos' train steps (phase 18)

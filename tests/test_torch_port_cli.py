@@ -345,18 +345,25 @@ def test_chip_smoke_phases_on_cpu(monkeypatch):
 
 
 def test_kernel_ab_long_step_binds_to_chip_smokes_helpers():
-    """kernel_ab's phase 18 train step (`long_step`, run inside each tree)
-    calls chip_smoke's helpers with these arguments: they must bind to this
-    tree's, and the constants it reads must be there."""
+    """kernel_ab's phase 18 and phase 17 d_model 1024 train steps
+    (`step_speed`, run inside each tree) call chip_smoke's helpers with these
+    arguments: they must bind to this tree's, and the constants it reads
+    must be there."""
     import inspect
 
     from bist_tpu_torch.tools import kernel_ab
 
-    assert "long_step(dev, int(sys.argv[2]))" in kernel_ab.CHILD and kernel_ab.LONG_STEPS >= 3
-    inspect.signature(chip_smoke.make_batches).bind(None, 1, 32, seed=3, answers=True,
-                                                    clips=chip_smoke.LONG_CLIPS)
-    inspect.signature(chip_smoke.flagship_cfg).bind(1, **chip_smoke.REFERENCE_WIDTH,
-                                                    dropout=0.0, attn_dropout=0.0)
+    assert ("step_speed(dev, int(sys.argv[2]), chip_smoke.REFERENCE_WIDTH,"
+            in kernel_ab.CHILD and kernel_ab.LONG_STEPS >= 3)
+    assert ("step_speed(dev, int(sys.argv[3]), chip_smoke.WIDTH_1024,"
+            in kernel_ab.CHILD and kernel_ab.WIDTH_STEPS >= 3)
+    for clips, seed in ((chip_smoke.LONG_CLIPS, 3), ((8, chip_smoke.T_MAX), 1)):
+        inspect.signature(chip_smoke.make_batches).bind(None, 1, 32, seed=seed, answers=True,
+                                                        clips=clips)
+    for width in (chip_smoke.REFERENCE_WIDTH, chip_smoke.WIDTH_1024):
+        inspect.signature(chip_smoke.flagship_cfg).bind(1, **width, dropout=0.0,
+                                                        attn_dropout=0.0)
     inspect.signature(chip_smoke.copy_state).bind(None)
     inspect.signature(chip_smoke.step_breakdown).bind(None, 2)
     assert chip_smoke.REFERENCE_WIDTH == dict(d_model=512, att_h=8)
+    assert chip_smoke.WIDTH_1024 == dict(d_model=1024, att_h=8)

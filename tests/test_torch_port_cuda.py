@@ -209,13 +209,12 @@ def test_hop1_variant_past_64_kv_rows(cuda):
     d_k 8, 16, 32, 64 or 128 (heads that tile 128 columns); "tiled" at D
     64, 384 with 8 heads (d_k 48), 520, 120 and 1152, for a misaligned grid
     and at the padded head widths; "whole" at D 128 up to 64 kv rows with
-    d_k up to 32.  K2 takes K1's "wide" at D 128, 256 and 512 with d_k up
-    to 64, and "tiled" at the widths K1 "wide" adds."""
+    d_k up to 32.  K2 takes exactly K1's "wide" (one rule of both,
+    csrc/hop1_gemm.cuh's wide_widths) and K1's "tiled"."""
     for D in (128, 256, 384, 512, 640, 768, 896, 1024):
         for dk in (8, 16, 32, 64, 128):
             h = D // dk
-            k2_wide = D in (128, 256, 512) and dk <= 64
-            for Lk in (1, 40, 64, 65, 200, 600):
+            for Lk in (1, 16, 40, 64, 65, 130, 200, 600):
                 for Lq in (5, 32):
                     want = "whole" if D == 128 and Lk <= 64 and dk <= 32 else \
                         "tiled" if D == 128 and Lk <= 64 else "wide"
@@ -223,9 +222,7 @@ def test_hop1_variant_past_64_kv_rows(cuda):
                     # K2 "whole" has a shared-memory rule of its own: held at
                     # 8 heads
                     if want != "whole" or h == 8:
-                        assert K1.hop1_bwd_variant(Lq, Lk, D, h) == \
-                            ("tiled" if want == "wide" and not k2_wide else want), \
-                            (Lq, Lk, D, h)
+                        assert K1.hop1_bwd_variant(Lq, Lk, D, h) == want, (Lq, Lk, D, h)
             assert K1.hop1_variant(32, 200, D, h, kv_vec=False) == "tiled"
             assert K1.hop1_bwd_variant(32, 200, D, h, kv_vec=False) == "tiled"
     for D, h in ((64, 4), (520, 8), (120, 8), (384, 8), (1152, 8), (1024, 4), (768, 8)):
@@ -456,14 +453,16 @@ def bwd_inputs(rng, B, G, Lq, Lk, D, h, dev, full_row):
     (2, 2, 8, 75, 512, 8, True), (4, 16, 32, 40, 128, 8, False),
     (2, 16, 32, 40, 512, 8, True), (3, 5, 12, 33, 256, 4, False),   # K1 "wide"
     (2, 16, 32, 200, 512, 8, True), (2, 16, 32, 200, 128, 8, False),  # kv tiles
+    (2, 8, 32, 40, 1024, 8, True), (2, 4, 32, 130, 1024, 8, False),   # d_k 128
 ])
 def test_hop1_residuals_and_backward_match_plain(cuda, B, G, Lq, Lk, D, h, full_row):
     """K1's residuals and K2's six gradients against their plain versions:
     float32 and a bfloat16 grid, kv a strided view, a fully masked row; K2
     also on K1's own residuals (at D 256/512 with Lk <= 64 "wide"'s, which
     K2 "wide" reads; past 64 kv rows at D 128-512 "wide"'s over kv tiles,
-    which K2 "wide" reads over kv slices)."""
-    if Lk > 64 and D in (128, 512):
+    which K2 "wide" reads over kv slices; at D 1024 with d_k 128 both
+    "wide")."""
+    if (Lk > 64 and D in (128, 512)) or D == 1024:
         assert (K1.hop1_variant(Lq, Lk, D, h), K1.hop1_bwd_variant(Lq, Lk, D, h)) == \
             ("wide", "wide")
     rng = np.random.default_rng(5)
@@ -535,6 +534,15 @@ def bwd_grads_agree(got, want, kv, what):
     ("wide", 2, 5, 17, 130, 256, 8, True, True),       # d_k 32, a bfloat16 grid
     ("wide", 2, 4, 40, 70, 128, 2, False, False),      # D 128, d_k 64
     ("wide", 3, 3, 5, 600, 128, 4, True, False),       # D 128, d_k 32, ten slices
+    # K1 "wide"'s widths past D 512 and d_k 64: two warps a head at d_k 128
+    ("wide", 2, 16, 32, 40, 1024, 8, True, False),     # d_model 1024, 8 heads t2s
+    ("wide", 2, 40, 32, 16, 1024, 8, False, True),     # its s2t, a bfloat16 grid
+    ("wide", 2, 8, 33, 130, 1024, 8, True, False),     # past 64 kv rows, two query chunks
+    ("wide", 3, 16, 5, 37, 512, 4, True, False),       # d_k 128 at D 512, ragged
+    ("wide", 2, 16, 32, 40, 768, 12, True, False),     # D 768, d_k 64
+    ("wide", 2, 16, 17, 40, 384, 3, True, False),      # D 384, d_k 128
+    ("wide", 2, 4, 32, 70, 896, 56, False, False),     # D 896, d_k 16
+    ("tiled", 2, 4, 32, 40, 1152, 8, True, False),     # above 1024: "tiled"
 ])
 def test_hop1_bwd_variants_match_plain(cuda, variant, B, G, Lq, Lk, D, h, strided, bf16):
     """K2's three kernels at the training step's widths and around them,
@@ -568,8 +576,10 @@ def test_hop1_bwd_forced_variants_agree(cuda):
     """The measurement path (`_hop1_bwd_as`): "tiled" takes the flagship
     and the reference widths too and agrees with "whole" and "wide" (up to
     and past 64 kv rows); "whole" refuses widths it does not take (Lk 70, D
-    96, a misaligned grid), "wide" likewise (D 1024, D 64 past 64 kv rows,
-    a misaligned grid); each counts its launches by kernel."""
+    96, a misaligned grid), "wide" likewise (D 1152, D 384 with 8 heads (d_k
+    48), D 64 past 64 kv rows, a misaligned grid); "tiled" agrees with
+    "wide" at d_model 1024 (d_k 128, up to and past 64 kv rows) and at D 512
+    with 4 heads; each counts its launches by kernel."""
     rng = np.random.default_rng(10)
     B, G, Lq, Lk, D, h = 2, 16, 32, 40, 128, 8
     p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B, G, Lq, Lk, D, h, cuda, True)
@@ -599,13 +609,16 @@ def test_hop1_bwd_forced_variants_agree(cuda):
                     "tiled vs wide")
     for v in ("tiled", "wide"):
         assert K1.hop1_bwd.variants[v] == before.get(v, 0) + 1
-    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 32, 200, 512, 8), (2, 4, 8, 70, 128, 8)):
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 32, 200, 512, 8), (2, 4, 8, 70, 128, 8),
+                                     (2, 4, 32, 16, 1024, 8), (2, 4, 8, 70, 1024, 8),
+                                     (2, 8, 32, 40, 512, 4)):
         p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
         args = (q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"], p["wv"]["w"],
                 p["wv"]["b"], h_)
         bwd_grads_agree(K1._hop1_bwd_as("tiled", *args), K1._hop1_bwd_as("wide", *args), kv,
                         f"tiled vs wide at Lk {Lk_} D {D_}")
-    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 16, 1024, 8), (2, 4, 8, 70, 64, 4)):
+    for B_, G_, Lq_, Lk_, D_, h_ in ((2, 4, 8, 16, 1152, 8), (2, 4, 8, 16, 384, 8),
+                                     (2, 4, 8, 70, 64, 4)):
         p, x, q, kv, mask, dcc, dh, lse = bwd_inputs(rng, B_, G_, Lq_, Lk_, D_, h_, cuda, True)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1._hop1_bwd_as("wide", q, kv, mask, dcc, dh, lse, p["wk"]["w"], p["wk"]["b"],
@@ -619,7 +632,7 @@ def test_hop1_bwd_forced_variants_agree(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lk,D", [(40, 512), (200, 512), (200, 128)])
+@pytest.mark.parametrize("Lk,D", [(40, 512), (200, 512), (200, 128), (40, 1024)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_hop1_bwd_wide_bit_identical(cuda, bf16, Lk, D):
     """K2 "wide" sums in a fixed order (no float atomics): two calls on the

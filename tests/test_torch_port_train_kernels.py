@@ -98,7 +98,8 @@ def bwd_case(rng, B, G, Lq, Lk, D, h, masked, full_row=False):
     pytest.param(600, True, 32, 4, id="600-True"),
     pytest.param(600, False, 32, 4, id="600-False"),
     # the widths K2 "wide" takes, where the card holds it against this
-    # plain version: D 256 and 512, d_k 32 and 64
+    # plain version: D 256 and 512, d_k 32 and 64 (and the D 384-1024 cases
+    # below)
     pytest.param(7, True, 256, 8, id="7-True-D256-h8"),
     pytest.param(7, True, 512, 8, id="7-True-D512-h8"),
     pytest.param(7, True, 512, 16, id="7-True-D512-h16"),
@@ -107,6 +108,14 @@ def bwd_case(rng, B, G, Lq, Lk, D, h, masked, full_row=False):
     pytest.param(130, True, 512, 8, id="130-True-D512-h8"),
     pytest.param(65, True, 128, 8, id="65-True-D128-h8"),
     pytest.param(65, False, 128, 16, id="65-False-D128-h16"),
+    # K1 "wide"'s widths past D 512 and d_k 64, where K2 "wide" takes them
+    # too: d_model 1024 with 8 heads (d_k 128) up to and past 64 kv rows,
+    # d_k 128 at D 512 and 384, D 768 (d_k 64)
+    pytest.param(7, True, 1024, 8, id="7-True-D1024-h8"),
+    pytest.param(130, True, 1024, 8, id="130-True-D1024-h8"),
+    pytest.param(7, True, 512, 4, id="7-True-D512-h4"),
+    pytest.param(7, True, 768, 12, id="7-True-D768-h12"),
+    pytest.param(7, True, 384, 3, id="7-True-D384-h3"),
 ])
 def test_hop1_bwd_plain_matches_pallas(Lk, masked, D, h, rng):
     """hop1_bwd_plain against _hop1_bwd_pallas (interpret mode) on the same
@@ -200,7 +209,7 @@ def test_hop1_bwd_plain_equals_autograd_through_hop1_plain(masked, rng):
     (2, 3, 7, 30, 3),          # d_k 10
     (2, 2, 9, 120, 8),         # d_k 15
     (1, 2, 6, 520, 8),         # above 512, d_k 65
-    (1, 2, 5, 1024, 8),        # two head groups in K2
+    (1, 2, 5, 1024, 8),        # d_model 1024: d_k 128
     # the widths K1 and K2 "wide" take
     (1, 2, 7, 256, 8),
     (1, 2, 7, 256, 4),
@@ -209,6 +218,11 @@ def test_hop1_bwd_plain_equals_autograd_through_hop1_plain(masked, rng):
     # past 64 kv rows (K1 and K2 "wide" on the card): D 512 and D 128
     (1, 2, 130, 512, 8),
     (1, 2, 65, 128, 8),
+    # d_k 128 (K1 and K2 "wide" on the card): d_model 1024 with 8 heads up to
+    # and past 64 kv rows, D 512 with 4
+    (1, 2, 7, 1024, 8),
+    (1, 2, 130, 1024, 8),
+    (1, 2, 7, 512, 4),
 ])
 def test_hop1_trainable_grads_match_jax(B, G, Lk, D, h, rng):
     """All 9 gradients against jax.grad of JAX's hop1_trainable (Pallas

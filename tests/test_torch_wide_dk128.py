@@ -132,13 +132,13 @@ def test_beam_search_at_d_model_1024_identical_to_jax(rng):
 def test_chip_smoke_phase_width_1024_on_cpu():
     """Phase 17's d_model 1024 leg at a tiny width on the CPU: beam search
     eager and replayed against force_plain token for token, one train step's
-    gradients against force_plain; no kernel here, so no launch by kernel
-    and no trace."""
+    gradients against force_plain, its eager steps timed against
+    force_plain; no kernel here, so no launch by kernel and no trace."""
     import chip_smoke
 
     assert chip_smoke.WIDTH_1024 == {"d_model": 1024, "att_h": 8}
     assert chip_smoke.WIDTH_1024_TRAIN == {"hop1_fwd": {"wide": 6},
-                                           "hop1_bwd": {"tiled": 6}}
+                                           "hop1_bwd": {"wide": 6}}
     out = chip_smoke.phase_width_1024(torch.device("cpu"), B=2, train_B=2,
                                       model_kw=dict(d_model=32, att_h=4))
     gen, trn = out["generation"], out["training"]
@@ -154,3 +154,9 @@ def test_chip_smoke_phase_width_1024_on_cpu():
     assert check["loss_rel_diff"] <= 5e-4 and check["launches"] == (0, 0)
     assert check["variants"] == {"hop1_fwd": {}, "hop1_bwd": {}}
     assert np.isfinite(check["loss_kernel"]) and out["seconds"] > 0
+    speed = trn["speed"]
+    assert speed["kernel_launches"] == {"hop1_fwd": {}, "hop1_bwd": {}}
+    assert speed["breakdown"] == {}
+    runs = {k: len(v) for k, v in speed["eager_ms"].items()}
+    assert runs == {"kernels": 2 * speed["steps_a_run"], "plain": 2 * speed["steps_a_run"]}
+    assert all(np.isfinite(v) and v > 0 for v in speed["eager_ms_per_step"].values())
